@@ -1,0 +1,189 @@
+"""The ResNetV2 hybrid stem (non-pre-activation, layers (3, 4, 9)).
+
+Port of ``maed_tpu/models/resnetv2.py`` for the path the ViT hybrid runs.
+Frames come in NHWC, as in the JAX package, and run NCHW inside the stem.
+
+TF "SAME" padding: XLA pads asymmetrically, the extra row and column at the
+end, and ``F.conv2d`` cannot. So every conv and the max-pool pad explicitly,
+with the padding computed from the input size (at 224 px the 7x7 stride-2
+stem conv pads (2, 3), the stride-2 3x3 convs and the max-pool (0, 1); the
+pool pads with -inf). Convolutions stay on cuDNN through ``F.conv2d``, as the
+JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def make_div(v: float, divisor: int = 8) -> int:
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """TF SAME padding (before, after) of one spatial axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> torch.Tensor:
+    """Pad an NCHW tensor for a TF SAME window of ``kernel`` and ``stride``."""
+    top, bottom = same_padding(x.shape[-2], kernel, stride)
+    left, right = same_padding(x.shape[-1], kernel, stride)
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=value)
+    return x
+
+
+def max_pool_same(x: torch.Tensor, window: int = 3, stride: int = 2) -> torch.Tensor:
+    """Max-pool an NCHW tensor with TF SAME padding (padded with -inf)."""
+    return F.max_pool2d(pad_same(x, window, stride, value=-math.inf), window, stride)
+
+
+class StdConv(nn.Module):
+    """Conv with weight standardization (per output channel over I, H, W;
+    biased variance; the (std + eps) denominator) and TF SAME padding.
+
+    The standardization runs in the weight's own dtype before the cast to
+    the compute dtype. ``standardize=False`` takes weights that
+    ``utils.checkpoint.fold_weight_standardization`` already standardized.
+    """
+
+    def __init__(self, in_chs: int, out_chs: int, kernel_size: int, stride: int = 1,
+                 eps: float = 1e-5, standardize: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_chs, in_chs, kernel_size, kernel_size))
+        self.kernel_size, self.stride = kernel_size, stride
+        self.eps, self.standardize, self.dtype = eps, standardize, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        if self.standardize:
+            mean = w.mean(dim=(1, 2, 3), keepdim=True)
+            var = w.var(dim=(1, 2, 3), correction=0, keepdim=True)
+            w = (w - mean) / (torch.sqrt(var) + self.eps)
+        x = pad_same(x.to(self.dtype), self.kernel_size, self.stride)
+        return F.conv2d(x, w.to(self.dtype), stride=self.stride)
+
+
+class GroupNormAct(nn.Module):
+    """GroupNorm(32) with an optional ReLU, written out as the JAX package
+    computes it (``_GroupNormCore``): per-channel f32 moments pooled per
+    group, then one scale-and-shift pass in the compute dtype."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5,
+                 apply_act: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_channels))
+        self.bias = nn.Parameter(torch.empty(num_channels))
+        self.num_groups, self.eps = num_groups, eps
+        self.apply_act, self.dtype = apply_act, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C = x.shape[:2]
+        g = self.num_groups
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        s1 = xf.mean(dim=(2, 3))                 # (B, C)
+        s2 = (xf * xf).mean(dim=(2, 3))
+        gmean = s1.reshape(B, g, C // g).mean(-1)
+        gsq = s2.reshape(B, g, C // g).mean(-1)
+        mean = gmean.repeat_interleave(C // g, dim=-1)
+        var = gsq.repeat_interleave(C // g, dim=-1) - mean * mean
+        inv = self.weight * torch.rsqrt(var + self.eps)
+        mul = inv.to(self.dtype)[:, :, None, None]
+        add = (self.bias - mean * inv).to(self.dtype)[:, :, None, None]
+        y = x.to(self.dtype) * mul + add
+        return torch.relu(y) if self.apply_act else y
+
+
+class DownsampleConv(nn.Module):
+    def __init__(self, in_chs, out_chs, stride, standardize=True, dtype=torch.float32):
+        super().__init__()
+        self.conv = StdConv(in_chs, out_chs, 1, stride, standardize=standardize, dtype=dtype)
+        self.norm = GroupNormAct(out_chs, apply_act=False, dtype=dtype)
+
+    def forward(self, x):
+        return self.norm(self.conv(x))
+
+
+class Bottleneck(nn.Module):
+    """Non-pre-activation bottleneck (the variant the ViT hybrid stem uses)."""
+
+    def __init__(self, in_chs, out_chs, stride=1, has_downsample=False,
+                 standardize=True, dtype=torch.float32):
+        super().__init__()
+        mid = make_div(out_chs * 0.25)
+        kw = dict(standardize=standardize, dtype=dtype)
+        self.downsample = (DownsampleConv(in_chs, out_chs, stride, **kw)
+                           if has_downsample else None)
+        self.conv1 = StdConv(in_chs, mid, 1, **kw)
+        self.norm1 = GroupNormAct(mid, dtype=dtype)
+        self.conv2 = StdConv(mid, mid, 3, stride, **kw)
+        self.norm2 = GroupNormAct(mid, dtype=dtype)
+        self.conv3 = StdConv(mid, out_chs, 1, **kw)
+        self.norm3 = GroupNormAct(out_chs, apply_act=False, dtype=dtype)
+
+    def forward(self, x):
+        shortcut = x if self.downsample is None else self.downsample(x)
+        y = self.norm1(self.conv1(x))
+        y = self.norm2(self.conv2(y))
+        y = self.norm3(self.conv3(y))
+        return torch.relu(y + shortcut)
+
+
+class ResNetStage(nn.Module):
+    def __init__(self, in_chs, out_chs, depth, stride, standardize=True, dtype=torch.float32):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            Bottleneck(in_chs if i == 0 else out_chs, out_chs,
+                       stride=stride if i == 0 else 1, has_downsample=(i == 0),
+                       standardize=standardize, dtype=dtype)
+            for i in range(depth))
+
+    def forward(self, x):
+        for block in self.blocks:
+            x = block(x)
+        return x
+
+
+class Stem(nn.Module):
+    """7x7 stride-2 conv, GroupNorm + ReLU, 3x3 stride-2 SAME max-pool."""
+
+    def __init__(self, out_chs, standardize=True, dtype=torch.float32):
+        super().__init__()
+        self.conv = StdConv(3, out_chs, 7, 2, standardize=standardize, dtype=dtype)
+        self.norm = GroupNormAct(out_chs, dtype=dtype)
+
+    def forward(self, x):
+        return max_pool_same(self.norm(self.conv(x)))
+
+
+class ResNetV2(nn.Module):
+    """The hybrid-ViT stem: (B, 3, 224, 224) -> (B, 1024, 14, 14)."""
+
+    def __init__(self, layers=(3, 4, 9), channels=(256, 512, 1024), stem_chs=64,
+                 standardize=True, dtype=torch.float32):
+        super().__init__()
+        self.stem = Stem(make_div(stem_chs), standardize=standardize, dtype=dtype)
+        in_chs, stages = make_div(stem_chs), []
+        for i, (depth, chs) in enumerate(zip(layers, channels)):
+            stages.append(ResNetStage(in_chs, make_div(chs), depth, 1 if i == 0 else 2,
+                                      standardize=standardize, dtype=dtype))
+            in_chs = make_div(chs)
+        self.stages = nn.ModuleList(stages)
+        self.num_features = in_chs
+
+    def forward(self, x):
+        y = self.stem(x)
+        for stage in self.stages:
+            y = stage(y)
+        return y

@@ -1,0 +1,41 @@
+"""maed_tpu_torch imports and runs without JAX, flax or triton, as it must on
+the machine with the card (which has no JAX): a fresh interpreter in which
+importing any of them fails imports every module of the port and runs the
+tiny eval forward on the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = sys.modules["flax"] = sys.modules["triton"] = None
+import numpy as np
+import torch
+import maed_tpu_torch
+for mod in pkgutil.walk_packages(maed_tpu_torch.__path__, "maed_tpu_torch."):
+    importlib.import_module(mod.name)
+from maed_tpu_torch.core.builder import build_eval_model
+model, smpl = build_eval_model(num_blocks=1, num_heads=2, hidden_dim=32, img_size=32,
+                               dtype=torch.float32, device="cpu", seed=0,
+                               allow_synthetic_smpl=True, smpl_dir="absent")
+clips = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (1, 2, 32, 32, 3),
+                                                          dtype=np.uint8))
+out = model(clips, smpl, J_regressor=torch.full((14, 6890), 1 / 6890))
+assert out["verts"].shape == (1, 2, 6890, 3) and out["kp_3d"].shape == (1, 2, 14, 3)
+assert all(torch.isfinite(v).all() for v in out.values())
+assert not [name for name, mod in sys.modules.items()
+            if mod is not None and name.split(".")[0] in ("maed_tpu", "jax", "flax", "triton")]
+print("NOJAX_OK")
+"""
+
+
+def test_port_runs_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout
