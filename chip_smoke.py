@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from maed_tpu_torch/csrc (nvcc, sm_90a).
+1. Builds the CUDA kernels from maed_tpu_torch/csrc (nvcc, sm_90a, one
+   compiler per source).
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the flagship eval forward gives it, and times both.
+   shapes the flagship eval forward gives it, in f32 and bf16, and times
+   both, beside the least time the card could take for the same work and,
+   where one PyTorch call computes the same function, that call.
 3. Drives the eval forward the way a user would: ``build_eval_model`` for
    the released stage-2 MAED (6 blocks, 12 heads, KTD hidden 1024) in bf16
    with seeded random weights and the synthetic 6890-vertex SMPL body, then
@@ -41,9 +44,22 @@ ROOT = Path(__file__).resolve().parent
 N_CLIPS, SEQLEN, IMG = 8, 16, 224
 NUM_VERTS = 6890
 REQUESTS = 3
-# kernel launches per forward at depth 6: norm1 x 6 + the final norm; the
-# MLP x 6, each call two launches; SMPL's skinning once
-PER_FORWARD = {"layernorm": 7, "ln_mlp_fc1": 6, "ln_mlp_fc2": 6, "skinning": 1}
+# kernel launches per forward at depth 6: the stem's 52 GroupNorms; per block
+# norm1 + qkv, the temporal and the spatial branch, the gate and the blend +
+# proj, and the MLP's two launches; the final norm; SMPL's skinning once
+PER_FORWARD = {"groupnorm": 52, "ln_dense": 6, "spatial_attention": 6, "temporal_attention": 6,
+               "gate_alpha": 6, "gate_proj": 6, "layernorm": 1, "ln_mlp_fc1": 6,
+               "ln_mlp_fc2": 6, "skinning": 1}
+# every distinct (side, channels, relu) of the stem's 52 GroupNorms at 224 px:
+# the stem norm; stage 1's norm1/2 and norm3/downsample; stage 2's first norm1,
+# its norm2/norm1 and norm3/downsample; stage 3's likewise
+GROUPNORM_SHAPES = ((112, 64, True), (56, 64, True), (56, 256, False), (56, 128, True),
+                    (28, 128, True), (28, 512, False), (28, 256, True), (14, 256, True),
+                    (14, 1024, False))
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory bytes/s, and FLOP/s of the bf16 tensor cores and of f32 outside them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # The bf16 flagship's answers through the kernels may lie at most this many
 # times as far from the f32 answer (max abs over the requests, verts and
 # kp_3d) as its answers through the plain versions do. Both bf16 paths round
@@ -90,13 +106,49 @@ def check_close(name, got, want, atol, rtol=0.0):
     return err
 
 
+def bound(tensors, flops: float, kind: str) -> dict:
+    """The least time the card could take: each of ``tensors`` (inputs and
+    outputs) moved once at the memory rate, or ``flops`` at the peak rate of
+    their ``kind``, whichever is larger."""
+    by_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def compare(label, kernel, plain, atol, rtol, moved=None, flops=0.0, kind="bf16",
+            library=None, iters=20):
+    """Hold kernel() against plain(); with ``moved`` (the tensors besides the
+    output that the function must read) also time both and the optional
+    library() call, and return the record of the kernels line."""
+    got = kernel()
+    err = check_close(label, got, plain(), atol, rtol)
+    if moved is None:
+        return None
+    record = dict(max_abs_err=err, ms=time_ms(kernel, iters),
+                  plain_ms=time_ms(plain, max(iters // 4, 2)),
+                  **bound([*moved, got], flops, kind),
+                  library_ms=None if library is None else time_ms(library, iters))
+    print(f"    kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, bound "
+          f"{record['bound_ms']:.4f} ms by {record['bound_by']}, library "
+          + ("none" if library is None else f"{record['library_ms']:.4f} ms"))
+    return record
+
+
 def phase_kernels(device):
-    """Each kernel against its plain version at the flagship shapes."""
-    from maed_tpu_torch.ops import layernorm, mlp, skinning
+    """Each kernel against its plain version at the flagship shapes, timed in
+    f32 and bf16. The records kept are the bf16 ones (the serving dtype);
+    skinning is f32."""
+    import torch.nn.functional as F
+
+    from maed_tpu_torch.ops import attention, groupnorm, layernorm, mlp, skinning, st_attention
 
     rng = np.random.RandomState(0)
     T = lambda a, dt=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)  # noqa: E731
-    B, M, C, H = N_CLIPS * SEQLEN, N_CLIPS * SEQLEN * 197, 768, 3072
+    B, N, C, H, heads = N_CLIPS * SEQLEN, 197, 768, 3072, 12
+    M, d = B * N, C // heads
+    f32, bf16 = torch.float32, torch.bfloat16
+    kinds = {f32: "f32", bf16: "bf16"}  # the peak a product of that dtype is held to
     record = {}
 
     # A: skinning, f32. Rigid joint transforms, weights normalized per vertex.
@@ -109,40 +161,141 @@ def phase_kernels(device):
     A = T(A.reshape(B, 24, 4, 4))
     args = (v_posed, W, A)
     print(f"kernel A skinning: v_posed {tuple(v_posed.shape)} f32")
-    err = check_close("skinning f32", skinning.skinning(*args),
-                      skinning.skinning_reference(*args), 1e-5)
-    record["skinning"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: skinning.skinning(*args), 50),
-        plain_ms=time_ms(lambda: skinning.skinning_reference(*args), 20))
+    # per vertex: 24 joints blended into a 3x4 transform, then applied
+    record["skinning"] = compare(
+        "skinning f32", lambda: skinning.skinning(*args),
+        lambda: skinning.skinning_reference(*args), 1e-5, 0.0, moved=args,
+        flops=B * NUM_VERTS * (24 * 12 * 2 + 24), kind="f32", iters=50)
 
     # B: layernorm, bf16 (the serving dtype) and f32.
     x = rng.randn(M, C) * 2 + 0.5
     scale, bias = T(rng.rand(C) + 0.5), T(rng.randn(C) * 0.1)
     print(f"kernel B layernorm: x {(M, C)}")
-    for dt, atol, rtol in ((torch.float32, 1e-5, 0.0), (torch.bfloat16, 2e-2, 1e-2)):
-        xd = T(x, dt)
-        err = check_close(f"layernorm {dt}", layernorm.fast_layernorm(xd, scale, bias, 1e-6),
-                          layernorm.layernorm_reference(xd, scale, bias, 1e-6), atol, rtol)
-        if dt == torch.bfloat16:
-            record["layernorm"] = dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: layernorm.fast_layernorm(xd, scale, bias, 1e-6), 50),
-                plain_ms=time_ms(lambda: layernorm.layernorm_reference(xd, scale, bias, 1e-6), 20))
+    for dt, atol, rtol in ((f32, 1e-5, 0.0), (bf16, 2e-2, 1e-2)):
+        xd, sd, bd = T(x, dt), scale.to(dt), bias.to(dt)
+        rec = compare(f"layernorm {dt}", lambda: layernorm.fast_layernorm(xd, scale, bias, 1e-6),
+                      lambda: layernorm.layernorm_reference(xd, scale, bias, 1e-6), atol, rtol,
+                      moved=(xd, scale, bias), flops=8.0 * M * C,
+                      kind="f32", library=lambda: F.layer_norm(xd, (C,), sd, bd, 1e-6), iters=50)
+        record["layernorm"] = rec  # the last dtype's, bf16, is the one kept
 
-    # C: LN + MLP, bf16 and f32. Weights as nn.Linear stores them.
+    # C: LN + MLP, and D: LN + dense (the qkv projection), bf16 and f32.
+    # Weights as nn.Linear stores them.
     x = rng.randn(M, C)
     w1, w2 = rng.randn(H, C) / np.sqrt(C), rng.randn(C, H) / np.sqrt(H)
-    b1, b2 = T(rng.randn(H) * 0.1), T(rng.randn(C) * 0.1)
-    print(f"kernel C ln_mlp: x {(M, C)}, H {H}")
-    for dt, atol, rtol in ((torch.float32, 1e-4, 0.0), (torch.bfloat16, 5e-2, 2e-2)):
-        margs = (T(x, dt), scale, bias, T(w1, dt), b1, T(w2, dt), b2, 1e-6)
-        err = check_close(f"ln_mlp {dt}", mlp.fused_ln_mlp(*margs),
-                          mlp.ln_mlp_reference(*margs), atol, rtol)
-        ms = time_ms(lambda: mlp.fused_ln_mlp(*margs), 10)
-        plain_ms = time_ms(lambda: mlp.ln_mlp_reference(*margs), 5)
-        print(f"  ln_mlp {dt}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        if dt == torch.bfloat16:
-            record["ln_mlp"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    wq = rng.randn(3 * C, C) / np.sqrt(C)
+    b1, b2, bq = T(rng.randn(H) * 0.1), T(rng.randn(C) * 0.1), T(rng.randn(3 * C) * 0.1)
+    print(f"kernel C ln_mlp: x {(M, C)}, H {H}; kernel D ln_dense: O {3 * C}")
+    for dt, (atol, rtol), (atol_d, rtol_d) in ((f32, (1e-4, 0.0), (1e-4, 0.0)),
+                                               (bf16, (5e-2, 2e-2), (2e-2, 1e-2))):
+        xd = T(x, dt)
+        margs = (xd, scale, bias, T(w1, dt), b1, T(w2, dt), b2, 1e-6)
+        rec = compare(f"ln_mlp {dt}", lambda: mlp.fused_ln_mlp(*margs),
+                      lambda: mlp.ln_mlp_reference(*margs), atol, rtol,
+                      moved=margs[:-1], flops=4.0 * M * C * H, kind=kinds[dt], iters=10)
+        record["ln_mlp"] = rec
+        dargs = (xd, scale, bias, T(wq, dt), bq, 1e-6)
+        # bf16 at 2e-2 abs + 1e-2 rel: one bf16 rounding of outputs up to ~5
+        rec = compare(f"ln_dense {dt}", lambda: mlp.fused_ln_dense(*dargs),
+                      lambda: mlp.ln_dense_reference(*dargs), atol_d, rtol_d,
+                      moved=dargs[:-1], flops=2.0 * M * C * 3 * C, kind=kinds[dt], iters=10)
+        record["ln_dense"] = rec
+    del margs, dargs, xd
+
+    # E: the attention's tail, gate + blend + proj + residual, bf16 and f32.
+    # alpha at one bf16 step of a probability (4e-3). The output in bf16 at
+    # 3e-2 abs + 2e-2 rel: an alpha rounding to the neighbouring bf16 value
+    # moves its channel of a whole frame's blend, then one bf16 rounding of
+    # the proj and one of the sum with x, of outputs up to ~7.
+    ys, yt, xr = (rng.randn(B, N, C) for _ in range(3))
+    wts, wp = rng.randn(2 * C, 2 * C) / np.sqrt(2 * C), rng.randn(C, C) / np.sqrt(C)
+    bts, bp = T(rng.randn(2 * C) * 0.1), T(rng.randn(C) * 0.1)
+    print(f"kernel E gate_proj: y_s, y_t, x {(B, N, C)}")
+    for dt, atol, rtol, atol_a in ((f32, 1e-4, 0.0, 1e-6), (bf16, 3e-2, 2e-2, 4e-3)):
+        gargs = (T(ys, dt), T(yt, dt), T(xr, dt), T(wts, dt), bts, T(wp, dt), bp)
+        alpha = mlp.fused_gate_proj(*gargs)[1]
+        check_close(f"gate_proj alpha {dt}", alpha, mlp.gate_proj_reference(*gargs)[1], atol_a)
+        rec = compare(f"gate_proj {dt}", lambda: mlp.fused_gate_proj(*gargs)[0],
+                      lambda: mlp.gate_proj_reference(*gargs)[0], atol, rtol,
+                      moved=(*gargs, alpha), flops=2.0 * M * C * C + 2.0 * B * (2 * C) ** 2,
+                      kind=kinds[dt], iters=10)
+        record["gate_proj"] = rec
+    del gargs, alpha
+
+    # F, J (spatial) and G, H (temporal) attention on one qkv projection.
+    # bf16 at 1e-2 abs + 1e-2 rel: a probability or an output (magnitudes
+    # below 1) rounding to the neighbouring bf16 value on one side only.
+    qkv_np = rng.randn(B, N, 3, heads, d)
+    att = d ** -0.5
+    print(f"kernels F, J spatial and G, H temporal attention: qkv {qkv_np.shape}")
+    for dt, atol, rtol in ((f32, 1e-5, 0.0), (bf16, 1e-2, 1e-2)):
+        qkv = T(qkv_np, dt)
+        q4, k4, v4 = (a.transpose(1, 2) for a in qkv.unbind(2))          # (B, h, N, d) views
+        rec = compare(f"spatial (BT, N, C) {dt}", lambda: st_attention.spatial_attention_btc(qkv, att),
+                      lambda: st_attention.spatial_reference_btc(qkv, att), atol, rtol,
+                      moved=(qkv,), flops=4.0 * B * heads * N * N * d, kind=kinds[dt],
+                      library=lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=att))
+        record["spatial"] = rec
+        compare(f"spatial (h, BT, N, d) {dt}", lambda: st_attention.spatial_attention(qkv, att),
+                lambda: st_attention.spatial_reference(qkv, att), atol, rtol)
+        qc, kc, vc = (a.contiguous() for a in (q4, k4, v4))
+        compare(f"fused_attention (B, h, S, d) {dt}", lambda: attention.fused_attention(qc, kc, vc, att),
+                lambda: attention._xla_attention(qc, kc, vc, att), atol, rtol)
+        del qc, kc, vc
+        q5, k5, v5 = (a.reshape(N_CLIPS, SEQLEN, N, heads, d).permute(0, 2, 3, 1, 4)
+                      for a in qkv.unbind(2))                            # (G, N, h, T, d) views
+        rec = compare(f"temporal (BT, N, C) {dt}",
+                      lambda: st_attention.temporal_attention_fused(qkv, SEQLEN, att),
+                      lambda: st_attention.temporal_reference_btc(qkv, SEQLEN, att), atol, rtol,
+                      moved=(qkv,), flops=4.0 * B * N * heads * SEQLEN * d, kind=kinds[dt],
+                      library=lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=att))
+        record["temporal"] = rec
+        compare(f"temporal (h, BT, N, d) {dt}", lambda: st_attention.temporal_attention(qkv, SEQLEN, att),
+                lambda: st_attention.temporal_reference(qkv, SEQLEN, att), atol, rtol)
+    del qkv, q4, k4, v4, q5, k5, v5
+
+    # I: GroupNorm(32, eps 1e-5), timed at four sites of the stem, in the
+    # channels-last memory layout cuDNN hands the model; then held against its
+    # plain version at every distinct shape of the 52 sites, each of which
+    # picks its own groups per block, staging and chunk width. The record is
+    # the site that F.group_norm computes too (no ReLU, no residual).
+    # bf16 at 2e-2 abs + 1e-2 rel: mul, add or an output up to ~5 rounding to
+    # the neighbouring bf16 value.
+    sites = (("stem 112x112x64 +relu", 112, 64, True, False),
+             ("stage-1 norm3 56x56x256", 56, 256, False, False),
+             ("stage-1 norm3 56x56x256 +residual +relu", 56, 256, True, True),
+             ("stage-3 norm2 14x14x256 +relu", 14, 256, True, False))
+    print("kernel I groupnorm")
+    record["groupnorm_sites"] = []
+    for name, side, ch, relu, with_res in sites:
+        x = rng.randn(B, side, side, ch).astype(np.float32) * 2 + 0.5
+        res = rng.randn(B, side, side, ch).astype(np.float32) if with_res else None
+        gs, gb = T(rng.rand(ch) + 0.5), T(rng.randn(ch) * 0.1)
+        for dt, atol, rtol in ((f32, 1e-4, 0.0), (bf16, 2e-2, 1e-2)):
+            xd, rd = T(x, dt), None if res is None else T(res, dt)
+            gargs = (xd, gs, gb, 32, 1e-5, relu, rd)
+            library = None
+            if not relu and not with_res:
+                x_nchw, gsd, gbd = xd.permute(0, 3, 1, 2), gs.to(dt), gb.to(dt)
+                library = lambda: F.group_norm(x_nchw, 32, gsd, gbd, 1e-5)  # noqa: E731
+            rec = compare(f"groupnorm {name} {dt}", lambda: groupnorm.fused_groupnorm(*gargs),
+                          lambda: groupnorm.groupnorm_reference(*gargs), atol, rtol,
+                          moved=[t for t in (xd, rd, gs, gb) if t is not None],
+                          flops=8.0 * xd.numel(), kind="f32", library=library)
+            if dt == bf16:
+                record["groupnorm_sites"].append(dict(site=name, **rec))
+                if library is not None:
+                    record["groupnorm"] = rec
+    del xd, rd, gargs
+    for side, ch, relu in GROUPNORM_SHAPES:
+        x = rng.randn(B, side, side, ch).astype(np.float32) * 2 + 0.5
+        gs, gb = T(rng.rand(ch) + 0.5), T(rng.randn(ch) * 0.1)
+        for dt, atol, rtol in ((f32, 1e-4, 0.0), (bf16, 2e-2, 1e-2)):
+            gargs = (T(x, dt), gs, gb, 32, 1e-5, relu)
+            compare(f"groupnorm {side}x{side}x{ch}{' +relu' if relu else ''} {dt}",
+                    lambda: groupnorm.fused_groupnorm(*gargs),
+                    lambda: groupnorm.groupnorm_reference(*gargs), atol, rtol)
+    del gargs
     torch.cuda.synchronize()
     return record
 
@@ -281,18 +434,35 @@ def main() -> int:
     launches, outs, plains = phase_serve(device, clips, jreg)
     phase_f32(device, clips, jreg, outs, plains)
 
-    src = "maed_tpu_torch/"
+    src, jax_ops = "maed_tpu_torch/", "maed_tpu/ops/"
     kernels_line = [
         dict(name="skinning", route="cuda", source=src + "csrc/skinning.cu",
-             replaces="maed_tpu/ops/smpl_pallas.py:30",
+             replaces=jax_ops + "smpl_pallas.py:30",
              launches=launches["skinning"], **record["skinning"]),
         dict(name="fast_layernorm", route="triton", source=src + "ops/layernorm.py",
-             replaces="maed_tpu/ops/layernorm.py:60",
+             replaces=jax_ops + "layernorm.py:60",
              launches=launches["layernorm"], **record["layernorm"]),
         dict(name="fused_ln_mlp", route="cuda", source=src + "csrc/ln_mlp.cu",
-             replaces="maed_tpu/ops/mlp.py:99",
+             replaces=jax_ops + "mlp.py:99",
              launches=launches["ln_mlp_fc1"], launches_fc2=launches["ln_mlp_fc2"],
              **record["ln_mlp"]),
+        dict(name="fused_ln_dense", route="cuda", source=src + "csrc/ln_mlp.cu",
+             replaces=jax_ops + "mlp.py:157",
+             launches=launches["ln_dense"], **record["ln_dense"]),
+        dict(name="fused_gate_proj", route="cuda", source=src + "csrc/ln_mlp.cu",
+             replaces=jax_ops + "mlp.py:272",
+             launches=launches["gate_alpha"], launches_proj=launches["gate_proj"],
+             **record["gate_proj"]),
+        dict(name="fused_groupnorm", route="cuda", source=src + "csrc/groupnorm.cu",
+             replaces=jax_ops + "groupnorm.py:83",
+             launches=launches["groupnorm"], **record["groupnorm"],
+             sites=record["groupnorm_sites"]),
+        dict(name="spatial_attention", route="cuda", source=src + "csrc/st_attention.cu",
+             replaces=f"{jax_ops}attention.py:47, {jax_ops}st_attention.py:96",
+             launches=launches["spatial_attention"], **record["spatial"]),
+        dict(name="temporal_attention", route="cuda", source=src + "csrc/st_attention.cu",
+             replaces=f"{jax_ops}st_attention.py:132, {jax_ops}st_attention.py:229",
+             launches=launches["temporal_attention"], **record["temporal"]),
     ]
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

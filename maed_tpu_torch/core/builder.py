@@ -16,7 +16,7 @@ from torch import nn
 
 from maed_tpu_torch.models.maed import MAED
 from maed_tpu_torch.models.resnetv2 import GroupNormAct, StdConv
-from maed_tpu_torch.models.vit import FastLayerNorm, Mlp
+from maed_tpu_torch.models.vit import FastLayerNorm, Mlp, StAttention
 from maed_tpu_torch.ops.smpl import SMPLModel
 from maed_tpu_torch.utils.checkpoint import fold_weight_standardization
 from maed_tpu_torch.utils.smpl_io import find_smpl_model
@@ -70,14 +70,17 @@ def cast_weights_(model: MAED, dtype: torch.dtype) -> None:
     """Cast, once, every parameter the forward casts to ``dtype`` where it is
     used: the dense, MLP and conv weights, the dense and conv biases and the
     embeddings. The same rounding as the cast at use, without a copy per
-    call. The norms' parameters and the MLP's biases stay f32: the kernels
-    and the GroupNorm take them so."""
+    call. The norms' parameters and the biases of the MLP and of the
+    attention's qkv, gate and output projections stay f32: the kernels take
+    them so."""
     keep = set()
     for mod in model.modules():
         if isinstance(mod, (FastLayerNorm, GroupNormAct)):
             keep.update(id(p) for p in mod.parameters())
         elif isinstance(mod, Mlp):
             keep.update((id(mod.fc1.bias), id(mod.fc2.bias)))
+        elif isinstance(mod, StAttention):
+            keep.update((id(mod.qkv.bias), id(mod.ts_attn.bias), id(mod.proj.bias)))
     for p in model.parameters():
         if id(p) not in keep:
             p.data = p.data.to(dtype)

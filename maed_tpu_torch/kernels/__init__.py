@@ -1,10 +1,11 @@
 """Build, load and count the port's CUDA kernels.
 
 The CUDA C++ sources under ``maed_tpu_torch/csrc`` have a plain C interface.
-At first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library under ``maed_tpu_torch/kernels/_build/``, named by a hash of the
-sources and flags (an edited source is rebuilt, an unchanged one is reused),
-and loaded with ``ctypes``. Each C entry point launches on the stream it is
+At first use they are compiled with ``nvcc`` for ``sm_90a`` (one compiler
+process per source, all started together) and linked into one shared library
+under ``maed_tpu_torch/kernels/_build/``, named by a hash of the sources and
+flags (an edited source is rebuilt, an unchanged one is reused), and loaded
+with ``ctypes``. Each C entry point launches on the stream it is
 given and returns ``cudaGetLastError()``; :func:`check` raises if that is not
 0, so a refused launch never passes unnoticed.
 
@@ -27,7 +28,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 LAUNCHES: dict[str, int] = {
@@ -35,9 +36,16 @@ LAUNCHES: dict[str, int] = {
     "layernorm": 0,     # ops/layernorm.py (Triton)
     "ln_mlp_fc1": 0,    # csrc/ln_mlp.cu, LN + fc1 + GELU launch
     "ln_mlp_fc2": 0,    # csrc/ln_mlp.cu, fc2 + residual launch
+    "ln_dense": 0,      # csrc/ln_mlp.cu, LN + dense (the qkv projection)
+    "gate_alpha": 0,    # csrc/ln_mlp.cu, the attention's gate: branch means, softmax pairs
+    "gate_proj": 0,     # csrc/ln_mlp.cu, blend + proj + residual launch
+    "groupnorm": 0,     # csrc/groupnorm.cu
+    "spatial_attention": 0,   # csrc/st_attention.cu, attention over tokens
+    "temporal_attention": 0,  # csrc/st_attention.cu, attention over frames
 }
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_c_i64 = ctypes.c_longlong
 # C entry points of csrc/*.cu: name -> argument types (every one returns int)
 _SIGNATURES = {
     # v_posed, weights, A, out, B, V, stream
@@ -48,6 +56,25 @@ _SIGNATURES = {
     # is_bf16, h, w2, b2, x, out, M, H, C, stream
     "maed_fc2_residual": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
                           _c_int, _c_int, _c_int, _c_ptr),
+    # is_bf16, x, ln_scale, ln_bias, eps, w, b, out, M, C, O, stream
+    "maed_ln_dense": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_float, _c_ptr, _c_ptr,
+                      _c_ptr, _c_int, _c_int, _c_int, _c_ptr),
+    # is_bf16, y_s, y_t, w_ts, b_ts, alpha, BT, N, C, stream
+    "maed_gate_alpha": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int,
+                        _c_ptr),
+    # is_bf16, y_s, y_t, alpha, w_p, b_p, x, out, BT, N, C, stream
+    "maed_gate_proj": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,
+                       _c_int, _c_int, _c_ptr),
+    # is_bf16, x, residual, out, scale, bias, B, G, cpg, HW, eps, relu, stream
+    "maed_groupnorm": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
+                       _c_int, _c_int, _c_float, _c_int, _c_ptr),
+    # is_bf16, q, k, v, out, B, H, S, d, sb, sh, ss, ob, oh, os, scale, stream
+    "maed_spatial_attention": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
+                               _c_int, _c_int, *(_c_i64,) * 6, _c_float, _c_ptr),
+    # is_bf16, q, k, v, out, G, T, N, H, d, s_frame, s_token, s_head,
+    # o_frame, o_token, o_head, scale, stream
+    "maed_temporal_attention": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
+                                _c_int, _c_int, _c_int, *(_c_i64,) * 6, _c_float, _c_ptr),
 }
 
 _lib = None
@@ -84,25 +111,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library, unless it is already built.
+    """Compile csrc/*.cu into the shared library, unless it is already built:
+    every source to an object file at once, one nvcc each, then one link.
 
-    The compiler's output (with ptxas' register and spill report) is kept
+    The compilers' output (with ptxas' register and spill report) is kept
     beside the library as ``<name>.log``.
     """
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc, log = _nvcc(), out.with_suffix(".log")
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = {src: BUILD_DIR / f"{tag}.{src.stem}.o"
+               for src in _sources() if src.suffix == ".cu"}
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in objects.items()]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    cmds.append([nvcc, "-shared", "-o", str(tmp), *(str(obj) for obj in objects.values())])
+    texts = [proc.communicate()[0] for proc in procs]
+    codes = [proc.returncode for proc in procs]
+    if not any(codes):
+        link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        texts.append(link.stdout)
+        codes.append(link.returncode)
+    log.write_text("".join(" ".join(cmd) + "\n" + text for cmd, text in zip(cmds, texts)))
+    for obj in objects.values():
+        obj.unlink(missing_ok=True)
+    if any(codes):
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}); see {log}:\n"
-                           + proc.stderr[-4000:])
+        failed = "".join(text for text, code in zip(texts, codes) if code)
+        raise RuntimeError(f"nvcc failed; see {log}:\n" + failed[-4000:])
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
 

@@ -1,14 +1,17 @@
 """The ResNetV2 hybrid stem (non-pre-activation, layers (3, 4, 9)).
 
 Port of ``maed_tpu/models/resnetv2.py`` for the path the ViT hybrid runs.
-Frames come in NHWC, as in the JAX package, and run NCHW inside the stem.
+Frames come in NHWC, as in the JAX package, and run NCHW in shape and
+channels-last in memory inside the stem.
 
 TF "SAME" padding: XLA pads asymmetrically, the extra row and column at the
 end, and ``F.conv2d`` cannot. So every conv and the max-pool pad explicitly,
 with the padding computed from the input size (at 224 px the 7x7 stride-2
 stem conv pads (2, 3), the stride-2 3x3 convs and the max-pool (0, 1); the
 pool pads with -inf). Convolutions stay on cuDNN through ``F.conv2d``, as the
-JAX package leaves them to XLA.
+JAX package leaves them to XLA. Every GroupNorm goes through
+``ops.groupnorm.fused_groupnorm`` (the CUDA kernel on the card), unless
+``plain=True`` asks for its plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from maed_tpu_torch.ops.groupnorm import fused_groupnorm, groupnorm_reference
 
 
 def make_div(v: float, divisor: int = 8) -> int:
@@ -76,9 +81,11 @@ class StdConv(nn.Module):
 
 
 class GroupNormAct(nn.Module):
-    """GroupNorm(32) with an optional ReLU, written out as the JAX package
-    computes it (``_GroupNormCore``): per-channel f32 moments pooled per
-    group, then one scale-and-shift pass in the compute dtype."""
+    """GroupNorm(32) with an optional ReLU (``_GroupNormCore`` of the JAX
+    package), on an NCHW tensor. The op sees the (B, H, W, C) view of
+    channels-last memory, which is how cuDNN leaves the stem's tensors
+    downstream of NHWC frames: no copy there. A tensor in another memory
+    format is brought to channels-last first."""
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5,
                  apply_act: bool = True, dtype: torch.dtype = torch.float32):
@@ -88,21 +95,12 @@ class GroupNormAct(nn.Module):
         self.num_groups, self.eps = num_groups, eps
         self.apply_act, self.dtype = apply_act, dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, C = x.shape[:2]
-        g = self.num_groups
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        s1 = xf.mean(dim=(2, 3))                 # (B, C)
-        s2 = (xf * xf).mean(dim=(2, 3))
-        gmean = s1.reshape(B, g, C // g).mean(-1)
-        gsq = s2.reshape(B, g, C // g).mean(-1)
-        mean = gmean.repeat_interleave(C // g, dim=-1)
-        var = gsq.repeat_interleave(C // g, dim=-1) - mean * mean
-        inv = self.weight * torch.rsqrt(var + self.eps)
-        mul = inv.to(self.dtype)[:, :, None, None]
-        add = (self.bias - mean * inv).to(self.dtype)[:, :, None, None]
-        y = x.to(self.dtype) * mul + add
-        return torch.relu(y) if self.apply_act else y
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        norm = groupnorm_reference if plain else fused_groupnorm
+        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        y = norm(x.permute(0, 2, 3, 1), self.weight, self.bias,
+                 self.num_groups, self.eps, self.apply_act)
+        return y.permute(0, 3, 1, 2)
 
 
 class DownsampleConv(nn.Module):
@@ -111,8 +109,8 @@ class DownsampleConv(nn.Module):
         self.conv = StdConv(in_chs, out_chs, 1, stride, standardize=standardize, dtype=dtype)
         self.norm = GroupNormAct(out_chs, apply_act=False, dtype=dtype)
 
-    def forward(self, x):
-        return self.norm(self.conv(x))
+    def forward(self, x, plain=False):
+        return self.norm(self.conv(x), plain)
 
 
 class Bottleneck(nn.Module):
@@ -132,11 +130,11 @@ class Bottleneck(nn.Module):
         self.conv3 = StdConv(mid, out_chs, 1, **kw)
         self.norm3 = GroupNormAct(out_chs, apply_act=False, dtype=dtype)
 
-    def forward(self, x):
-        shortcut = x if self.downsample is None else self.downsample(x)
-        y = self.norm1(self.conv1(x))
-        y = self.norm2(self.conv2(y))
-        y = self.norm3(self.conv3(y))
+    def forward(self, x, plain=False):
+        shortcut = x if self.downsample is None else self.downsample(x, plain)
+        y = self.norm1(self.conv1(x), plain)
+        y = self.norm2(self.conv2(y), plain)
+        y = self.norm3(self.conv3(y), plain)
         return torch.relu(y + shortcut)
 
 
@@ -149,9 +147,9 @@ class ResNetStage(nn.Module):
                        standardize=standardize, dtype=dtype)
             for i in range(depth))
 
-    def forward(self, x):
+    def forward(self, x, plain=False):
         for block in self.blocks:
-            x = block(x)
+            x = block(x, plain)
         return x
 
 
@@ -163,8 +161,8 @@ class Stem(nn.Module):
         self.conv = StdConv(3, out_chs, 7, 2, standardize=standardize, dtype=dtype)
         self.norm = GroupNormAct(out_chs, dtype=dtype)
 
-    def forward(self, x):
-        return max_pool_same(self.norm(self.conv(x)))
+    def forward(self, x, plain=False):
+        return max_pool_same(self.norm(self.conv(x), plain))
 
 
 class ResNetV2(nn.Module):
@@ -182,8 +180,8 @@ class ResNetV2(nn.Module):
         self.stages = nn.ModuleList(stages)
         self.num_features = in_chs
 
-    def forward(self, x):
-        y = self.stem(x)
+    def forward(self, x, plain=False):
+        y = self.stem(x, plain)
         for stage in self.stages:
-            y = stage(y)
+            y = stage(y, plain)
         return y

@@ -6,11 +6,13 @@ and parameter names follow the reference torch MAED, so a state_dict
 converted from the JAX parameters (``utils.weights``) loads with
 ``strict=True``.
 
-Attention is the plain formulation of ``_softmax_drop``: product, softmax in
-f32, cast, product. The LayerNorms go through ``ops.layernorm.fast_layernorm``
-(the Triton kernel on the card) and the MLP half through
-``ops.mlp.fused_ln_mlp`` (the CUDA kernel), unless ``plain=True`` asks for
-their plain versions.
+A block runs through the port's kernels, as the JAX package does with all its
+fused paths on: norm1 and the qkv projection as ``ops.mlp.fused_ln_dense``,
+the temporal and spatial branches as ``ops.st_attention``'s kernels reading
+that projection in place, the gate, blend, output projection and residual as
+``ops.mlp.fused_gate_proj``, norm2 and the MLP as ``ops.mlp.fused_ln_mlp``,
+and the final norm as ``ops.layernorm.fast_layernorm``; ``plain=True`` asks
+for their plain versions.
 """
 
 from __future__ import annotations
@@ -22,13 +24,11 @@ from torch import nn
 from maed_tpu_torch.models.layers import dense
 from maed_tpu_torch.models.resnetv2 import ResNetV2
 from maed_tpu_torch.ops.layernorm import fast_layernorm, layernorm_reference
-from maed_tpu_torch.ops.mlp import fused_ln_mlp, ln_mlp_reference
-
-
-def _softmax_f32(logits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Softmax over the last axis, accumulated in promote(dtype, f32)."""
-    st = torch.promote_types(logits.dtype, torch.float32)
-    return torch.softmax(logits.to(st), dim=-1).to(dtype)
+from maed_tpu_torch.ops.mlp import (fused_gate_proj, fused_ln_dense, fused_ln_mlp,
+                                    gate_proj_reference, ln_dense_reference, ln_mlp_reference)
+from maed_tpu_torch.ops.st_attention import (spatial_attention_btc, spatial_reference_btc,
+                                             temporal_attention_fused,
+                                             temporal_reference_btc)
 
 
 class FastLayerNorm(nn.Module):
@@ -74,47 +74,30 @@ class StAttention(nn.Module):
         # input is the concat of the two branch means: (2C) -> (2C)
         self.ts_attn = nn.Linear(dim * 2, dim * 2)
 
-    def _spatial(self, qkv: torch.Tensor) -> torch.Tensor:
-        BT, N, _, h, d = qkv.shape
-        q, k, v = qkv.unbind(2)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (d ** -0.5)
-        probs = _softmax_f32(logits, q.dtype)
-        return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(BT, N, h * d)
-
-    def _temporal(self, qkv: torch.Tensor, seqlen: int) -> torch.Tensor:
-        """Attention over the frames of each clip, batched per (token, head):
-        rows (G*T, N) regrouped as (G, T, N, h, d)."""
-        BT, N, _, h, d = qkv.shape
-        q, k, v = qkv.unbind(2)
+    def forward(self, x: torch.Tensor, seqlen: int, norm: FastLayerNorm,
+                plain: bool = False) -> torch.Tensor:
+        """x: the block's pre-norm input (BT, N, C), ``norm`` its norm1;
+        returns x + attention(norm(x))."""
+        BT, N, C = x.shape
+        dt, h = self.dtype, self.num_heads
+        x = x.to(dt)
+        scale = (C // h) ** -0.5
+        ln_dense = ln_dense_reference if plain else fused_ln_dense
+        qkv = ln_dense(x, norm.weight, norm.bias, self.qkv.weight.to(dt), self.qkv.bias,
+                       norm.eps).reshape(BT, N, 3, h, C // h)
         if seqlen == 1:
             # attention over a single frame is the identity over v
-            return v.reshape(BT, N, h * d)
-        G = BT // seqlen
-
-        def to_g(a):
-            return a.reshape(G, seqlen, N, h, d)
-
-        logits = torch.einsum("bqnhd,bknhd->bnhqk", to_g(q), to_g(k)) * (d ** -0.5)
-        probs = _softmax_f32(logits, q.dtype)
-        return torch.einsum("bnhqk,bknhd->bqnhd", probs, to_g(v)).reshape(BT, N, h * d)
-
-    def forward(self, x: torch.Tensor, seqlen: int, residual: torch.Tensor) -> torch.Tensor:
-        """x: the normalized block input (BT, N, C); returns residual + attention."""
-        BT, N, C = x.shape
-        dt = self.dtype
-        qkv = dense(x, self.qkv, dt).reshape(BT, N, 3, self.num_heads, C // self.num_heads)
-        y_t = self._temporal(qkv, seqlen)
-        y_s = self._spatial(qkv)
-        # the gate: [mean y_s || mean y_t] @ ts_attn, read as interleaved
-        # (spatial, temporal) pairs per channel, softmaxed in the compute dtype
-        alpha = torch.cat([y_s.mean(dim=1, keepdim=True), y_t.mean(dim=1, keepdim=True)],
-                          dim=-1)
-        alpha = dense(alpha, self.ts_attn, dt).reshape(BT, 1, C, 2)
-        alpha = torch.exp(alpha - alpha.amax(dim=-1, keepdim=True))
-        alpha = alpha / alpha.sum(dim=-1, keepdim=True)
-        y = y_t * alpha[..., 1] + y_s * alpha[..., 0]
-        y = dense(y, self.proj, dt)
-        return residual.to(y.dtype) + y
+            y_t = qkv[:, :, 2].reshape(BT, N, C).contiguous()
+        else:
+            temporal = temporal_reference_btc if plain else temporal_attention_fused
+            y_t = temporal(qkv, seqlen, scale)
+        y_s = (spatial_reference_btc if plain else spatial_attention_btc)(qkv, scale)
+        # the gate [mean y_s || mean y_t] @ ts_attn, softmaxed per channel's
+        # (spatial, temporal) pair, blends the branches; then proj and residual
+        out, _ = (gate_proj_reference if plain else fused_gate_proj)(
+            y_s, y_t, x, self.ts_attn.weight.to(dt), self.ts_attn.bias,
+            self.proj.weight.to(dt), self.proj.bias)
+        return out
 
 
 class Block(nn.Module):
@@ -128,8 +111,8 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, seqlen: int, plain: bool = False) -> torch.Tensor:
-        x = self.attn(self.norm1(x, plain), seqlen, residual=x)
-        return self.mlp(x.to(self.dtype), self.norm2, plain)
+        x = self.attn(x, seqlen, self.norm1, plain)  # norm1 runs inside the qkv kernel
+        return self.mlp(x, self.norm2, plain)
 
 
 class HybridEmbed(nn.Module):
@@ -142,9 +125,9 @@ class HybridEmbed(nn.Module):
         self.backbone = ResNetV2(layers=(3, 4, 9), standardize=standardize, dtype=dtype)
         self.proj = nn.Conv2d(self.backbone.num_features, embed_dim, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """x: (B, H, W, 3) frames -> (B, H/16 * W/16, C) tokens in row-major (H, W)."""
-        feat = self.backbone(x.permute(0, 3, 1, 2))
+        feat = self.backbone(x.permute(0, 3, 1, 2), plain)
         tok = F.conv2d(feat.to(self.dtype), self.proj.weight.to(self.dtype))
         tok = tok + self.proj.bias.to(self.dtype)[:, None, None]
         return tok.flatten(2).transpose(1, 2)
@@ -188,7 +171,7 @@ class VisionTransformer(nn.Module):
         self.pre_logits = PreLogits(embed_dim, representation_size)
 
     def forward(self, x: torch.Tensor, seqlen: int, plain: bool = False) -> torch.Tensor:
-        tokens = self.patch_embed(x)
+        tokens = self.patch_embed(x, plain)
         BT, _, C = tokens.shape
         cls = self.cls_token.to(tokens.dtype).expand(BT, 1, C)
         tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(tokens.dtype)

@@ -13,9 +13,12 @@ import pytest
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.ops import attention as TA
+from maed_tpu_torch.ops import groupnorm as TGN
 from maed_tpu_torch.ops import layernorm as TLN
 from maed_tpu_torch.ops import mlp as TMLP
 from maed_tpu_torch.ops import skinning as TK
+from maed_tpu_torch.ops import st_attention as TST
 from torch_port_common import assert_close, ln_inputs, mlp_inputs, to_torch, torch_mlp_args
 
 pytestmark = pytest.mark.cuda
@@ -79,6 +82,193 @@ def test_ln_mlp_kernel(cuda, dtype, atol, rtol, M, C, H):
         (before[0] + 1, before[1] + 1)
     assert got.dtype == dtype
     assert_close(got.float(), TMLP.ln_mlp_reference(*args, 1e-6).float(), atol, rtol)
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
+                                               (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("M, C, O", [(256, 768, 2304), (100, 80, 176)])
+def test_ln_dense_kernel(cuda, dtype, atol, rtol, M, C, O):
+    """The qkv projection's kernel; (100, 80, 176) is ragged on every axis.
+    bf16 at 2e-2 abs + 1e-2 rel: one bf16 rounding of outputs up to ~5."""
+    x, s, b, w, bw = mlp_inputs(np.random.RandomState(8), (M, C), O)[:5]
+    args = [to_torch(a, dt).to(cuda) for a, dt in
+            ((x, dtype), (s, torch.float32), (b, torch.float32), (w.T, dtype),
+             (bw, torch.float32))]
+    before = kernels.LAUNCHES["ln_dense"]
+    got = TMLP.fused_ln_dense(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ln_dense"] == before + 1
+    assert got.dtype == dtype and got.shape == (M, O)
+    assert_close(got.float(), TMLP.ln_dense_reference(*args, 1e-6).float(), atol, rtol)
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
+                                               (torch.bfloat16, 3e-2, 2e-2)])
+@pytest.mark.parametrize("BT, N, C", [(4, 197, 768), (3, 37, 80), (5, 1, 8), (2, 130, 264)])
+def test_gate_proj_kernel(cuda, dtype, atol, rtol, BT, N, C):
+    """The attention's tail, two launches; a 128-row tile spans frames (N 37,
+    130, 197), C past a 32 step and a 128 tile (80, 264). alpha at 1e-6 (f32)
+    or one bf16 step of a probability (4e-3). The output in bf16 at 3e-2 abs
+    + 2e-2 rel: an alpha that rounds to the neighbouring bf16 value moves a
+    whole frame's blend by 2^-8 of it before the proj's sum of C terms."""
+    rng = np.random.RandomState(12)
+    args = [to_torch(a, dt).to(cuda) for a, dt in (
+        (rng.randn(BT, N, C), dtype), (rng.randn(BT, N, C) + 0.3, dtype),
+        (rng.randn(BT, N, C), dtype), (rng.randn(2 * C, 2 * C) / np.sqrt(2 * C), dtype),
+        (rng.randn(2 * C) * 0.1, torch.float32), (rng.randn(C, C) / np.sqrt(C), dtype),
+        (rng.randn(C) * 0.1, torch.float32))]
+    before = kernels.LAUNCHES["gate_alpha"], kernels.LAUNCHES["gate_proj"]
+    got, alpha = TMLP.fused_gate_proj(*args)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["gate_alpha"], kernels.LAUNCHES["gate_proj"]) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == (BT, N, C) and alpha.shape == (BT, 1, C, 2)
+    want, want_alpha = TMLP.gate_proj_reference(*args)
+    assert_close(alpha.float(), want_alpha.float(), 1e-6 if dtype == torch.float32 else 4e-3)
+    assert_close(got.float(), want.float(), atol, rtol)
+
+
+def _channel_major(t):
+    """The same (B, ..., C) values over channel-major memory."""
+    return t.movedim(-1, 1).contiguous().movedim(1, -1)
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
+                                               (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("shape, groups, relu, with_res", [
+    ((3, 14, 14, 64), 32, True, False),     # 2 channels a group: 16 bytes span 4 groups
+    ((2, 9, 9, 64), 32, False, True),       # odd side
+    ((2, 6, 10, 256), 32, True, True),      # 8 channels a group
+    ((3, 7, 7, 96), 32, False, False),      # 3 channels a group: element by element
+    ((2, 5, 32), 32, True, False),          # 1 channel a group, one spatial axis
+    ((2, 40, 40, 1024), 32, True, False),   # 32 channels a group
+])
+def test_groupnorm_kernel(cuda, dtype, atol, rtol, shape, groups, relu, with_res):
+    """Chunked and element-by-element paths, one and several groups a block. bf16 at
+    2e-2 abs + 1e-2 rel: mul, add or an output up to ~5 rounding to the
+    neighbouring bf16 value."""
+    rng = np.random.RandomState(9)
+    C = shape[-1]
+    x = to_torch(rng.randn(*shape) * 2 + 0.5, dtype).to(cuda)
+    res = to_torch(rng.randn(*shape), dtype).to(cuda) if with_res else None
+    s, b = (to_torch(a, torch.float32).to(cuda) for a in (rng.rand(C) + 0.5, rng.randn(C) * 0.1))
+    before = kernels.LAUNCHES["groupnorm"]
+    got = TGN.fused_groupnorm(x, s, b, groups, 1e-5, relu, res)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["groupnorm"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
+    want = TGN.groupnorm_reference(x, s, b, groups, 1e-5, relu, res)
+    assert_close(got.float(), want.float(), atol, rtol)
+
+
+def qkv_input(seed, BT, N, h, d, dtype, device):
+    return to_torch(np.random.RandomState(seed).randn(BT, N, 3, h, d), dtype).to(device)
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-5, 0.0),
+                                               (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("BT, N, h, d", [(4, 197, 12, 64), (3, 37, 2, 16), (2, 70, 3, 128),
+                                         (2, 130, 2, 32), (3, 37, 2, 24), (1, 1, 1, 8)])
+def test_spatial_attention_kernel(cuda, dtype, atol, rtol, BT, N, h, d):
+    """Both output layouts and the (B, h, S, d) entry; N is ragged against the
+    query tiles and the 64-key tile. bf16 is the tensor-core kernel, which
+    takes head dims 16, 32, 64, 128 and raises for 24 and 8; f32 takes them
+    all. bf16 at 1e-2 abs + 1e-2 rel: a probability or an output (below 1)
+    rounding to the neighbouring value."""
+    if dtype == torch.bfloat16 and d not in TST.MMA_HEAD_DIMS:
+        before = dict(kernels.LAUNCHES)
+        with pytest.raises(ValueError, match="tensor cores"):
+            TST.spatial_attention_btc(qkv_input(10, BT, N, h, d, dtype, cuda), d ** -0.5)
+        assert kernels.LAUNCHES == before
+        return
+    qkv = qkv_input(10, BT, N, h, d, dtype, cuda)
+    scale = d ** -0.5
+    before = kernels.LAUNCHES["spatial_attention"]
+    btc = TST.spatial_attention_btc(qkv, scale)
+    lead = TST.spatial_attention(qkv, scale)
+    q, k, v = (a.transpose(1, 2).contiguous() for a in qkv.unbind(2))
+    bhsd = TA.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spatial_attention"] == before + 3
+    assert btc.shape == (BT, N, h * d) and lead.shape == (h, BT, N, d) and bhsd.shape == q.shape
+    assert_close(btc.float(), TST.spatial_reference_btc(qkv, scale).float(), atol, rtol)
+    assert_close(lead.float(), TST.spatial_reference(qkv, scale).float(), atol, rtol)
+    assert_close(bhsd.float(), TA._xla_attention(q, k, v, scale).float(), atol, rtol)
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-5, 0.0),
+                                               (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("BT, T, N, h, d", [(32, 16, 197, 12, 64), (6, 3, 5, 2, 16),
+                                            (4, 2, 7, 3, 128), (32, 32, 3, 1, 8)])
+def test_temporal_attention_kernel(cuda, dtype, atol, rtol, BT, T, N, h, d):
+    """Both output layouts; T 3 and warps that do not fill the last block."""
+    qkv = qkv_input(11, BT, N, h, d, dtype, cuda)
+    scale = d ** -0.5
+    before = kernels.LAUNCHES["temporal_attention"]
+    btc = TST.temporal_attention_fused(qkv, T, scale)
+    lead = TST.temporal_attention(qkv, T, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["temporal_attention"] == before + 2
+    assert btc.shape == (BT, N, h * d) and lead.shape == (h, BT, N, d)
+    assert_close(btc.float(), TST.temporal_reference_btc(qkv, T, scale).float(), atol, rtol)
+    assert_close(lead.float(), TST.temporal_reference(qkv, T, scale).float(), atol, rtol)
+
+
+def test_fused_attention_raises_beyond_the_one_shot_kernel(cuda):
+    """More than 1024 tokens is the blocked kernel's work, which has no port:
+    no quiet plain version on the card."""
+    q = torch.zeros(1, 1, 1025, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TA.fused_attention(q, q, q)
+    assert TA.fused_attention(q[:, :, :1024], q[:, :, :1024], q[:, :, :1024]).shape == \
+        (1, 1, 1024, 16)
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    """dtype, strides, and a T or d outside the kernels' range."""
+    launches = dict(kernels.LAUNCHES)
+    ones, zeros = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    x = torch.zeros(2, 8, 8, 64, device=cuda)
+    with pytest.raises(ValueError):  # f64
+        TGN.fused_groupnorm(x.double(), ones, zeros, 32, 1e-5, True)
+    with pytest.raises(ValueError):  # not contiguous: a transposed view
+        TGN.fused_groupnorm(x.transpose(1, 2), ones, zeros, 32, 1e-5, True)
+    with pytest.raises(ValueError):  # not contiguous: channel-major memory
+        TGN.fused_groupnorm(_channel_major(x), ones, zeros, 32, 1e-5, True)
+    with pytest.raises(ValueError):  # bf16 scale
+        TGN.fused_groupnorm(x, ones.bfloat16(), zeros, 32, 1e-5, True)
+    with pytest.raises(ValueError):  # the residual in another layout
+        TGN.fused_groupnorm(x, ones, zeros, 32, 1e-5, True,
+                            _channel_major(torch.zeros_like(x)))
+    qkv = torch.zeros(4, 5, 3, 2, 16, device=cuda)
+    with pytest.raises(ValueError):  # f16
+        TST.spatial_attention(qkv.half(), 0.25)
+    with pytest.raises(ValueError):  # head dim 12
+        TST.spatial_attention_btc(torch.zeros(4, 5, 3, 2, 12, device=cuda), 0.25)
+    with pytest.raises(ValueError):  # head dim 136
+        TST.temporal_attention_fused(torch.zeros(4, 5, 3, 1, 136, device=cuda), 2, 0.25)
+    with pytest.raises(ValueError):  # 33 frames
+        TST.temporal_attention(torch.zeros(33, 5, 3, 2, 16, device=cuda), 33, 0.25)
+    with pytest.raises(ValueError):  # 4 frames do not split into clips of 3
+        TST.temporal_attention_fused(qkv, 3, 0.25)
+    with pytest.raises(ValueError):  # head dim not contiguous
+        TST.spatial_attention(torch.zeros(4, 5, 3, 16, 2, device=cuda).transpose(3, 4), 0.25)
+    q = torch.zeros(1, 2, 5, 16, device=cuda)
+    with pytest.raises(ValueError):  # k with other strides than q
+        TA.fused_attention(q, torch.zeros(1, 5, 2, 16, device=cuda).transpose(1, 2), q)
+    args = torch_mlp_args(mlp_inputs(np.random.RandomState(7), (16, 64), 100), torch.bfloat16)
+    with pytest.raises(ValueError):  # O = 100 is not a multiple of 8
+        TMLP.fused_ln_dense(*(a.to(cuda) for a in args[:5]))
+    y = torch.zeros(2, 5, 16, device=cuda)
+    gate = (torch.zeros(32, 32, device=cuda), torch.zeros(32, device=cuda),
+            torch.zeros(16, 16, device=cuda), torch.zeros(16, device=cuda))
+    with pytest.raises(ValueError):  # a branch that is a strided view
+        TMLP.fused_gate_proj(y, torch.zeros(2, 5, 32, device=cuda)[..., :16], y, *gate)
+    with pytest.raises(ValueError):  # f64
+        TMLP.fused_gate_proj(*(t.double() for t in (y, y, y, *gate)))
+    with pytest.raises(ValueError):  # the gate's weight as flax stores half of it
+        TMLP.fused_gate_proj(y, y, y, gate[0][:16], *gate[1:])
+    assert kernels.LAUNCHES == launches
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -1,7 +1,8 @@
 """maed_tpu_torch imports and runs without JAX, flax or triton, as it must on
 the machine with the card (which has no JAX): a fresh interpreter in which
-importing any of them fails imports every module of the port and runs the
-tiny eval forward on the CPU."""
+importing any of them fails imports every module of the port, maps a flax
+parameter tree onto the port's state_dict and runs the tiny eval forward on
+the CPU; in the end no module of maed_tpu, jax, flax or triton is loaded."""
 
 import os
 import subprocess
@@ -27,6 +28,14 @@ clips = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (1, 2, 32, 32,
 out = model(clips, smpl, J_regressor=torch.full((14, 6890), 1 / 6890))
 assert out["verts"].shape == (1, 2, 6890, 3) and out["kp_3d"].shape == (1, 2, 14, 3)
 assert all(torch.isfinite(v).all() for v in out.values())
+from maed_tpu_torch.utils.weights import state_dict_from_jax
+tree = {"encoder": {"blocks_0": {"attn": {"qkv": {"kernel": np.ones((4, 12), np.float32)}},
+                                 "norm1": {"scale": np.ones(4, np.float32)}}},
+        "decoder": {"joint_reg3": {"bias": np.zeros(6, np.float32)}}}
+sd = state_dict_from_jax(tree)
+assert sorted(sd) == ["decoder.joint_regs.3.bias", "encoder.blocks.0.attn.qkv.weight",
+                      "encoder.blocks.0.norm1.weight"]
+assert sd["encoder.blocks.0.attn.qkv.weight"].shape == (12, 4)
 assert not [name for name, mod in sys.modules.items()
             if mod is not None and name.split(".")[0] in ("maed_tpu", "jax", "flax", "triton")]
 print("NOJAX_OK")

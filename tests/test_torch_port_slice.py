@@ -29,6 +29,7 @@ from maed_tpu.models import MAED as JMAED
 from maed_tpu.ops.image import device_normalize as j_device_normalize
 from maed_tpu.utils.checkpoint import fold_weight_standardization as j_fold
 from maed_tpu.utils.smpl_io import synthetic_smpl_model as j_synthetic_smpl
+from maed_tpu.utils.torch_convert import convert_params_to_state_dict as j_convert
 from maed_tpu_torch.core.builder import build_eval_model
 from maed_tpu_torch.models.maed import MAED
 from maed_tpu_torch.utils.checkpoint import fold_weight_standardization as t_fold
@@ -72,6 +73,18 @@ def assert_outputs_close(got, want, atol, rtol):
         assert_close(got[key], want[key], atol, rtol, what=key)
 
 
+def test_weight_mapping_equals_the_jax_packages(params):
+    """utils.weights keeps its own copy of the flax -> torch key mapping (the
+    port imports nothing of maed_tpu): key for key and value for value it is
+    maed_tpu.utils.torch_convert's."""
+    want = j_convert(params)
+    got = state_dict_from_jax(params)
+    assert list(got) == list(want)
+    for key, value in want.items():
+        assert got[key].dtype == torch.float32
+        np.testing.assert_array_equal(got[key].numpy(), value, err_msg=key)
+
+
 def test_state_dict_has_the_reference_names(params):
     sd = state_dict_from_jax(params)
     assert len(sd) == 235
@@ -112,6 +125,29 @@ def test_slice_matches_jax(params, dtype, variant):
     assert_outputs_close(got, want, atol, rtol)
 
 
+def test_slice_matches_jax_through_its_pallas_kernels(params, monkeypatch):
+    """The JAX model with every fused path of this slice switched on
+    (GroupNorm, LN + qkv, the temporal head-pair kernel, one-shot spatial
+    attention, gate + proj, LN + MLP) and its Pallas kernels in interpret mode, against
+    the port, in f32. atol 1e-4, rtol 1e-3 as the plain f32 case: the
+    kernels keep f32 moments and scores and sum in other orders."""
+    from maed_tpu.ops import groupnorm, mlp, st_attention
+
+    for name in ("MAED_FUSED_GN", "MAED_TEMPORAL_V2", "MAED_FUSED_ATTENTION", "MAED_FUSED_QKV",
+                 "MAED_FUSED_GATE"):
+        monkeypatch.setenv(name, "1")
+    for mod in (groupnorm, mlp, st_attention):
+        monkeypatch.setattr(mod, "_INTERPRET", True)
+    assert groupnorm.use_fused_groupnorm() and st_attention.use_temporal_v2()
+    assert mlp.use_fused_gate()
+    clips = np.random.RandomState(5).randn(*SHAPE).astype(np.float32)
+    want = jax_forward(params, clips, j_synthetic_smpl(64, 0), None, jnp.float32, True)
+    model = MAED(img_size=32, dtype=torch.float32, **CONFIG)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    got = model(to_torch(clips), t_synthetic_smpl(64, 0))
+    assert_outputs_close(got, want, 1e-4, 1e-3)
+
+
 def test_build_eval_model_matches_jax(params, tmp_path, capsys):
     """The port's entry point with the JAX weights: strict load, folding,
     the loud fallback to the synthetic 6890-vertex body, uint8 clips and a
@@ -145,7 +181,9 @@ def test_build_eval_model_casts_weights_once(tmp_path):
     dtypes = {name: p.dtype for name, p in model.named_parameters()}
     f32 = {name for name, dt in dtypes.items() if dt == torch.float32}
     assert f32 == {name for name in dtypes
-                   if ".norm" in name or name.endswith(("mlp.fc1.bias", "mlp.fc2.bias"))}
+                   if ".norm" in name
+                   or name.endswith(("mlp.fc1.bias", "mlp.fc2.bias", "attn.qkv.bias",
+                                     "attn.ts_attn.bias", "attn.proj.bias"))}
     assert all(dt == torch.bfloat16 for name, dt in dtypes.items() if name not in f32)
 
     clips = torch.from_numpy(np.random.RandomState(4).randint(0, 256, SHAPE).astype(np.uint8))

@@ -24,7 +24,12 @@ import torch  # noqa: E402
 
 # kind of kernel, by a piece of its name; first match wins
 KINDS = (
+    ("ln_dense (kernel D)", ("biasonly",)),
+    ("gate_proj (kernel E)", ("gateblend", "gate_alpha_kernel")),
     ("ln_mlp (kernel C)", ("gemm_bf16_kernel<", "gemm_f32_kernel<")),
+    ("groupnorm (kernel I)", ("groupnorm_kernel",)),
+    ("spatial attention (kernels F, J)", ("spatial_attention",)),
+    ("temporal attention (kernels G, H)", ("temporal_attention",)),
     ("layernorm (kernel B)", ("layernorm_kernel",)),
     ("skinning (kernel A)", ("skinning_kernel",)),
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "xmma", "winograd", "fprop")),
