@@ -44,12 +44,44 @@ ROOT = Path(__file__).resolve().parent
 N_CLIPS, SEQLEN, IMG = 8, 16, 224
 NUM_VERTS = 6890
 REQUESTS = 3
-# kernel launches per forward at depth 6: the stem's 52 GroupNorms; per block
-# norm1 + qkv, the temporal and the spatial branch, the gate and the blend +
-# proj, and the MLP's two launches; the final norm; SMPL's skinning once
-PER_FORWARD = {"groupnorm": 52, "ln_dense": 6, "spatial_attention": 6, "temporal_attention": 6,
-               "gate_alpha": 6, "gate_proj": 6, "layernorm": 1, "ln_mlp_fc1": 6,
-               "ln_mlp_fc2": 6, "skinning": 1}
+# the eval protocol's loader: window batches (the second is ragged and padded
+# to the first's size), frames a window
+EVAL_BATCHES, POOL = (8, 5), 128
+# kernel launches per forward: the stem's 52 GroupNorms, the MLP's two
+# launches per block, the final norm and SMPL's skinning; then per block
+# what the attention of each st_mode launches (parallel: norm1 + qkv, the
+# spatial and the temporal branch, the gate and the blend + proj; coupling:
+# norm1 + qkv and the blocked attention; temporal: norm1 by itself)
+BLOCK_KERNELS = {
+    "parallel": ("ln_dense", "spatial_attention", "temporal_attention", "gate_alpha", "gate_proj"),
+    "coupling": ("ln_dense", "attention_blocked"),
+    "vanilla": ("ln_dense", "spatial_attention"),
+    "temporal": ("layernorm", "temporal_attention"),
+    "series": ("ln_dense", "spatial_attention", "temporal_attention"),
+}
+
+
+def per_forward(mode: str, depth: int = 6) -> dict:
+    """Launches of every kernel in one forward of ``mode`` at ``depth`` blocks."""
+    from maed_tpu_torch import kernels
+
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    counts.update(groupnorm=52, layernorm=1, skinning=1, ln_mlp_fc1=depth, ln_mlp_fc2=depth)
+    for name in BLOCK_KERNELS[mode]:
+        counts[name] += depth
+    return counts
+
+
+def expect_launches(launches: dict, mode: str, forwards: int, depth: int = 6, extra=None):
+    """Raise unless ``launches`` are those of ``forwards`` forwards of ``mode``
+    (plus ``extra``: launches made beside the forwards)."""
+    for name, per in per_forward(mode, depth).items():
+        want = per * forwards + (extra or {}).get(name, 0)
+        if launches[name] != want:
+            raise AssertionError(f"{mode}: {name} launched {launches[name]} times, want {want} "
+                                 f"({per} per forward x {forwards})")
+
+
 # every distinct (side, channels, relu) of the stem's 52 GroupNorms at 224 px:
 # the stem norm; stage 1's norm1/2 and norm3/downsample; stage 2's first norm1,
 # its norm2/norm1 and norm3/downsample; stage 3's likewise
@@ -252,7 +284,52 @@ def phase_kernels(device):
         record["temporal"] = rec
         compare(f"temporal (h, BT, N, d) {dt}", lambda: st_attention.temporal_attention(qkv, SEQLEN, att),
                 lambda: st_attention.temporal_reference(qkv, SEQLEN, att), atol, rtol)
-    del qkv, q4, k4, v4, q5, k5, v5
+        # st_mode temporal hands the kernel the projection of one mean token a frame
+        qkv1 = T(qkv_np.mean(axis=1, keepdims=True) * np.sqrt(N), dt)
+        compare(f"temporal (BT, 1, C), one token a frame {dt}",
+                lambda: st_attention.temporal_attention_fused(qkv1, SEQLEN, att),
+                lambda: st_attention.temporal_reference_btc(qkv1, SEQLEN, att), atol, rtol)
+    del qkv, qkv1, q4, k4, v4, q5, k5, v5
+
+    # K: blocked attention over the T * N tokens of a clip (st_mode coupling),
+    # through fused_attention's dispatch. q, k, v are in-place views of the
+    # qkv projection and the output a view of the (BT, N, C) result, as the
+    # model calls it (the record), then contiguous tensors. f32 at 2e-5: the
+    # kernel's 64-key tiles and the plain version's 512-key blocks rescale and
+    # sum in other orders. bf16 at 2e-3 abs + 1e-2 rel: the outputs are means
+    # of v over ~1000 keys (|out| ~0.03, at most ~0.3), so rel carries one bf16
+    # step of an output and abs the unnormalised p that round to the
+    # neighbouring bf16 value where the running max differs. A last tile of
+    # 16 keys dropped or left unmasked would move outputs by ~1e-2.
+    S = SEQLEN * N
+    print(f"kernel K blocked attention: q, k, v {(N_CLIPS, heads, S, d)} on qkv {qkv_np.shape}")
+    for dt, atol, rtol in ((f32, 2e-5, 0.0), (bf16, 2e-3, 1e-2)):
+        qkv = T(qkv_np, dt)
+        qv, kv, vv = (a.transpose(1, 2) for a in qkv.view(N_CLIPS, S, 3, heads, d).unbind(2))
+
+        def blocked_in_place():
+            y = torch.empty((B, N, C), dtype=dt, device=device)
+            attention.fused_attention(qv, kv, vv, att,
+                                      out=y.view(N_CLIPS, S, heads, d).transpose(1, 2))
+            return y
+
+        rec = compare(f"blocked attention, in place {dt}", blocked_in_place,
+                      lambda: attention.attention_blocked_reference(qv, kv, vv, att)
+                      .transpose(1, 2).reshape(B, N, C), atol, rtol,
+                      moved=(qkv,), flops=4.0 * N_CLIPS * heads * S * S * d, kind=kinds[dt],
+                      library=lambda: F.scaled_dot_product_attention(qv, kv, vv, scale=att),
+                      iters=10)
+        record["attention_blocked"] = rec
+        qc, kc, vc = (a.contiguous() for a in (qv, kv, vv))
+        compare(f"blocked attention, contiguous {dt}",
+                lambda: attention.fused_attention(qc, kc, vc, att),
+                lambda: attention.attention_blocked_reference(qc, kc, vc, att), atol, rtol)
+        # just above the one-shot limit (a last tile of one key), head dim 32
+        qs, ks, vs = (T(a, dt) for a in rng.randn(3, 2, heads, 1025, 32))
+        compare(f"blocked attention, S 1025 d 32 {dt}",
+                lambda: attention.fused_attention(qs, ks, vs),
+                lambda: attention.attention_blocked_reference(qs, ks, vs, 32 ** -0.5), atol, rtol)
+    del qkv, qv, kv, vv, qc, kc, vc, qs, ks, vs
 
     # I: GroupNorm(32, eps 1e-5), timed at four sites of the stem, in the
     # channels-last memory layout cuDNN hands the model; then held against its
@@ -310,10 +387,10 @@ def make_requests(device):
     return clips, jreg
 
 
-def check_outputs(out):
-    want = {"theta": (N_CLIPS, SEQLEN, 85), "verts": (N_CLIPS, SEQLEN, NUM_VERTS, 3),
-            "kp_2d": (N_CLIPS, SEQLEN, 14, 2), "kp_3d": (N_CLIPS, SEQLEN, 14, 3),
-            "rotmat": (N_CLIPS, SEQLEN, 24, 3, 3)}
+def check_outputs(out, clips=N_CLIPS, joints=14):
+    want = {"theta": (clips, SEQLEN, 85), "verts": (clips, SEQLEN, NUM_VERTS, 3),
+            "kp_2d": (clips, SEQLEN, joints, 2), "kp_3d": (clips, SEQLEN, joints, 3),
+            "rotmat": (clips, SEQLEN, 24, 3, 3)}
     for key, shape in want.items():
         if tuple(out[key].shape) != shape:
             raise AssertionError(f"{key}: shape {tuple(out[key].shape)}, want {shape}")
@@ -321,12 +398,14 @@ def check_outputs(out):
             raise AssertionError(f"{key}: non-finite values")
 
 
-def build_flagship(device, dtype, seed=0):
-    """The released stage-2 MAED through the port's entry point, with
-    seeded random weights and the synthetic 6890-vertex body."""
+def build_flagship(device, dtype, seed=0, st_mode="parallel", num_blocks=6):
+    """The released stage-2 MAED (or its sibling of another attention mode or
+    depth) through the port's entry point, with seeded random weights and the
+    synthetic 6890-vertex body."""
     from maed_tpu_torch.core.builder import build_eval_model
 
-    return build_eval_model(dtype=dtype, device=device, seed=seed, allow_synthetic_smpl=True)
+    return build_eval_model(st_mode=st_mode, num_blocks=num_blocks, dtype=dtype, device=device,
+                            seed=seed, allow_synthetic_smpl=True)
 
 
 def worst_err(outs, wants):
@@ -362,10 +441,7 @@ def phase_serve(device, clips, jreg):
     print(f"request ms (bf16, {N_CLIPS}x{SEQLEN}x{IMG}^2 uint8): "
           + ", ".join(f"{t:.2f}" for t in times))
     print(f"launches over {REQUESTS} requests: {launches}")
-    for name, per in PER_FORWARD.items():
-        if launches[name] != per * REQUESTS:
-            raise AssertionError(f"{name}: {launches[name]} launches, want "
-                                 f"{per} per forward x {REQUESTS}")
+    expect_launches(launches, "parallel", REQUESTS)
     plains = [model(clip, smpl, J_regressor=jreg, plain=True) for clip in clips]
     print(f"bf16 forward, kernels vs plain over {REQUESTS} requests (no bound here; "
           "see the f32 phase): " + ", ".join(
@@ -395,16 +471,192 @@ def phase_f32(device, clips, jreg, bf16_outs, bf16_plains):
     for key, atol in (("verts", 1e-4), ("kp_3d", 1e-4), ("theta", 1e-3)):
         check_close(f"f32 forward {key}, kernels vs plain", got[key], wants[0][key], atol)
 
+    check_bf16_ratio("parallel", bf16_outs, bf16_plains, wants)
+
+
+def check_bf16_ratio(label, bf16_outs, bf16_plains, wants):
+    """The bf16 answers through the kernels must lie about as close to the f32
+    plain answers ``wants`` as the bf16 answers through the plain versions do."""
     kern, plain = worst_err(bf16_outs, wants), worst_err(bf16_plains, wants)
     for key in ("verts", "kp_3d"):
-        print(f"  bf16 {key} vs f32 plain: through the kernels {kern[key]:.3e}, through "
-              f"the plain versions {plain[key]:.3e}, ratio {kern[key] / plain[key]:.3f} "
-              f"(bound {BF16_RATIO})")
+        print(f"  {label}: bf16 {key} vs f32 plain: through the kernels {kern[key]:.3e}, "
+              f"through the plain versions {plain[key]:.3e}, ratio "
+              f"{kern[key] / plain[key]:.3f} (bound {BF16_RATIO})")
         if not kern[key] <= BF16_RATIO * plain[key]:
-            raise AssertionError(f"bf16 {key}: the kernels' answer is {kern[key]:.3e} from "
-                                 f"the f32 answer, beyond {BF16_RATIO} x {plain[key]:.3e}")
-    print(f"  bf16 theta vs f32 plain (no bound: whole rotations): kernels "
+            raise AssertionError(f"{label}: bf16 {key}: the kernels' answer is {kern[key]:.3e} "
+                                 f"from the f32 answer, beyond {BF16_RATIO} x {plain[key]:.3e}")
+    print(f"  {label}: bf16 theta vs f32 plain (no bound: whole rotations): kernels "
           f"{kern['theta']:.3e}, plain {plain['theta']:.3e}")
+
+
+def f32_agreement(device, mode, clip, jreg, num_blocks=2):
+    """One f32 forward of a ``num_blocks``-deep model of ``mode`` through the
+    kernels and one through their plain versions, within phase_f32's limits
+    (TF32 is off since that phase). Returns the model and its body."""
+    model, smpl = build_flagship(device, torch.float32, st_mode=mode, num_blocks=num_blocks)
+    got = model(clip, smpl, J_regressor=jreg)
+    want = model(clip, smpl, J_regressor=jreg, plain=True)
+    check_outputs(got, clips=clip.shape[0], joints=jreg.shape[0])
+    for key, atol in (("verts", 1e-4), ("kp_3d", 1e-4), ("theta", 1e-3)):
+        check_close(f"{mode} f32 forward, depth {num_blocks}, {key}, kernels vs plain",
+                    got[key], want[key], atol)
+    return model, smpl
+
+
+def make_windows(smpl, device):
+    """The eval protocol's input, made from a seed: an h36m-style (17, V)
+    regressor and, per batch of EVAL_BATCHES, a dict of POOL-frame uint8
+    windows, a ``valid`` mask with about a tenth of the frames off, random GT
+    theta, and GT joints of the body on that theta through the regressor and
+    the 3dpw protocol's 14-joint selection, confidence 1."""
+    from maed_tpu_torch.ops.joints import H36M_TO_J14
+    from maed_tpu_torch.ops.smpl import smpl_forward
+
+    rng = np.random.RandomState(2)
+    jreg = rng.rand(17, NUM_VERTS) ** 8  # a few vertices each, so that the joints lie apart
+    jreg = (jreg / jreg.sum(axis=1, keepdims=True)).astype(np.float32)
+    jreg_dev = torch.from_numpy(jreg).to(device)
+    batches = []
+    for n in EVAL_BATCHES:
+        theta = np.zeros((n, POOL, 85), np.float32)
+        theta[..., 3:75] = rng.randn(n, POOL, 72) * 0.2
+        theta[..., 75:] = rng.randn(n, POOL, 10) * 0.5
+        flat = torch.from_numpy(theta.reshape(-1, 85)).to(device)
+        with torch.inference_mode():
+            verts = smpl_forward(smpl, flat[:, 75:], pose_axis_angle=flat[:, 3:75])["vertices"]
+            kp = torch.einsum("jv,bvk->bjk", jreg_dev, verts)[:, H36M_TO_J14]
+        kp = kp.reshape(n, POOL, 14, 3).cpu().numpy()
+        kp3d = np.concatenate([kp, np.ones((n, POOL, 14, 1), np.float32)], axis=-1)
+        batches.append({
+            "images": rng.randint(0, 256, (n, POOL, IMG, IMG, 3), dtype=np.uint8),
+            "kp_3d": kp3d, "kp_2d": kp3d[..., [0, 1, 3]], "theta": theta,
+            "valid": rng.rand(n, POOL) < 0.9,
+            "instance_id": np.arange(n * POOL).reshape(n, POOL),
+            "bbox": rng.rand(n, POOL, 4).astype(np.float32)})
+    return batches, jreg
+
+
+def stamped(batches, stamps):
+    """``batches`` as a loader that notes the time each batch is asked for."""
+    for batch in batches:
+        stamps.append(time.perf_counter())
+        yield batch
+    stamps.append(time.perf_counter())
+
+
+def check_accumulators(evaluator, poses):
+    want = {"pred_verts": (NUM_VERTS, 3), "pred_j3d": (14, 3), "pred_j2d": (14, 2),
+            "pred_theta": (85,), "pred_rotmat": (24, 3, 3), "target_j3d": (14, 4),
+            "target_j2d": (14, 3), "target_theta": (85,), "instance_id": (), "bboxes": (4,)}
+    got = {key: np.concatenate(parts, axis=0) for key, parts in evaluator.accumulators.items()}
+    if set(got) != set(want):
+        raise AssertionError(f"accumulators {sorted(got)}, want {sorted(want)}")
+    for key, tail in want.items():
+        if got[key].shape != (poses,) + tail:
+            raise AssertionError(f"{key}: shape {got[key].shape}, want {(poses,) + tail}")
+        if not np.isfinite(got[key]).all():
+            raise AssertionError(f"{key}: non-finite values")
+    return got
+
+
+def phase_eval(device):
+    """This slice's path at full width: the bf16 coupling MAED under
+    ``Evaluator.run`` over 13 windows, 16 sub-clip forwards of 8 x 16 x 224^2
+    through the blocked attention kernel. Then the coupling forward's bf16
+    ratio rule, and the same protocol in f32 at depth 2 through the kernels
+    and through their plain versions. Returns the launch counts of the run."""
+    from maed_tpu_torch import kernels
+    from maed_tpu_torch.core.evaluate import Evaluator
+
+    model, smpl = build_flagship(device, torch.bfloat16, st_mode="coupling")
+    batches, jreg = make_windows(smpl, device)
+    jreg_dev = torch.from_numpy(jreg).to(device)
+    poses = int(sum(b["valid"].sum() for b in batches))
+    forwards = len(batches) * (POOL // SEQLEN)
+    clip = torch.from_numpy(batches[0]["images"][:, ::POOL // SEQLEN]).to(device)
+    model(clip, smpl, J_regressor=jreg_dev)  # warmup
+    torch.cuda.synchronize()
+
+    def forward(images, J_regressor):
+        return model(images, smpl, J_regressor=J_regressor)
+
+    evaluator, stamps = Evaluator(smpl), []
+    kernels.reset_launches()
+    metrics, counted = evaluator.run(forward, stamped(batches, stamps), seqlen=SEQLEN, interp=1,
+                                     dataset_name="3dpw", J_regressor=jreg,
+                                     batch_size=EVAL_BATCHES[0])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"eval protocol (bf16 coupling, {sum(EVAL_BATCHES)} windows x {POOL} frames, "
+          f"{forwards} sub-clip forwards): window batch s "
+          + ", ".join(f"{b - a:.3f}" for a, b in zip(stamps, stamps[1:])))
+    print(f"launches over the run: {launches}")
+    # beside the forwards: one rebuild of the GT vertices (a chunk of up to 5000 poses)
+    expect_launches(launches, "coupling", forwards, extra={"skinning": 1})
+    if counted != poses:
+        raise AssertionError(f"{counted} poses evaluated, want valid.sum() = {poses}")
+    if sorted(metrics) != ["accel", "accel_err", "mpjpe", "pa-mpjpe", "pve"] \
+            or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"metrics {metrics}")
+    check_accumulators(evaluator, poses)
+    ms = time_ms(lambda: model(clip, smpl, J_regressor=jreg_dev), 4)
+    print(f"coupling sub-clip forward (bf16, {N_CLIPS}x{SEQLEN}x{IMG}^2 uint8): {ms:.2f} ms "
+          "(device, mean of 4)")
+
+    # the bf16 ratio rule for the coupling forward, on the first sub-clip
+    bf16_out = model(clip, smpl, J_regressor=jreg_dev)
+    bf16_plain = model(clip, smpl, J_regressor=jreg_dev, plain=True)
+    del model
+    f32_model, _ = build_flagship(device, torch.float32, st_mode="coupling")
+    want = f32_model(clip, smpl, J_regressor=jreg_dev, plain=True)
+    del f32_model
+    check_bf16_ratio("coupling", [bf16_out], [bf16_plain], [want])
+
+    # f32 at depth 2: the forward, then the whole protocol over 2 windows,
+    # through the kernels and through their plain versions. Accumulators
+    # within phase_f32's limits; the metrics (mm) within 0.05 mm, half of what
+    # points 1e-4 m apart could move a mean distance.
+    model, smpl = f32_agreement(device, "coupling", clip[:2], jreg_dev)
+    small = [{key: value[:2] for key, value in batches[0].items()}]
+    runs = []
+    for plain in (False, True):
+        ev = Evaluator(smpl)
+        got, _ = ev.run(lambda x, j, plain=plain: model(x, smpl, J_regressor=j, plain=plain),
+                        small, seqlen=SEQLEN, dataset_name="3dpw", J_regressor=jreg,
+                        batch_size=2, verbose=False)
+        runs.append((got, check_accumulators(ev, int(small[0]["valid"].sum()))))
+    (m_kern, a_kern), (m_plain, a_plain) = runs
+    for key, atol in (("pred_verts", 1e-4), ("pred_j3d", 1e-4), ("pred_theta", 1e-3)):
+        check_close(f"coupling f32 protocol, depth 2, {key}, kernels vs plain",
+                    torch.from_numpy(a_kern[key]), torch.from_numpy(a_plain[key]), atol)
+    for key, value in m_kern.items():
+        print(f"  coupling f32 protocol {key}: kernels {value:.4f} mm, plain {m_plain[key]:.4f} mm")
+        if not abs(value - m_plain[key]) <= 0.05:
+            raise AssertionError(f"{key}: {value} mm through the kernels, {m_plain[key]} mm "
+                                 "through the plain versions")
+    return launches
+
+
+def phase_modes(device, clip, jreg):
+    """The attention modes that need no kernel of their own: one bf16 request
+    at full width and depth each (launch counts per mode, outputs finite) and
+    the f32 kernels-vs-plain agreement at depth 2."""
+    from maed_tpu_torch import kernels
+
+    for mode in ("vanilla", "temporal", "series"):
+        model, smpl = build_flagship(device, torch.bfloat16, st_mode=mode)
+        model(clip, smpl, J_regressor=jreg)  # warmup
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = model(clip, smpl, J_regressor=jreg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        expect_launches(dict(kernels.LAUNCHES), mode, 1)
+        check_outputs(out, clips=clip.shape[0])
+        print(f"{mode}: bf16 request {ms:.2f} ms, launches as expected")
+        del model
+        f32_agreement(device, mode, clip[:2], jreg)
 
 
 def main() -> int:
@@ -433,6 +685,9 @@ def main() -> int:
     clips, jreg = make_requests(device)
     launches, outs, plains = phase_serve(device, clips, jreg)
     phase_f32(device, clips, jreg, outs, plains)
+    del outs, plains
+    eval_launches = phase_eval(device)
+    phase_modes(device, clips[0], jreg)
 
     src, jax_ops = "maed_tpu_torch/", "maed_tpu/ops/"
     kernels_line = [
@@ -463,6 +718,10 @@ def main() -> int:
         dict(name="temporal_attention", route="cuda", source=src + "csrc/st_attention.cu",
              replaces=f"{jax_ops}st_attention.py:132, {jax_ops}st_attention.py:229",
              launches=launches["temporal_attention"], **record["temporal"]),
+        # the one kernel whose launches are those of the eval protocol's run
+        dict(name="fused_attention_blocked", route="cuda", source=src + "csrc/st_attention.cu",
+             replaces=jax_ops + "attention.py:74",
+             launches=eval_launches["attention_blocked"], **record["attention_blocked"]),
     ]
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

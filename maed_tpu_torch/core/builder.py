@@ -58,7 +58,10 @@ def init_weights_(model: MAED, seed: int) -> None:
             const(mod.weight, 1.0)
             const(mod.bias, 0.0)
     enc = model.encoder
-    for p in (enc.cls_token, enc.pos_embed, enc.temp_embed):
+    embeds = [enc.cls_token, enc.pos_embed]
+    if hasattr(enc, "temp_embed"):  # the modes that mix frames by position
+        embeds.append(enc.temp_embed)
+    for p in embeds:
         nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=g)
         done.add(id(p))
     missed = [name for name, p in model.named_parameters() if id(p) not in done]
@@ -70,9 +73,10 @@ def cast_weights_(model: MAED, dtype: torch.dtype) -> None:
     """Cast, once, every parameter the forward casts to ``dtype`` where it is
     used: the dense, MLP and conv weights, the dense and conv biases and the
     embeddings. The same rounding as the cast at use, without a copy per
-    call. The norms' parameters and the biases of the MLP and of the
-    attention's qkv, gate and output projections stay f32: the kernels take
-    them so."""
+    call. The norms' parameters and the biases that a kernel takes in f32
+    stay f32: the MLP's, the qkv projection's (but in st_mode 'temporal',
+    whose projection is a plain product) and, in st_mode 'parallel', the
+    gate's and the output projection's."""
     keep = set()
     for mod in model.modules():
         if isinstance(mod, (FastLayerNorm, GroupNormAct)):
@@ -80,7 +84,10 @@ def cast_weights_(model: MAED, dtype: torch.dtype) -> None:
         elif isinstance(mod, Mlp):
             keep.update((id(mod.fc1.bias), id(mod.fc2.bias)))
         elif isinstance(mod, StAttention):
-            keep.update((id(mod.qkv.bias), id(mod.ts_attn.bias), id(mod.proj.bias)))
+            if mod.st_mode != "temporal":
+                keep.add(id(mod.qkv.bias))
+            if mod.st_mode == "parallel":
+                keep.update((id(mod.ts_attn.bias), id(mod.proj.bias)))
     for p in model.parameters():
         if id(p) not in keep:
             p.data = p.data.to(dtype)
@@ -88,14 +95,15 @@ def cast_weights_(model: MAED, dtype: torch.dtype) -> None:
 
 def build_eval_model(*, num_blocks: int = 6, num_heads: int = 12,
                      hidden_dim: int = 1024, img_size: int = 224,
-                     dtype: torch.dtype = torch.bfloat16,
+                     st_mode: str = "parallel", dtype: torch.dtype = torch.bfloat16,
                      device: torch.device | str = "cuda", seed: int = 0,
                      state_dict: dict | None = None,
                      allow_synthetic_smpl: bool = False,
                      smpl_dir: str = "data/smpl_data") -> tuple[MAED, SMPLModel]:
     """(model, smpl) ready for ``model(clips, smpl, J_regressor=...)``.
 
-    The defaults are the released stage-2 model. ``state_dict`` holds
+    The defaults are the released stage-2 model; ``st_mode`` picks another
+    attention mode of ``models.vit.ST_MODES``. ``state_dict`` holds
     reference-named weights (``utils.weights.state_dict_from_jax`` or a
     reference checkpoint's); without it the weights are random from
     ``seed``. ``dtype`` is the activation dtype (bf16 serves, f32 is the
@@ -106,7 +114,7 @@ def build_eval_model(*, num_blocks: int = 6, num_heads: int = 12,
     """
     with torch.device("meta"):
         model = MAED(num_blocks=num_blocks, num_heads=num_heads, hidden_dim=hidden_dim,
-                     img_size=img_size, standardize_ws=False, dtype=dtype)
+                     img_size=img_size, standardize_ws=False, st_mode=st_mode, dtype=dtype)
     model = model.to_empty(device=device)
     if state_dict is None:
         init_weights_(model, seed)

@@ -1,8 +1,12 @@
-// The two attention branches of the parallel spatio-temporal block, f32 or
-// bf16: attention over the S tokens of a frame (spatial) and over the T frames
-// of a token (temporal), both softmax(q k^T * scale) v per head.
+// The attention kernels of the spatio-temporal block, f32 or bf16: attention
+// over the S tokens of a frame (spatial), over the T frames of a token
+// (temporal) and over all T * N tokens of a clip (blocked, st_mode
+// 'coupling'), each softmax(q k^T * scale) v per head.
 //
-// Replaces four Pallas kernels with two CUDA kernels:
+// Replaces five Pallas kernels with three CUDA kernels:
+//   blocked_attention_kernel (below the spatial ones, with its own note)
+//     maed_tpu/ops/attention.py::_attn_blocked_kernel (pallas_call in
+//       `_attention_blocked`, public entry `fused_attention`, S > 1024)
 //   spatial_attention_kernel
 //     maed_tpu/ops/attention.py::_attn_oneshot_kernel (pallas_call in
 //       `_attention_oneshot`, public entry `fused_attention`, S <= 1024)
@@ -430,6 +434,411 @@ int launch_spatial(const void* q, const void* k, const void* v, void* out, int B
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------- blocked (online softmax)
+//
+// Replaces maed_tpu/ops/attention.py::_attn_blocked_kernel: one pass over the
+// keys with a running max m, a running sum l and an f32 accumulator per query
+// row. For a key tile: s = q k^T * scale in f32 (columns beyond S at -inf),
+// m_new = max(m, rowmax s), alpha = exp(m - m_new), p = exp(s - m_new); l =
+// alpha l + sum p over the UNROUNDED p; acc = alpha acc + round(p) v with p
+// rounded to v's dtype unnormalised; out = acc / l once at the end. (The
+// spatial kernel normalises p before it rounds, so the two differ in bf16.)
+//
+// What bounds it on the H100: operations. At the coupling shape (B 8, h 12,
+// S 3152, d 64) the two products are 2.44e11 FLOP, 0.247 ms at the bf16
+// tensor-core peak, against 0.046 ms for its 155 MB; forming the 3152^2 scores
+// twice, as the spatial kernel's exact softmax does, would add half again. So
+// the scores are formed once and never leave registers.
+//
+// bf16 (head dim 16, 32, 64 or 128): a block of 8 warps takes 128 query rows of
+// one (batch, head), a warp 16 of them with q fragments in registers (mma.sync
+// m16n8k16, f32 accumulate; up to head dim 64 capped at 128 registers, so that
+// two blocks share an SM). Keys and values come 64 at a time by 16-byte
+// cp.async into two shared-memory stages, the next tile in flight while this
+// one is multiplied; both operands' fragments are read with ldmatrix. The
+// scores are kept in units of log 2 (scale * log2 e in one multiplication), so
+// every exponential is one ex2. S is not padded anywhere: the key loop ends at
+// S, the last tile's missing rows are zero-filled on the way in and its columns
+// masked. The TPU kernel's 512 x 512 blocks, its host padding of S to a
+// multiple of 512 and its scratch carried across grid steps are not carried
+// over; a 64-key tile moves the running max more often than a 512-key block, so
+// an unnormalised p may round to the neighbouring bf16 value. (A first version
+// with 4 warps and 64 rows a block, the keys' fragments by 4-byte loads and
+// __expf took 1.34 ms at the coupling shape against this one's 1.19; 8 warps
+// without the register cap, one block an SM, took 1.46.)
+//
+// f32, any head dim that is a multiple of 8: a block takes 64 query rows, a warp
+// 8 of them, on the CUDA cores (no TF32). A lane forms the scores of keys lane
+// and lane + 32 of the tile with its warp's 8 rows at once, p goes through
+// shared memory, and a lane accumulates output columns lane, lane + 32, ...
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// e^x for x <= 0 as 2^(x log2 e) is what __expf computes; with the scores kept
+// in units of log 2 the multiplication is paid once, in the scale. -inf gives 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Four 8 x 8 bf16 tiles from row-major shared memory, as they lie: lane l gives
+// the address of row l % 8 of tile l / 8, and receives of each tile the elements
+// (g, 2t) and (g, 2t + 1): a b fragment of a row-major (n x k) operand.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+constexpr int kBlkWarps = 8, kBlkThreads = kBlkWarps * 32, kBlkRows = 16 * kBlkWarps;
+
+// rows row0 .. row0 + kRows - 1 of src (those from `valid` on as zeros) into a
+// tile of `pitch` elements a row, without waiting: commit and wait are the caller's
+template <int D, int kRows>
+__device__ __forceinline__ void load_rows_async(bf16* tile, int pitch, const bf16* src,
+                                                long long ss, int row0, int valid) {
+  for (int idx = threadIdx.x; idx < kRows * (D / 8); idx += kBlkThreads) {
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    const bool ok = r < valid;
+    cp_async16(tile + r * pitch + c, ok ? src + (row0 + r) * ss + c : src, ok);
+  }
+}
+
+// grid (B * H, ceil(S / kBlkRows)); addressing as spatial_attention_kernel.
+template <int D>
+__global__ void __launch_bounds__(kBlkThreads, D <= 64 ? 2 : 1) blocked_attention_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ out, int H, int S, long long sb, long long sh, long long ss,
+    long long ob, long long oh, long long os, float scale) {
+  constexpr int kPitch = D + 8, kTile = kMmaKeys * kPitch;  // see spatial_attention_mma_kernel
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // kBlkRows x kPitch
+  bf16* k_s = q_s + kBlkRows * kPitch;            // two stages of kMmaKeys x kPitch
+  bf16* v_s = k_s + 2 * kTile;                    // two stages of kMmaKeys x kPitch
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, q0 = blockIdx.y * kBlkRows;
+  const long long in_base = b * sb + h * sh;
+  q += in_base;
+  k += in_base;
+  v += in_base;
+  out += b * ob + h * oh;
+  scale *= 1.4426950408889634f;  // scores in units of log 2: see fast_exp2
+
+  load_rows_async<D, kBlkRows>(q_s, kPitch, q, ss, q0, S - q0);
+  load_rows_async<D, kMmaKeys>(k_s, kPitch, k, ss, 0, S);
+  load_rows_async<D, kMmaKeys>(v_s, kPitch, v, ss, 0, S);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+  {
+    const bf16* lo = q_s + (warp * 16 + g) * kPitch + 2 * t;
+    const bf16* hi = lo + 8 * kPitch;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qa[kk][0] = *reinterpret_cast<const uint32_t*>(lo + kk * 16);
+      qa[kk][1] = *reinterpret_cast<const uint32_t*>(hi + kk * 16);
+      qa[kk][2] = *reinterpret_cast<const uint32_t*>(lo + kk * 16 + 8);
+      qa[kk][3] = *reinterpret_cast<const uint32_t*>(hi + kk * 16 + 8);
+    }
+  }
+
+  // rows g (0) and g + 8 (1): running max, this lane's share of the running
+  // sum (alpha is the same in the row's 4 lanes, so the shares add up at the end)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[D / 8][4] = {};
+  const int tiles = (S + kMmaKeys - 1) / kMmaKeys;
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * kMmaKeys;
+    const bf16* k_cur = k_s + (it & 1) * kTile;
+    const bf16* v_cur = v_s + (it & 1) * kTile;
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed; every warp has left the other stage
+    if (it + 1 < tiles) {
+      const int nxt = (it + 1) & 1, k1 = k0 + kMmaKeys;
+      load_rows_async<D, kMmaKeys>(k_s + nxt * kTile, kPitch, k, ss, k1, S - k1);
+      load_rows_async<D, kMmaKeys>(v_s + nxt * kTile, kPitch, v, ss, k1, S - k1);
+      cp_async_commit();
+    }
+
+    // scaled scores of this warp's 16 rows against the tile's 64 keys, 8 at a
+    // time; columns beyond S are -inf (the first tile always has a column below S)
+    float s[kMmaKeys / 8][4];
+#pragma unroll
+    for (int j = 0; j < kMmaKeys / 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      if constexpr (D >= 32) {  // the 8 keys' fragments of two k steps in one load
+        const bf16* kr = k_cur + (j * 8 + lane % 8) * kPitch + (lane / 8) * 8;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; kk += 2) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, kr + kk * 16);
+          mma_16816(s[j], qa[kk], kb[0], kb[1]);
+          mma_16816(s[j], qa[kk + 1], kb[2], kb[3]);
+        }
+      } else {
+        const bf16* kr = k_cur + (j * 8 + g) * kPitch + 2 * t;
+        mma_16816(s[j], qa[0], *reinterpret_cast<const uint32_t*>(kr),
+                  *reinterpret_cast<const uint32_t*>(kr + 8));
+      }
+      const int col = k0 + j * 8 + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = col + (e & 1) < S ? s[j][e] * scale : -INFINITY;
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tile_max = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kMmaKeys / 8; ++j)
+        tile_max = fmaxf(tile_max, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+      const float m_new = fmaxf(m[r], tile_max);
+      const float alpha = fast_exp2(m[r] - m_new);  // 0 on the first tile
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMmaKeys / 8; ++j) {
+        s[j][2 * r] = fast_exp2(s[j][2 * r] - m_new);
+        s[j][2 * r + 1] = fast_exp2(s[j][2 * r + 1] - m_new);
+        sum += s[j][2 * r] + s[j][2 * r + 1];
+      }
+      l[r] = l[r] * alpha + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        o[nd][2 * r] *= alpha;
+        o[nd][2 * r + 1] *= alpha;
+      }
+    }
+
+    // o += round(p) v, 16 keys (two score tiles, one k step) at a time
+#pragma unroll
+    for (int jj = 0; jj < kMmaKeys / 16; ++jj) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * jj][0], s[2 * jj][1]);
+      pa[1] = pack_bf16(s[2 * jj][2], s[2 * jj][3]);
+      pa[2] = pack_bf16(s[2 * jj + 1][0], s[2 * jj + 1][1]);
+      pa[3] = pack_bf16(s[2 * jj + 1][2], s[2 * jj + 1][3]);
+      const bf16* vr = v_cur + (jj * 16 + lane % 16) * kPitch + (lane / 16) * 8;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; nd += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vr + nd * 8);
+        mma_16816(o[nd], pa, vb[0], vb[1]);
+        mma_16816(o[nd + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int row = q0 + warp * 16 + g;
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    bf16* dst = out + nd * 8 + 2 * t;
+    if (row < S)
+      *reinterpret_cast<__nv_bfloat162*>(dst + row * os) =
+          __floats2bfloat162_rn(o[nd][0] / l[0], o[nd][1] / l[0]);
+    if (row + 8 < S)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (row + 8) * os) =
+          __floats2bfloat162_rn(o[nd][2] / l[1], o[nd][3] / l[1]);
+  }
+}
+
+template <int D>
+int launch_blocked_mma(const void* q, const void* k, const void* v, void* out, int B, int H, int S,
+                       long long sb, long long sh, long long ss, long long ob, long long oh,
+                       long long os, float scale, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kBlkRows + 4 * kMmaKeys) * (D + 8) * sizeof(bf16);
+  auto kernel = blocked_attention_mma_kernel<D>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(B * H, (S + kBlkRows - 1) / kBlkRows);
+  kernel<<<grid, kBlkThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), H, S, sb, sh, ss, ob, oh, os, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kBkWarps = 8, kBkThreads = kBkWarps * 32;
+constexpr int kBkRowsPerWarp = 8, kBkRows = kBkWarps * kBkRowsPerWarp, kBkKeys = 64;
+
+// rows k0 .. k0 + kBkKeys - 1 of K or V (those from `kn` on as zeros) into the
+// tile buffer at `pitch` floats a row
+__device__ __forceinline__ void load_tile_zero(float* tile, int pitch, const float* src,
+                                               long long ss, int k0, int kn, int d) {
+  const int per_row = d / 4;
+  for (int idx = threadIdx.x; idx < kBkKeys * per_row; idx += kBkThreads) {
+    const int key = idx / per_row, c = (idx % per_row) * 4;
+    const float4 chunk = key < kn ? *reinterpret_cast<const float4*>(src + (k0 + key) * ss + c)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    float* dst = tile + key * pitch + c;
+    dst[0] = chunk.x;
+    dst[1] = chunk.y;
+    dst[2] = chunk.z;
+    dst[3] = chunk.w;
+  }
+}
+
+// grid (B * H, ceil(S / kBkRows)); addressing as spatial_attention_kernel.
+__global__ void __launch_bounds__(kBkThreads) blocked_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, int H, int S, int d, long long sb, long long sh, long long ss,
+    long long ob, long long oh, long long os, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                       // kBkRows x d
+  float* k_s = q_s + kBkRows * d;          // kBkKeys x (d + 1), against bank conflicts
+  float* v_s = k_s + kBkKeys * (d + 1);    // kBkKeys x d
+  float* p_s = v_s + kBkKeys * d;          // kBkRows x kBkKeys
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, q0 = blockIdx.y * kBkRows;
+  const long long in_base = b * sb + h * sh;
+  q += in_base;
+  k += in_base;
+  v += in_base;
+  out += b * ob + h * oh;
+  const int r0 = warp * kBkRowsPerWarp;  // this warp's first row within the block
+
+  for (int r = warp; r < kBkRows; r += kBkWarps) {
+    if (q0 + r < S) {
+      load_row(q_s + r * d, q + (q0 + r) * ss, d, lane);
+    } else {
+      for (int c = lane; c < d; c += 32) q_s[r * d + c] = 0.f;
+    }
+  }
+
+  // per row: running max, this lane's share of the running sum, and this
+  // lane's output columns lane, lane + 32, ...
+  float m[kBkRowsPerWarp], l[kBkRowsPerWarp], acc[kBkRowsPerWarp][kColsPerLane];
+#pragma unroll
+  for (int r = 0; r < kBkRowsPerWarp; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) acc[r][j] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < S; k0 += kBkKeys) {
+    const int kn = min(kBkKeys, S - k0);
+    __syncthreads();  // q_s written; the previous tile and its p read
+    load_tile_zero(k_s, d + 1, k, ss, k0, kn, d);
+    load_tile_zero(v_s, d, v, ss, k0, kn, d);
+    __syncthreads();
+
+    // scores of the warp's rows against keys lane (a) and lane + 32 (b)
+    float s_lo[kBkRowsPerWarp] = {}, s_hi[kBkRowsPerWarp] = {};
+    const float* ka = k_s + lane * (d + 1);
+    const float* kb = ka + 32 * (d + 1);
+    for (int c = 0; c < d; c += 4) {
+      const float a0 = ka[c], a1 = ka[c + 1], a2 = ka[c + 2], a3 = ka[c + 3];
+      const float b0 = kb[c], b1 = kb[c + 1], b2 = kb[c + 2], b3 = kb[c + 3];
+#pragma unroll
+      for (int r = 0; r < kBkRowsPerWarp; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(q_s + (r0 + r) * d + c);
+        s_lo[r] = fmaf(qv.x, a0, s_lo[r]);
+        s_lo[r] = fmaf(qv.y, a1, s_lo[r]);
+        s_lo[r] = fmaf(qv.z, a2, s_lo[r]);
+        s_lo[r] = fmaf(qv.w, a3, s_lo[r]);
+        s_hi[r] = fmaf(qv.x, b0, s_hi[r]);
+        s_hi[r] = fmaf(qv.y, b1, s_hi[r]);
+        s_hi[r] = fmaf(qv.z, b2, s_hi[r]);
+        s_hi[r] = fmaf(qv.w, b3, s_hi[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kBkRowsPerWarp; ++r) {
+      const float xa = lane < kn ? s_lo[r] * scale : -INFINITY;  // key 0 of a tile is below S
+      const float xb = lane + 32 < kn ? s_hi[r] * scale : -INFINITY;
+      float tile_max = fmaxf(xa, xb);
+      for (int off = 16; off > 0; off >>= 1)
+        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
+      const float m_new = fmaxf(m[r], tile_max);
+      const float alpha = expf(m[r] - m_new);  // 0 on the first tile
+      const float pa = expf(xa - m_new), pb = expf(xb - m_new);
+      l[r] = l[r] * alpha + pa + pb;
+      m[r] = m_new;
+#pragma unroll
+      for (int j = 0; j < kColsPerLane; ++j) acc[r][j] *= alpha;
+      p_s[(r0 + r) * kBkKeys + lane] = pa;
+      p_s[(r0 + r) * kBkKeys + lane + 32] = pb;
+    }
+    __syncwarp();
+
+    // acc += p v, 4 keys at a time (the rows beyond kn are zeros, and so is their p)
+    for (int key = 0; key < kBkKeys; key += 4) {
+      float vv[4][kColsPerLane];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int j = 0; j < kColsPerLane; ++j) {
+          const int c = lane + 32 * j;
+          vv[e][j] = c < d ? v_s[(key + e) * d + c] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kBkRowsPerWarp; ++r) {
+        const float4 p = *reinterpret_cast<const float4*>(p_s + (r0 + r) * kBkKeys + key);
+#pragma unroll
+        for (int j = 0; j < kColsPerLane; ++j) {
+          acc[r][j] = fmaf(p.x, vv[0][j], acc[r][j]);
+          acc[r][j] = fmaf(p.y, vv[1][j], acc[r][j]);
+          acc[r][j] = fmaf(p.z, vv[2][j], acc[r][j]);
+          acc[r][j] = fmaf(p.w, vv[3][j], acc[r][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kBkRowsPerWarp; ++r) {
+    for (int off = 16; off > 0; off >>= 1) l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+    const int row = q0 + r0 + r;
+    if (row < S) {
+#pragma unroll
+      for (int j = 0; j < kColsPerLane; ++j) {
+        const int c = lane + 32 * j;
+        if (c < d) out[row * os + c] = acc[r][j] / l[r];
+      }
+    }
+  }
+}
+
+int launch_blocked_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int S,
+                       int d, long long sb, long long sh, long long ss, long long ob,
+                       long long oh, long long os, float scale, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(kBkRows) * d + kBkKeys * (d + 1) +
+                       static_cast<size_t>(kBkKeys) * d + kBkRows * kBkKeys) * sizeof(float);
+  auto kernel = blocked_attention_f32_kernel;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(B * H, (S + kBkRows - 1) / kBkRows);
+  kernel<<<grid, kBkThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), H, S, d, sb, sh, ss, ob, oh, os, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------- temporal
 
 constexpr int kTpWarps = 4;
@@ -568,6 +977,28 @@ extern "C" int maed_spatial_attention(int is_bf16, const void* q, const void* k,
   if (pairs && d == 64) return MAED_SPATIAL_MMA(64);
   if (pairs && d == 128) return MAED_SPATIAL_MMA(128);
 #undef MAED_SPATIAL_MMA
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// As maed_spatial_attention, for any S: the online-softmax kernel (one pass over
+// the keys), which rounds an unnormalised p where the spatial kernel rounds a
+// normalised one.
+extern "C" int maed_blocked_attention(int is_bf16, const void* q, const void* k, const void* v,
+                                      void* out, int B, int H, int S, int d, long long sb,
+                                      long long sh, long long ss, long long ob, long long oh,
+                                      long long os, float scale, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (!is_bf16)
+    return launch_blocked_f32(q, k, v, out, B, H, S, d, sb, sh, ss, ob, oh, os, scale, s);
+  const bool pairs = reinterpret_cast<uintptr_t>(out) % 4 == 0 && ob % 2 == 0 && oh % 2 == 0 &&
+                     os % 2 == 0;
+#define MAED_BLOCKED_MMA(D) \
+  launch_blocked_mma<D>(q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, scale, s)
+  if (pairs && d == 16) return MAED_BLOCKED_MMA(16);
+  if (pairs && d == 32) return MAED_BLOCKED_MMA(32);
+  if (pairs && d == 64) return MAED_BLOCKED_MMA(64);
+  if (pairs && d == 128) return MAED_BLOCKED_MMA(128);
+#undef MAED_BLOCKED_MMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -42,6 +42,7 @@ LAUNCHES: dict[str, int] = {
     "groupnorm": 0,     # csrc/groupnorm.cu
     "spatial_attention": 0,   # csrc/st_attention.cu, attention over tokens
     "temporal_attention": 0,  # csrc/st_attention.cu, attention over frames
+    "attention_blocked": 0,   # csrc/st_attention.cu, online softmax over a clip's tokens
 }
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -68,8 +69,10 @@ _SIGNATURES = {
     # is_bf16, x, residual, out, scale, bias, B, G, cpg, HW, eps, relu, stream
     "maed_groupnorm": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
                        _c_int, _c_int, _c_float, _c_int, _c_ptr),
-    # is_bf16, q, k, v, out, B, H, S, d, sb, sh, ss, ob, oh, os, scale, stream
+    # is_bf16, q, k, v, out, B, H, S, d, sb, sh, ss, ob, oh, os, scale, stream (both)
     "maed_spatial_attention": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
+                               _c_int, _c_int, *(_c_i64,) * 6, _c_float, _c_ptr),
+    "maed_blocked_attention": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
                                _c_int, _c_int, *(_c_i64,) * 6, _c_float, _c_ptr),
     # is_bf16, q, k, v, out, G, T, N, H, d, s_frame, s_token, s_head,
     # o_frame, o_token, o_head, scale, stream

@@ -1,6 +1,6 @@
 """MAED: the STE hybrid-ViT encoder and the KTD decoder.
 
-Port of ``maed_tpu/models/maed.py`` for encoder 'ste', st_mode 'parallel' and
+Port of ``maed_tpu/models/maed.py`` for encoder 'ste' (any ``st_mode``) and
 decoder 'ktd'. Inputs are NHWC clips (N, T, H, W, 3), uint8 (normalized on
 the device) or float; frames fold into the batch for the encoder and the
 outputs unfold back to (N, T, ...).
@@ -20,13 +20,14 @@ from maed_tpu_torch.ops.smpl import SMPLModel
 class MAED(nn.Module):
     def __init__(self, num_blocks: int = 6, num_heads: int = 12, hidden_dim: int = 1024,
                  img_size: int = 224, standardize_ws: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 st_mode: str = "parallel", dtype: torch.dtype = torch.float32):
         """standardize_ws=False runs the stem on weights that
         ``utils.checkpoint.fold_weight_standardization`` standardized."""
         super().__init__()
         self.encoder = VisionTransformer(depth=num_blocks, num_heads=num_heads,
                                          representation_size=768, img_size=img_size,
-                                         standardize=standardize_ws, dtype=dtype)
+                                         standardize=standardize_ws, st_mode=st_mode,
+                                         dtype=dtype)
         self.decoder = KTD(feat_dim=768, hidden_dim=hidden_dim, dtype=dtype)
 
     @torch.inference_mode()

@@ -1,7 +1,7 @@
 """Joint-index tables for the 49-joint ("spin") keypoint convention.
 
-A copy of the tables of ``maed_tpu/ops/joints.py`` that the eval forward
-uses. It is a copy and not an import because importing anything under
+A copy of the tables of ``maed_tpu/ops/joints.py`` that the eval forward and
+the eval protocol use. It is a copy and not an import because importing anything under
 ``maed_tpu.ops`` imports JAX (``maed_tpu/ops/__init__.py``), and the port runs
 where JAX is not installed. ``tests/test_torch_port_ops.py`` checks that the
 copies equal the originals.
@@ -67,5 +67,24 @@ SMPL_PARENTS = [
     -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19, 20, 21,
 ]
 
-# The 3DPW eval protocol's 14 joints in the H36M-regressed 17-joint space.
+# Eval-protocol joint subsets (H36M-regressed 17-joint space and the 49 space).
+H36M_TO_J17 = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 0, 7, 9, 10]
 H36M_TO_J14 = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10]
+H36M_TO_MPII3D = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10, 0, 7, 9]
+
+OP_TO_J14 = [11, 10, 9, 12, 13, 14, 4, 3, 2, 5, 6, 7, 1, -1]
+J49_TO_J14 = list(range(25, 39))
+J49_TO_MPII3D = list(range(25, 39)) + [39, 41, 43]
+J49_TO_H36M = [25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 39, 41, 42, 43]
+
+# Which external regressor / joint subset each eval dataset uses.
+REGRESSOR_DICT = {
+    '3dpw': 'J_regressor_h36m.npy',
+    'mpii3d': None,
+    'h36m': 'J_regressor_h36m.npy',
+}
+JID_DICT = {
+    '3dpw': H36M_TO_J14,
+    'h36m': H36M_TO_J17,
+    'mpii3d': J49_TO_MPII3D,
+}

@@ -113,11 +113,14 @@ def check_operands(name: str, q, k, v) -> int:
     return int(q.dtype == torch.bfloat16)
 
 
-def launch_spatial(name: str, q, k, v, out, scale) -> None:
-    """The spatial kernel on q, k, v and out, all (B, h, S, d) views."""
+def launch_bhsd(name: str, q, k, v, out, scale, blocked: bool = False) -> None:
+    """One attention kernel on q, k, v and out, all (B, h, S, d) views: the
+    spatial kernel (S up to MAX_TOKENS), or with ``blocked`` the
+    online-softmax kernel of ``ops.attention`` (any S). Both take the same
+    operands."""
     is_bf16 = check_operands(name, q, k, v)
     B, h, S, d = q.shape
-    if S > MAX_TOKENS:
+    if not blocked and S > MAX_TOKENS:
         raise ValueError(f"{name}: the kernel takes at most {MAX_TOKENS} tokens, got {S}")
     if B * h >= 2 ** 31 or -(-S // 32) > 65535:
         raise ValueError(f"{name}: {B} x {h} x {S} exceeds the grid")
@@ -129,12 +132,14 @@ def launch_spatial(name: str, q, k, v, out, scale) -> None:
                          f"of {MMA_HEAD_DIMS} and an output of aligned pairs; got d {d}, "
                          f"output strides {out.stride()}")
     lib = kernels.library()
+    entry, count = (("maed_blocked_attention", "attention_blocked") if blocked
+                    else ("maed_spatial_attention", "spatial_attention"))
     with torch.cuda.device(q.device):
-        kernels.check(lib.maed_spatial_attention(
+        kernels.check(getattr(lib, entry)(
             is_bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, h, S, d,
             *q.stride()[:3], *out.stride()[:3], scale,
-            torch.cuda.current_stream().cuda_stream), "maed_spatial_attention")
-    kernels.LAUNCHES["spatial_attention"] += 1
+            torch.cuda.current_stream().cuda_stream), entry)
+    kernels.LAUNCHES[count] += 1
 
 
 def _spatial(name, qkv, scale, reference, btc: bool):
@@ -148,7 +153,7 @@ def _spatial(name, qkv, scale, reference, btc: bool):
     else:
         out = torch.empty((h, BT, N, d), dtype=qkv.dtype, device=qkv.device)
         view = out.transpose(0, 1)
-    launch_spatial(name, q, k, v, view, scale)
+    launch_bhsd(name, q, k, v, view, scale)
     return out
 
 

@@ -13,12 +13,17 @@ import pytest
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.core.evaluate import Evaluator
+from maed_tpu_torch.models.vit import ST_MODES, Block
 from maed_tpu_torch.ops import attention as TA
 from maed_tpu_torch.ops import groupnorm as TGN
 from maed_tpu_torch.ops import layernorm as TLN
 from maed_tpu_torch.ops import mlp as TMLP
 from maed_tpu_torch.ops import skinning as TK
+from maed_tpu_torch.ops.metrics import eval_metrics
+from maed_tpu_torch.ops.procrustes import batch_similarity_transform
 from maed_tpu_torch.ops import st_attention as TST
+from maed_tpu_torch.utils.smpl_io import synthetic_smpl_model
 from torch_port_common import assert_close, ln_inputs, mlp_inputs, to_torch, torch_mlp_args
 
 pytestmark = pytest.mark.cuda
@@ -214,14 +219,202 @@ def test_temporal_attention_kernel(cuda, dtype, atol, rtol, BT, T, N, h, d):
     assert_close(lead.float(), TST.temporal_reference(qkv, T, scale).float(), atol, rtol)
 
 
-def test_fused_attention_raises_beyond_the_one_shot_kernel(cuda):
-    """More than 1024 tokens is the blocked kernel's work, which has no port:
-    no quiet plain version on the card."""
-    q = torch.zeros(1, 1, 1025, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.fused_attention(q, q, q)
-    assert TA.fused_attention(q[:, :, :1024], q[:, :, :1024], q[:, :, :1024]).shape == \
-        (1, 1, 1024, 16)
+def coupling_views(qkv, T):
+    """q, k, v (B, h, T * N, d) as in-place views of a (BT, N, 3, h, d) projection."""
+    BT, N, _, h, d = qkv.shape
+    return [a.transpose(1, 2) for a in qkv.view(BT // T, T * N, 3, h, d).unbind(2)]
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 2e-5, 0.0),
+                                               (torch.bfloat16, 2e-3, 1e-2)])
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("S", [1025, 1576, 3152])
+def test_blocked_attention_kernel(cuda, dtype, atol, rtol, in_place, d, S):
+    """Kernel K against its plain version, through ``fused_attention``'s
+    dispatch: S just above the one-shot limit (1025 = 16 * 64 + 1: a last
+    tile of one key), 1576 and the coupling length 3152 (49 * 64 + 16), on
+    contiguous tensors and on the views of a qkv projection with the output
+    written into a (BT, N, h * d) tensor. f32 at 2e-5: the kernel's 64-key tiles and the plain
+    version's 512-key blocks rescale and sum in different orders. bf16 at
+    2e-3 abs + 1e-2 rel: the outputs are means of v over hundreds of keys
+    (|out| ~0.05), so rel carries one bf16 step of an output and abs the
+    unnormalised p that round to the neighbouring bf16 value; a last tile
+    dropped or left unmasked moves outputs by ~1e-2 or more."""
+    h = 3
+    T = 8 if S % 8 == 0 else 1  # frames of a clip; S = T * N
+    N = S // T
+    qkv = qkv_input(20 + d, 2 * T, N, h, d, dtype, cuda)
+    q, k, v = coupling_views(qkv, T)
+    scale = d ** -0.5
+    before = dict(kernels.LAUNCHES)
+    if in_place:
+        result = torch.empty(2 * T, N, h * d, dtype=dtype, device=cuda)
+        got = TA.fused_attention(q, k, v, scale, out=result.view(2, S, h, d).transpose(1, 2))
+        assert got.data_ptr() == result.data_ptr()
+    else:
+        q, k, v = (a.contiguous() for a in (q, k, v))
+        got = TA.fused_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["attention_blocked"] == before["attention_blocked"] + 1
+    assert kernels.LAUNCHES["spatial_attention"] == before["spatial_attention"]
+    assert got.shape == (2, h, S, d) and got.dtype == dtype
+    assert_close(got.float(), TA.attention_blocked_reference(q, k, v, scale).float(), atol, rtol)
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 2e-5, 0.0),
+                                               (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("B, h, S, d", [(2, 2, 37, 16), (1, 3, 64, 128), (3, 1, 130, 32),
+                                        (1, 2, 1, 64), (2, 1, 70, 24)])
+def test_blocked_attention_kernel_small(cuda, dtype, atol, rtol, B, h, S, d):
+    """The blocked kernel called directly below the dispatch limit: one tile,
+    a full tile, S ragged against the 64-row and 64-key tiles, one token; head
+    dim 24 runs in f32 and raises in bf16 (tensor cores alone)."""
+    rng = np.random.RandomState(30)
+    q, k, v = (to_torch(rng.randn(B, h, S, d), dtype).to(cuda) for _ in range(3))
+    if dtype == torch.bfloat16 and d not in TST.MMA_HEAD_DIMS:
+        with pytest.raises(ValueError, match="tensor cores"):
+            TA.attention_blocked(q, k, v)
+        return
+    got = TA.attention_blocked(q, k, v)
+    torch.cuda.synchronize()
+    assert_close(got.float(), TA.attention_blocked_reference(q, k, v, d ** -0.5).float(),
+                 atol, rtol)
+    # the two kernels compute one function: in f32 they agree to rounding
+    if dtype == torch.float32:
+        assert_close(got, TA.fused_attention(q, k, v), 2e-5)
+
+
+def test_blocked_attention_raises_on_what_the_kernel_does_not_take(cuda):
+    launches = dict(kernels.LAUNCHES)
+    q = torch.zeros(1, 2, 1030, 16, device=cuda)
+    with pytest.raises(ValueError):  # f16
+        TA.fused_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):  # f64
+        TA.fused_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):  # k with other strides than q
+        TA.fused_attention(q, torch.zeros(1, 1030, 2, 16, device=cuda).transpose(1, 2), q)
+    with pytest.raises(ValueError):  # head dim 12
+        TA.fused_attention(*(torch.zeros(1, 2, 1030, 12, device=cuda),) * 3)
+    with pytest.raises(ValueError):  # head dim not contiguous
+        t = torch.zeros(1, 2, 16, 1030, device=cuda).transpose(2, 3)
+        TA.fused_attention(t, t, t)
+    with pytest.raises(ValueError):  # an output of another shape
+        TA.fused_attention(q, q, q, out=torch.zeros(1, 2, 1030, 8, device=cuda))
+    with pytest.raises(ValueError):  # (B, S, d)
+        TA.fused_attention(q[0], q[0], q[0])
+    assert kernels.LAUNCHES == launches
+
+
+# launches of one block per st_mode, beside the MLP's two
+BLOCK_LAUNCHES = {
+    "vanilla": {"ln_dense": 1, "spatial_attention": 1},
+    "spatial": {"ln_dense": 1, "spatial_attention": 1},
+    "temporal": {"layernorm": 1, "temporal_attention": 1},
+    "coupling": {"ln_dense": 1, "attention_blocked": 1},
+    "parallel": {"ln_dense": 1, "spatial_attention": 1, "temporal_attention": 1,
+                 "gate_alpha": 1, "gate_proj": 1},
+    "series": {"ln_dense": 1, "spatial_attention": 1, "temporal_attention": 1},
+}
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
+                                               (torch.bfloat16, 1e-1, 5e-2)])
+@pytest.mark.parametrize("mode", ST_MODES)
+def test_block_of_every_mode_through_the_kernels(cuda, mode, dtype, atol, rtol):
+    """A transformer block of each st_mode through the kernels against the
+    same block through their plain versions, with the launches it makes. 8
+    frames of 150 tokens in clips of 4: the coupling attention sees 600
+    tokens (the one-shot kernel) and, at 300 tokens a frame, 1200 (the
+    blocked one); the temporal mode hands the temporal kernel N = 1. f32 at
+    1e-4 as the kernels one by one; bf16 at 1e-1 abs + 5e-2 rel: four kernels
+    in a row, each with its own roundings, on outputs up to ~10."""
+    torch.manual_seed(3)
+    block = Block(128, 2, st_mode=mode, dtype=dtype).to(cuda)
+    for p in block.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.05)
+    for norm in (block.norm1, block.norm2):
+        torch.nn.init.normal_(norm.weight, 1.0, 0.1)
+    for N in (150, 300):
+        x = torch.randn(8, N, 128, device=cuda).to(dtype)
+        want_blocked = mode == "coupling" and 4 * N > TST.MAX_TOKENS
+        kernels.reset_launches()
+        with torch.inference_mode():
+            got = block(x, 4)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            want = block(x, 4, plain=True)
+        expect = dict(BLOCK_LAUNCHES[mode], ln_mlp_fc1=1, ln_mlp_fc2=1)
+        if mode == "coupling" and not want_blocked:
+            expect = dict(ln_dense=1, spatial_attention=1, ln_mlp_fc1=1, ln_mlp_fc2=1)
+        assert launches == expect
+        assert got.shape == x.shape and got.dtype == dtype
+        assert_close(got.float(), want.float(), atol, rtol)
+
+
+def test_procrustes_and_metrics_on_the_card(cuda):
+    """The batched 3 x 3 SVD goes through another library on the card; its U
+    and V may differ in sign from the CPU's, R does not. f64 on the card
+    against f64 on the CPU at 1e-9, with a mirrored set that needs the
+    reflection fix; f32 on the card within 1e-4 of f64 for point sets of
+    unit scale (thousands of frames, as the eval protocol hands over)."""
+    rng = np.random.RandomState(40)
+    S1 = rng.randn(4000, 14, 3)
+    q, _ = np.linalg.qr(rng.randn(4000, 3, 3))
+    S2 = 1.3 * S1 @ q + rng.randn(4000, 1, 3) + 0.05 * rng.randn(4000, 14, 3)
+    S2[::7] = S1[::7] * np.array([1.0, 1.0, -1.0]) + 0.01 * rng.randn(14, 3)
+    want = batch_similarity_transform(to_torch(S1), to_torch(S2))
+    got = batch_similarity_transform(to_torch(S1).to(cuda), to_torch(S2).to(cuda))
+    assert got.dtype == torch.float64
+    assert_close(got, want, 1e-9)
+    got32 = batch_similarity_transform(to_torch(S1, torch.float32).to(cuda),
+                                       to_torch(S2, torch.float32).to(cuda))
+    assert_close(got32, want, 1e-4)
+    vis = to_torch((rng.rand(4000, 14, 1) < 0.9).astype(np.float64))
+    cpu = eval_metrics(to_torch(S1), to_torch(S2), vis)
+    card = eval_metrics(to_torch(S1).to(cuda), to_torch(S2).to(cuda), vis.to(cuda))
+    for key in cpu:
+        assert_close(card[key], cpu[key], 1e-9, what=key)
+
+
+def test_evaluator_uploads_sub_clips_unchanged(cuda):
+    """The Evaluator on the card stages each strided sub-clip in a pinned
+    buffer that it writes again in the next window batch, and uploads without
+    blocking the host. With a forward whose outputs are each frame's pixel sum
+    (exact in f32) the accumulators over three window batches, the last one
+    ragged, equal those of the same run on the CPU bit for bit."""
+    rng = np.random.RandomState(50)
+    pool, seqlen, joints = 8, 2, 14
+
+    def windows():
+        for n in (2, 2, 1):
+            kp3d = np.ones((n, pool, joints, 4), np.float32)
+            yield {"images": rng.randint(0, 256, (n, pool, 32, 32, 3), dtype=np.uint8),
+                   "kp_3d": kp3d, "kp_2d": kp3d[..., :3], "valid": rng.rand(n, pool) < 0.8,
+                   "theta": np.zeros((n, pool, 85), np.float32)}
+
+    def forward(images, jreg):
+        assert jreg is None and images.dtype == torch.uint8 and images.is_contiguous()
+        total = images.sum(dim=(2, 3, 4)).float()  # below 2^24
+        mk = lambda *shape: total.reshape(total.shape + (1,) * len(shape)).expand(  # noqa: E731
+            total.shape + shape)
+        return {"verts": mk(64, 3), "kp_3d": mk(joints, 3), "kp_2d": mk(joints, 2),
+                "theta": mk(85), "rotmat": mk(24, 3, 3)}
+
+    batches = list(windows())
+    runs = []
+    for device in (torch.device("cpu"), cuda):
+        ev = Evaluator(synthetic_smpl_model(num_verts=64, device=device))
+        ev.inference(forward, batches, seqlen=seqlen, dataset_name="testset", batch_size=2,
+                     verbose=False)
+        runs.append({k: np.concatenate(v, axis=0) for k, v in ev.accumulators.items()})
+    want, got = runs
+    assert set(got) == set(want) and len(got["pred_theta"]) == sum(b["valid"].sum() for b in batches)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    frame_sums = np.concatenate([b["images"].reshape(-1, 32 * 32 * 3).sum(axis=1)[b["valid"].reshape(-1)]
+                                 for b in batches])
+    np.testing.assert_array_equal(got["pred_theta"][:, 0], frame_sums)
 
 
 def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -5,7 +5,8 @@ The JAX kernels run in interpret mode, as tests/test_pallas_fused and
 tests/test_groupnorm_pallas run them (``ops/attention.py`` interprets by
 itself off the TPU), against what the port's wrappers run for a CPU tensor
 (their plain versions), in f32 at atol 1e-5 (the Pallas bodies compute in f32
-even for f64 input, and _mlp_kernel's A&S erf is off by up to 1.5e-7), with
+even for f64 input, and _mlp_kernel's A&S erf is off by up to 1.5e-7; the
+blocked attention at 5e-5, its own test's bound), with
 JAX's dots at ``jax.default_matmul_precision("highest")``. The JAX plain
 references and the port's are compared in f64 at atol 1e-9. The kernels
 themselves are held against these plain versions on the card by
@@ -308,9 +309,74 @@ def test_xla_attention_matches_jax_f64(B, h, S, d):
 
 
 def test_fused_attention_takes_the_plain_version_only_on_the_cpu():
-    """On the CPU any length runs plain; the card raises beyond 1024 tokens
-    (tests/test_torch_port_cuda.py), the blocked kernel having no port yet."""
+    """On the CPU the dispatch picks the plain version of the kernel the card
+    would launch: up to 1024 tokens the spatial kernel's, beyond them the
+    blocked kernel's (not ``_xla_attention``, which rounds elsewhere); the two
+    are one function, apart in f64 by rounding alone. ``out`` is filled in
+    place."""
     q = to_torch(np.random.RandomState(12).randn(1, 1, 1030, 8))
     got = TA.fused_attention(q, q, q)
     assert got.shape == q.shape
-    assert_close(got, TA._xla_attention(q, q, q, 8 ** -0.5), 0.0)
+    assert_close(got, TA.attention_blocked_reference(q, q, q, 8 ** -0.5), 0.0)
+    assert_close(got, TA._xla_attention(q, q, q, 8 ** -0.5), 1e-12)
+    short = q[:, :, :1024]
+    assert_close(TA.fused_attention(short, short, short),
+                 TA._xla_attention(short, short, short, 8 ** -0.5), 0.0)
+    out = torch.empty(1, 1030, 1, 8, dtype=q.dtype).transpose(1, 2)
+    assert TA.fused_attention(q, q, q, out=out) is out
+    assert_close(out, got, 0.0)
+
+
+# ------------------------------------------------------ blocked attention (K)
+
+@pytest.mark.parametrize("B, h, S, d, blocks", [
+    (1, 2, 1576, 32, {}),                                # 8 * 197, padded to 2048 by the TPU kernel
+    (2, 2, 150, 16, dict(block_q=64, block_k=32)),       # a last key block of 22: the tail mask
+])
+def test_attention_blocked_reference_matches_the_pallas_kernel(B, h, S, d, blocks):
+    """K's plain version against the Pallas kernel in interpret mode, f32 at
+    5e-5 (the bound tests/test_attention_pallas.py holds the kernel to): the
+    same steps in the same key blocks, summed in another order."""
+    q, k, v = (a.astype(np.float32) for a in bhsd_inputs(13, B, h, S, d))
+    scale = d ** -0.5
+    with jax.default_matmul_precision("highest"):
+        want = JA._attention_blocked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+                                     **blocks)
+    got = TA.attention_blocked_reference(to_torch(q), to_torch(k), to_torch(v), scale,
+                                         block_k=blocks.get("block_k", 512))
+    assert got.shape == (B, h, S, d) and got.dtype == torch.float32
+    assert_close(got, want, 5e-5)
+
+
+@pytest.mark.parametrize("block_k", [512, 64, 37])
+def test_attention_blocked_reference_matches_numpy_f64(block_k):
+    """In f64 nothing is rounded on the way, so any key-block size gives the
+    softmax written out in numpy, at 1e-9."""
+    q, k, v = bhsd_inputs(14, 2, 2, 300, 16)
+    got = TA.attention_blocked_reference(to_torch(q), to_torch(k), to_torch(v), 0.25, block_k)
+    assert got.dtype == torch.float64
+    assert_close(got, numpy_attention(q, k, v, 0.25, "bhsd,bhtd->bhst", "bhst,bhtd->bhsd"), 1e-9)
+
+
+def test_attention_blocked_key_block_size_costs_a_bf16_rounding():
+    """The CUDA kernel walks 64 keys at a time (``kMmaKeys`` in
+    csrc/st_attention.cu), the plain version 512 as the TPU kernel. The
+    running max moves at other columns, so the unnormalised p = exp(s - m) is
+    rounded to bf16 at another scale: each p moves by at most one bf16 step
+    (2^-8 relative). The outputs are means of v over hundreds of keys (|out|
+    ~0.04, at most ~0.3), where those steps average out to a few 1e-4, and
+    are rounded once more to bf16: within 2e-3 + 1e-2 |out|, the bound the
+    card tests hold the kernel to. In f32 the same change is ~1e-6."""
+    kernel_keys = 64
+    q, k, v = (to_torch(a, torch.bfloat16) for a in bhsd_inputs(15, 1, 2, 1100, 32))
+    scale = 32 ** -0.5
+    at_512 = TA.attention_blocked_reference(q, k, v, scale)
+    at_64 = TA.attention_blocked_reference(q, k, v, scale, kernel_keys)
+    assert at_64.dtype == torch.bfloat16
+    assert not torch.equal(at_64, at_512)
+    assert_close(at_64.float(), at_512.float(), 2e-3, 1e-2)
+    exact = TA.attention_blocked_reference(q.double(), k.double(), v.double(), scale)
+    assert_close(at_64.double(), exact, 2e-3, 1e-2)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    assert_close(TA.attention_blocked_reference(q32, k32, v32, scale, kernel_keys),
+                 TA.attention_blocked_reference(q32, k32, v32, scale), 2e-5)

@@ -1,8 +1,9 @@
 """maed_tpu_torch imports and runs without JAX, flax or triton, as it must on
 the machine with the card (which has no JAX): a fresh interpreter in which
 importing any of them fails imports every module of the port, maps a flax
-parameter tree onto the port's state_dict and runs the tiny eval forward on
-the CPU; in the end no module of maed_tpu, jax, flax or triton is loaded."""
+parameter tree onto the port's state_dict, runs the tiny eval forward on
+the CPU and drives ``core.evaluate.Evaluator.run`` over a coupling model; in
+the end no module of maed_tpu, jax, flax or triton is loaded."""
 
 import os
 import subprocess
@@ -36,6 +37,22 @@ sd = state_dict_from_jax(tree)
 assert sorted(sd) == ["decoder.joint_regs.3.bias", "encoder.blocks.0.attn.qkv.weight",
                       "encoder.blocks.0.norm1.weight"]
 assert sd["encoder.blocks.0.attn.qkv.weight"].shape == (12, 4)
+from maed_tpu_torch.core.evaluate import Evaluator
+model, smpl = build_eval_model(num_blocks=1, num_heads=2, hidden_dim=32, img_size=32,
+                               st_mode="coupling", dtype=torch.float32, device="cpu", seed=0,
+                               allow_synthetic_smpl=True, smpl_dir="absent")
+rng = np.random.RandomState(1)
+kp3d = np.concatenate([rng.randn(3, 4, 14, 3), np.ones((3, 4, 14, 1))], -1).astype(np.float32)
+theta = (rng.randn(3, 4, 85) * 0.1).astype(np.float32)
+window = {"images": rng.randint(0, 256, (3, 4, 32, 32, 3), dtype=np.uint8), "kp_3d": kp3d,
+          "kp_2d": kp3d[..., :3], "theta": theta, "valid": rng.rand(3, 4) < 0.8}
+jreg = rng.rand(17, 6890).astype(np.float32) ** 8  # distinct joints: a constant set aligns to NaN
+jreg /= jreg.sum(axis=1, keepdims=True)
+metrics, poses = Evaluator(smpl).run(lambda x, j: model(x, smpl, J_regressor=j), [window],
+                                     seqlen=2, dataset_name="3dpw", J_regressor=jreg,
+                                     batch_size=4, verbose=False)
+assert poses == window["valid"].sum() and len(metrics) == 5
+assert all(np.isfinite(v) for v in metrics.values()), metrics
 assert not [name for name, mod in sys.modules.items()
             if mod is not None and name.split(".")[0] in ("maed_tpu", "jax", "flax", "triton")]
 print("NOJAX_OK")

@@ -48,7 +48,8 @@ def random_rotmats(rng, n):
 
 def test_joint_tables_equal_the_originals():
     for name in ("JOINT_MAP", "JOINT_NAMES", "JOINT_SELECT", "VERTEX_JOINT_IDS",
-                 "SMPL_PARENTS", "H36M_TO_J14"):
+                 "SMPL_PARENTS", "H36M_TO_J17", "H36M_TO_J14", "H36M_TO_MPII3D", "OP_TO_J14",
+                 "J49_TO_J14", "J49_TO_MPII3D", "J49_TO_H36M", "REGRESSOR_DICT", "JID_DICT"):
         assert getattr(TJ, name) == getattr(JJ, name), name
     np.testing.assert_array_equal(TI.IMAGENET_MEAN, JI.IMAGENET_MEAN)
     np.testing.assert_array_equal(TI.IMAGENET_STD, JI.IMAGENET_STD)

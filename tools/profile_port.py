@@ -4,9 +4,11 @@ Answers chip_smoke.py's bf16 requests (the released stage-2 MAED through
 ``build_eval_model``, seeded random weights, synthetic 6890-vertex SMPL,
 8 clips x 16 frames x 224^2 uint8 with a J14 regressor) and traces them with
 ``torch.profiler``: device time by kernel and by kind of kernel, and the
-device's busy share of the traced window. Imports nothing of JAX.
+device's busy share of the traced window. ``--st-mode coupling`` (or another
+attention mode) traces that model on the same requests instead: a request is
+then one sub-clip forward of the eval protocol. Imports nothing of JAX.
 
-Usage: python tools/profile_port.py [--trace profile_port_trace.json]
+Usage: python tools/profile_port.py [--st-mode parallel] [--trace profile_port_trace.json]
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ KINDS = (
     ("gate_proj (kernel E)", ("gateblend", "gate_alpha_kernel")),
     ("ln_mlp (kernel C)", ("gemm_bf16_kernel<", "gemm_f32_kernel<")),
     ("groupnorm (kernel I)", ("groupnorm_kernel",)),
+    ("blocked attention (kernel K)", ("blocked_attention",)),
     ("spatial attention (kernels F, J)", ("spatial_attention",)),
     ("temporal attention (kernels G, H)", ("temporal_attention",)),
     ("layernorm (kernel B)", ("layernorm_kernel",)),
@@ -51,6 +54,7 @@ def kind_of(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--st-mode", default="parallel", help="the model's attention mode")
     ap.add_argument("--trace", default="", help="write a chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -59,7 +63,7 @@ def main() -> int:
 
     print(chip_smoke.card_identity())
     device = torch.device("cuda", 0)
-    model, smpl = chip_smoke.build_flagship(device, torch.bfloat16)
+    model, smpl = chip_smoke.build_flagship(device, torch.bfloat16, st_mode=args.st_mode)
     clips, jreg = chip_smoke.make_requests(device)
     n = len(clips)
 
@@ -72,7 +76,7 @@ def main() -> int:
     t0 = time.perf_counter()
     answer_all()
     request_ms = (time.perf_counter() - t0) * 1e3 / n
-    print(f"bf16 request, no profiler: {request_ms:.2f} ms (host clock, mean of {n})")
+    print(f"bf16 {args.st_mode} request, no profiler: {request_ms:.2f} ms (host clock, mean of {n})")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
