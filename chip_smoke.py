@@ -273,6 +273,13 @@ def phase_kernels(device):
         qc, kc, vc = (a.contiguous() for a in (q4, k4, v4))
         compare(f"fused_attention (B, h, S, d) {dt}", lambda: attention.fused_attention(qc, kc, vc, att),
                 lambda: attention._xla_attention(qc, kc, vc, att), atol, rtol)
+        # the one-shot range past one 256-key chunk (no model path): the
+        # spatial kernel's two passes over the keys
+        for S in (577, 1024):
+            qc, kc, vc = (T(a, dt) for a in rng.randn(3, 4, heads, S, d))
+            compare(f"fused_attention (B, h, S, d), S {S} {dt}",
+                    lambda: attention.fused_attention(qc, kc, vc, att),
+                    lambda: attention._xla_attention(qc, kc, vc, att), atol, rtol)
         del qc, kc, vc
         q5, k5, v5 = (a.reshape(N_CLIPS, SEQLEN, N, heads, d).permute(0, 2, 3, 1, 4)
                       for a in qkv.unbind(2))                            # (G, N, h, T, d) views
@@ -295,12 +302,13 @@ def phase_kernels(device):
     # through fused_attention's dispatch. q, k, v are in-place views of the
     # qkv projection and the output a view of the (BT, N, C) result, as the
     # model calls it (the record), then contiguous tensors. f32 at 2e-5: the
-    # kernel's 64-key tiles and the plain version's 512-key blocks rescale and
-    # sum in other orders. bf16 at 2e-3 abs + 1e-2 rel: the outputs are means
-    # of v over ~1000 keys (|out| ~0.03, at most ~0.3), so rel carries one bf16
-    # step of an output and abs the unnormalised p that round to the
-    # neighbouring bf16 value where the running max differs. A last tile of
-    # 16 keys dropped or left unmasked would move outputs by ~1e-2.
+    # kernels' key tiles (64 in f32, 128 in bf16) and the plain version's
+    # 512-key blocks rescale and sum in other orders. bf16 at 2e-3 abs + 1e-2
+    # rel: the outputs are means of v over ~1000 keys (|out| ~0.03, at most
+    # ~0.3), so rel carries one bf16 step of an output and abs the
+    # unnormalised p that round to the neighbouring bf16 value where the
+    # running max differs. A last tile of 80 keys dropped or left unmasked
+    # would move outputs by ~1e-2 or more (tools/mutate_attention_tail.py).
     S = SEQLEN * N
     print(f"kernel K blocked attention: q, k, v {(N_CLIPS, heads, S, d)} on qkv {qkv_np.shape}")
     for dt, atol, rtol in ((f32, 2e-5, 0.0), (bf16, 2e-3, 1e-2)):

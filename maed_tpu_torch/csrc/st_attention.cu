@@ -3,16 +3,18 @@
 // (temporal) and over all T * N tokens of a clip (blocked, st_mode
 // 'coupling'), each softmax(q k^T * scale) v per head.
 //
-// Replaces five Pallas kernels with three CUDA kernels:
-//   blocked_attention_kernel (below the spatial ones, with its own note)
+// Replaces five Pallas kernels with three CUDA entry points:
+//   maed_blocked_attention (the blocked kernels, below the spatial ones, with
+//   their own note)
 //     maed_tpu/ops/attention.py::_attn_blocked_kernel (pallas_call in
 //       `_attention_blocked`, public entry `fused_attention`, S > 1024)
-//   spatial_attention_kernel
+//   maed_spatial_attention (spatial_attention_tma_kernel in bf16,
+//   spatial_attention_kernel in f32)
 //     maed_tpu/ops/attention.py::_attn_oneshot_kernel (pallas_call in
 //       `_attention_oneshot`, public entry `fused_attention`, S <= 1024)
 //     maed_tpu/ops/st_attention.py::_spatial_kernel (pallas_call in
 //       `_spatial_pallas`, public entry `spatial_attention`)
-//   temporal_attention_kernel
+//   maed_temporal_attention (temporal_attention_kernel)
 //     maed_tpu/ops/st_attention.py::_temporal_kernel (pallas_call in
 //       `_temporal_pallas`, public entry `temporal_attention`)
 //     maed_tpu/ops/st_attention.py::_temporal_v2_kernel (pallas_call in
@@ -23,23 +25,36 @@
 // and writes (BT, N, C), head-leading (h, BT, N, d) or (B, h, S, d). No
 // transposed copy exists on either side.
 //
-// What bounds them on the H100: memory. At the flagship shape (BT 128, N 197,
-// h 12, d 64, T 16) each reads the 116 MB qkv and writes 39 MB in bf16, 0.046 ms
-// at 3.35 TB/s; the spatial products are 15.3 GFLOP (0.015 ms at the bf16
-// tensor-core peak), the temporal ones 1.2 GFLOP. Neither writes scores to
-// device memory.
+// What bounds the spatial and temporal kernels on the H100: memory. At the
+// flagship shape (BT 128, N 197, h 12, d 64, T 16) each reads the 116 MB qkv
+// and writes 39 MB in bf16, 0.046 ms at 3.35 TB/s; the spatial products are
+// 15.3 GFLOP (0.015 ms at the bf16 tensor-core peak), the temporal ones 1.2
+// GFLOP. Neither writes scores to device memory.
 //
-// Spatial, bf16 with a head dim of 16, 32, 64 or 128 (the serving path): the
-// products run on the tensor cores (mma.sync m16n8k16, f32 accumulate). A block
-// takes 64 query rows of one (frame, head), a warp 16 of them with its q
-// fragments in registers; keys and values pass through shared memory 64 at a
-// time. The softmax stays the exact two-pass one without a score buffer: pass 1
-// forms every score tile and keeps only each row's running max and sum; pass 2
-// forms the tiles again, turns them into p = exp(s - max) / sum rounded to bf16
-// in the registers of the next product's A operand, and accumulates p v. The
-// second q k^T costs 7.6 GFLOP at the flagship and saves the (S x S) scores'
-// trip through shared memory. The ragged S (197) masks score columns to -inf
-// and zero-fills the key and value rows beyond it.
+// Spatial, bf16 with a head dim of 16, 32, 64 or 128 (the serving path):
+// spatial_attention_tma_kernel, warp-specialised and persistent (see "Hopper
+// building blocks"). A work item is one (frame, head): the producer loads its
+// q, k and v once by TMA (a tensor map per operand over the strided
+// (B, h, S, d) view, boxes of 64 rows that arrive zero-filled past S, under
+// the swizzle wgmma reads) into one of two stages while the consumers work on
+// the previous item from the other. A consumer takes query tiles w and w + 2
+// of 64 rows; for each it forms the whole row of scores in registers, as
+// m64n64k16 strips and, where the width asks, one m64n8k16 strip; takes the
+// exact softmax in one go (row max and sum over the 4 lanes of a quad, p =
+// exp(s - max) / sum rounded to bf16) over the columns below S; and feeds p
+// from those registers as the A operand of p v (m64n{d}k16, v MN-major from
+// shared memory). The score width is a template argument the host picks from
+// S (kSpWidths: 200 = 3 x 64 + 8 at S 197, 100 registers a thread), since a
+// run-time n between wgmmas makes ptxas serialise them. So K and V cross
+// device memory once per (frame, head) and q k^T is formed once. A warp whose
+// 16 rows all lie past S skips the softmax. The row max is that of the raw
+// scores (their min for a negative scale), scaled once. What holds it above
+// its bound is each consumer's chain q k^T, softmax, p v, store, with two
+// consumers an SM, and the 4th tile of 5 rows at S 197 (PERF.md). For
+// 256 < S <= 1024 (fused_attention's one-shot range; no model path) a work
+// item is 128 query rows, and K passes in 256-key chunks twice through the
+// two stages: once for each row's max and sum, once for p v, the exact
+// two-pass softmax.
 //
 // Spatial, f32 (the reference protocol's dtype; bf16 has the path above
 // alone), any head dim that is a multiple of 8: a block
@@ -62,11 +77,13 @@
 // scale, f32 softmax (exp(s - max) / sum), p rounded to v's dtype, f32
 // accumulation, the output rounded once.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -226,192 +243,759 @@ __global__ void __launch_bounds__(kSpThreads) spatial_attention_kernel(
   }
 }
 
-// ------------------------------------------------- spatial, bf16 tensor cores
+// ------------------------------------------- Hopper building blocks (bf16)
+//
+// The bf16 kernels below are warp-specialised: a CTA of three warpgroups, the
+// first of which only issues TMA loads (one thread, its registers given back
+// with setmaxnreg), the other two run wgmma on what has landed. Shared memory
+// holds rings of tiles, each with a "full" mbarrier (the producer's
+// expect_tx, completed by the TMA bytes) and an "empty" one (one arrival by
+// every consumer thread once its wgmmas have read the tile). A ring's slot
+// and phase advance together (Ring). The CTAs are persistent: one a SM, each
+// walking over work items blockIdx.x, + gridDim.x, ...
 
-constexpr int kMmaWarps = 4, kMmaThreads = kMmaWarps * 32;
-constexpr int kMmaRows = 16 * kMmaWarps, kMmaKeys = 64;
+constexpr int kConsumers = 2;                        // consumer warpgroups a CTA
+constexpr int kCtaThreads = 128 * (1 + kConsumers);  // warpgroup 0 produces
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kBox = 64;                             // rows of a TMA box
 
-// c += a b for one m16n8k16 tile: a (16 x 16, row major) and b (16 x 8, column
-// major) bf16 fragments, c (16 x 8) f32. With g = lane / 4 and t = lane % 4:
-// a[0], a[1] hold columns 2t, 2t + 1 of rows g and g + 8, a[2], a[3] the same
-// rows at columns 2t + 8, 2t + 9; b[0], b[1] hold rows 2t, 2t + 1 and 2t + 8,
-// 2t + 9 of column g; c[0], c[1] are row g, columns 2t, 2t + 1; c[2], c[3] row g + 8.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
+// A bf16 operand with head dim D as TMA writes it and wgmma reads it: rows of
+// min(D, 64) elements (32, 64 or 128 bytes) under the swizzle of that width;
+// D = 128 is two column halves, each a tile of its own (a box is at most one
+// swizzle span wide). A tile of `rows` rows keeps half h at h * rows rows.
+template <int D>
+struct Operand {
+  static constexpr int kRowBytes = (D < 64 ? D : 64) * 2;
+  static constexpr int kHalves = D * 2 / kRowBytes;
+  // wgmma's layout code for that swizzle: 1 = 128 bytes, 2 = 64, 3 = 32
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr int kN = D < 64 ? D : 64;         // the n of one P V wgmma
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait for the phase of parity `parity` to complete. A wait that lasts
+// seconds is a fault of the pipeline: trap, so that the launch fails where it
+// would otherwise hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 35)) {
+      __trap();
+    }
+  }
+}
+
+// a slot of a ring of n and the parity of its current phase
+struct Ring {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next(int n) {
+    if (++slot == n) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// The mbarriers of a CTA's two rings, from `at` in shared memory: `nq` query
+// buffers and `stages` K/V stages, each with a full barrier (one arrival: the
+// producer's expect_tx, completed by the TMA bytes) and an empty one (one
+// arrival by every consumer thread). Thread 0 initialises them and the CTA
+// syncs before it returns.
+struct Barriers {
+  uint32_t q_full, q_empty, kv_full, kv_empty;
+};
+__device__ __forceinline__ Barriers init_barriers(uint32_t at, int nq, int stages) {
+  const Barriers bar{at, at + 8 * nq, at + 16 * nq, at + 16 * nq + 8 * stages};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < nq; ++i) {
+      mbar_init(bar.q_full + 8 * i, 1);
+      mbar_init(bar.q_empty + 8 * i, 128 * kConsumers);
+    }
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(bar.kv_full + 8 * i, 1);
+      mbar_init(bar.kv_empty + 8 * i, 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return bar;
+}
+
+// one box of the (D, S, H, B) tensor map at (c0, row, h, b) into shared memory
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap& map, uint32_t bar, int c0,
+                                        int row, int h, int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(row), "r"(h), "r"(b), "r"(bar)
+      : "memory");
 }
 
-// Four 8 x 8 bf16 tiles from row-major shared memory, transposed: lane l gives
-// the address of row l % 8 of tile l / 8, and receives of each tile the
-// elements (2t, g) and (2t + 1, g): a b fragment of a row-major (k x n) operand.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// rows row0 .. row0 + 64 * boxes - 1 of (b, h)'s (S, D) matrix into the tile at
+// dst (`rows` rows a half); rows at or beyond S arrive as zeros. Returns the
+// bytes the barrier is to expect.
+template <int D>
+__device__ __forceinline__ uint32_t tma_rows(uint32_t dst, int rows, const CUtensorMap& map,
+                                             uint32_t bar, int b, int h, int row0, int boxes) {
+  using Op = Operand<D>;
+  for (int half = 0; half < Op::kHalves; ++half)
+    for (int box = 0; box < boxes; ++box)
+      tma_box(dst + (half * rows + box * kBox) * Op::kRowBytes, map, bar,
+              half * (Op::kRowBytes / 2), row0 + box * kBox, h, b);
+  return static_cast<uint32_t>(boxes) * kBox * D * 2;
 }
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | layout << 62;
+}
+// K-major operand (q or k: its rows along M or N, the head dim along K): rows
+// row0 .. of the tile at `tile`, the 16 head-dim columns of step kk. Groups of
+// 8 rows lie 8 rows apart (SBO); a step moves 32 bytes within the swizzled row.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int rows, int row0, int kk) {
+  using Op = Operand<D>;
+  const int half = kk * 32 / Op::kRowBytes, within = kk * 32 % Op::kRowBytes;
+  return smem_desc(tile + (half * rows + row0) * Op::kRowBytes + within, 16, 8 * Op::kRowBytes,
+                   Op::kLayout);
+}
+// MN-major B operand (v: keys along K, the head dim along N): keys key0 ..
+// key0 + 15 of head-dim half `half`. Groups of 8 keys lie 8 rows apart (SBO);
+// the next 64 columns of N would lie a half away (LBO).
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int rows, int key0, int half) {
+  using Op = Operand<D>;
+  return smem_desc(tile + (half * rows + key0) * Op::kRowBytes, rows * Op::kRowBytes,
+                   8 * Op::kRowBytes, Op::kLayout);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving reads or writes of wgmma accumulators across
+// the asynchronous issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (m64nN, f32) = or += a b. ss: a and b from shared memory (descriptors,
+// both K-major); rs: a from registers (the m64k16 bf16 fragment, laid out as
+// the accumulator of m64n16), b MN-major. acc = 0 overwrites d. Thread t of
+// warp w holds d[4j + e] at row 16w + t/4 + 8(e/2), column 8j + 2(t%4) + e%2.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  __device__ __forceinline__ static void ss(float* d, uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  __device__ __forceinline__ static void rs(float* d, const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void rs(float* d, const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void ss(float* d, uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  __device__ __forceinline__ static void rs(float* d, const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void ss(float* d, uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// rows row0 .. row0 + kMmaKeys - 1 of src (those from `valid` on as zeros)
-// into a tile of `pitch` elements a row
+// e^x for x <= 0 as 2^(x log2 e) is what __expf computes; with the scores kept
+// in units of log 2 the multiplication is paid once, in the scale. -inf gives 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <bool kLowest = false>
+__device__ __forceinline__ float extreme(float a, float b) {
+  return kLowest ? fminf(a, b) : fmaxf(a, b);
+}
+// the max (or, kLowest, the min) of v across the 4 lanes of a quad: a row's
+template <bool kLowest = false>
+__device__ __forceinline__ float quad_max(float v) {
+  v = extreme<kLowest>(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return extreme<kLowest>(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The thread's two rows of a warpgroup's 64 x D output (rows row0 + 16w + t/4
+// and + 8, those below S), times mul[row] and rounded, as bf16 pairs.
 template <int D>
-__device__ __forceinline__ void load_block_bf16(bf16* tile, int pitch, const bf16* src,
-                                                long long ss, int row0, int valid) {
-  for (int idx = threadIdx.x; idx < kMmaKeys * (D / 8); idx += kMmaThreads) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    const uint4 chunk = r < valid ? *reinterpret_cast<const uint4*>(src + (row0 + r) * ss + c)
-                                  : make_uint4(0, 0, 0, 0);
-    *reinterpret_cast<uint4*>(tile + r * pitch + c) = chunk;
+__device__ __forceinline__ void store_rows(bf16* out, long long os, const float (&o)[D / 2],
+                                           int row0, int S, const float (&mul)[2]) {
+  const int lane = threadIdx.x % 32, row = row0 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  bf16* dst = out + 2 * (lane % 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (row + 8 * r) * os + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * mul[r], o[4 * j + 2 * r + 1] * mul[r]);
   }
 }
 
-// grid (B * H, ceil(S / kMmaRows)); addressing as spatial_attention_kernel.
+// The (D, S, H, B) tensor map of a (B, H, S, D) bf16 view with element
+// strides sb, sh, ss (the head dim contiguous), in boxes of 64 rows of one
+// column half, under the swizzle wgmma reads (Operand<D>).
+// cuTensorMapEncodeTiled is looked up through the CUDA runtime, so the
+// library needs no libcuda at link time. Returns 0, or kTensorMapError + the
+// encoder's CUresult.
+constexpr int kTensorMapError = 10000;
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) spatial_attention_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, int H, int S, long long sb, long long sh, long long ss,
-    long long ob, long long oh, long long os, float scale) {
-  // rows of D + 8: 16-byte aligned, and the fragments' 4-byte reads (8 rows
-  // x 4 columns a warp) fall into 32 different banks
-  constexpr int kPitch = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // kMmaRows x kPitch
-  bf16* k_s = q_s + kMmaRows * kPitch;            // kMmaKeys x kPitch
-  bf16* v_s = k_s + kMmaKeys * kPitch;            // kMmaKeys x kPitch
+int make_tensor_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb,
+                    long long sh, long long ss) {
+  using Op = Operand<D>;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return kTensorMapError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {Op::kRowBytes / 2, kBox, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = Op::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : Op::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int b = blockIdx.x / H, h = blockIdx.x % H, q0 = blockIdx.y * kMmaRows;
-  const long long in_base = b * sb + h * sh;
-  q += in_base;
-  k += in_base;
-  v += in_base;
-  out += b * ob + h * oh;
+// A bf16 call of the TMA kernels: q, k, v as (B, H, S, D) views with element
+// strides sb, sh, ss (the head dim contiguous), the output as one with
+// strides ob, oh, os.
+struct TmaCall {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  int B, H, S;
+  long long sb, sh, ss, ob, oh, os;
+  float scale;
+  cudaStream_t stream;
+};
 
-  load_block_bf16<D>(q_s, kPitch, q, ss, q0, S - q0);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-  {
-    const bf16* lo = q_s + (warp * 16 + g) * kPitch + 2 * t;
-    const bf16* hi = lo + 8 * kPitch;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(lo + kk * 16);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(hi + kk * 16);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(lo + kk * 16 + 8);
-      qa[kk][3] = *reinterpret_cast<const uint32_t*>(hi + kk * 16 + 8);
-    }
+// one CTA a streaming multiprocessor of the current device (asked once per device)
+int persistent_ctas(long long items) {
+  constexpr int kDevices = 64;
+  static int sms[kDevices] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= kDevices) return 132;
+  if (sms[device] == 0 &&
+      cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    sms[device] = 132;
+  return static_cast<int>(items < sms[device] ? items : sms[device]);
+}
+
+// Raise Kernel's dynamic shared memory limit to `bytes`, once per kernel and
+// device (the launches that follow pay nothing for it).
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
+  constexpr int kDevices = 64;
+  static bool done[kDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || device < 0 || device >= kDevices || done[device]) return err;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done[device] = err == cudaSuccess;
+  return err;
+}
+
+// Launch Kernel (a TMA kernel's instantiation for head dim D) for call c:
+// the tensor maps of q, k and v, built at each call since the views'
+// pointers change; `smem` bytes of shared memory; one persistent CTA a SM
+// over the B * H * ceil(S / item_rows) work items.
+template <auto Kernel, int D>
+int launch_tma(const TmaCall& c, int smem, int item_rows) {
+  CUtensorMap maps[3];
+  const void* bases[3] = {c.q, c.k, c.v};
+  for (int i = 0; i < 3; ++i)
+    if (const int err = make_tensor_map<D>(&maps[i], bases[i], c.B, c.H, c.S, c.sb, c.sh, c.ss))
+      return err;
+  if (const cudaError_t err = allow_smem<Kernel>(smem)) return static_cast<int>(err);
+  const long long items = static_cast<long long>(c.B) * c.H * ((c.S + item_rows - 1) / item_rows);
+  Kernel<<<persistent_ctas(items), kCtaThreads, smem, c.stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(c.out), c.B, c.H, c.S, c.ob, c.oh, c.os,
+      c.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f(std::integral_constant<int, d>()) for a head dim the wgmma kernels take
+// (16, 32, 64, 128), else cudaErrorInvalidValue
+template <typename F>
+int by_head_dim(int d, F f) {
+  switch (d) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 128: return f(std::integral_constant<int, 128>());
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
-  // scaled scores of this warp's 16 rows against keys k0 + 8j .. + 7 of the
-  // block in k_s; columns beyond S are -inf
-  auto score_tile = [&](int k0, int j, float (&c)[4]) {
-    c[0] = c[1] = c[2] = c[3] = 0.f;
-    const bf16* kr = k_s + (j * 8 + g) * kPitch + 2 * t;
+// the dynamic shared memory base rounded up to 1024 bytes (a swizzle's repeat)
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
+  return raw + ((1024 - smem_u32(raw) % 1024) % 1024);
+}
+
+// ------------------------------------------------- spatial, bf16 (TMA + wgmma)
+
+constexpr int kSpChunk = 256;  // keys of a chunk; query rows of a block when S fits one chunk
+
+template <int D>
+struct SpatialLayout {
+  static constexpr int kQBufs = D <= 64 ? 2 : 1, kStages = D <= 64 ? 2 : 1;
+  static constexpr int kTile = kSpChunk * D * 2;  // bytes of 256 rows
+  static constexpr int kQ = 0;                    // kQBufs query blocks
+  static constexpr int kKV = kQ + kQBufs * kTile;  // kStages of (K chunk, V chunk)
+  static constexpr int kBars = kKV + kStages * 2 * kTile;
+  static constexpr int kBytes = kBars + 2 * (kQBufs + kStages) * 8 + 1024;  // + alignment
+};
+
+// The score columns a kernel forms for a query tile: the smallest of these
+// that holds S rounded up to whole 8-key groups (past one chunk, 256). A
+// width of 64k + 8 is k m64n64 strips and one m64n8 strip: 200 is the
+// flagship's (N 197), for which four whole strips would form 28% more
+// scores than it needs.
+constexpr int kSpWidths[] = {64, 128, 192, 200, kSpChunk};
+
+// s = q k^T (f32, unscaled) of query tile `tile` of the block at qt against
+// the chunk's first kCols keys at kt. Thread t of warp w holds the score of
+// column 8g + 2(t%4) + e%2 of its rows at s[4g + e], whichever strip it came
+// from (the accumulator layout of Wgmma). The strips are formed whole
+// whatever S is (the rows past S are zeros): a run-time n, or a branch
+// between the wgmmas, makes ptxas serialise them, so the width is chosen on
+// the host.
+template <int D, int kCols>
+__device__ __forceinline__ void spatial_scores(float (&s)[kCols / 2], uint32_t qt, int tile,
+                                               uint32_t kt) {
+  constexpr int kStrips = kCols / 64, kTail = kCols % 64;
+  wgmma_fence();
+#pragma unroll
+  for (int strip = 0; strip < kStrips; ++strip)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_16816(c, qa[kk], *reinterpret_cast<const uint32_t*>(kr + kk * 16),
-                *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
-    const int col = k0 + j * 8 + 2 * t;
+      Wgmma<64>::ss(s + 32 * strip, desc_k_major<D>(qt, kSpChunk, 64 * tile, kk),
+                    desc_k_major<D>(kt, kSpChunk, 64 * strip, kk), kk);
+  if constexpr (kTail != 0) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] = col + (e & 1) < S ? c[e] * scale : -INFINITY;
-  };
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kTail>::ss(s + 32 * kStrips, desc_k_major<D>(qt, kSpChunk, 64 * tile, kk),
+                       desc_k_major<D>(kt, kSpChunk, 64 * kStrips, kk), kk);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<kCols / 2>(s);
+}
 
-  // pass 1: the max m and the sum l of exp(s - m) of rows g (0) and g + 8 (1)
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < S; k0 += kMmaKeys) {
-    const int kn = min(kMmaKeys, S - k0);
-    __syncthreads();  // the previous block read
-    load_block_bf16<D>(k_s, kPitch, k, ss, k0, kn);
-    __syncthreads();
-    for (int j = 0; j < (kn + 7) / 8; ++j) {  // every such tile has a column below S
-      float c[4];
-      score_tile(k0, j, c);
+// The max (kLowest: the min) of each of the thread's two rows of raw scores
+// over the columns below `cols` (the chunk's share of the score width) and
+// below S, across the row's 4 lanes. Only the one 8-key group that reaches S
+// is looked at column by column.
+template <bool kLowest, int kCols>
+__device__ __forceinline__ void spatial_extreme(const float (&s)[kCols / 2], int k0, int cols,
+                                                int S, float (&m)[2]) {
+  const int t = threadIdx.x % 4;
+  m[0] = m[1] = kLowest ? INFINITY : -INFINITY;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float tile_max = fmaxf(c[2 * r], c[2 * r + 1]);
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-        const float m_new = fmaxf(m[r], tile_max);
-        l[r] = l[r] * __expf(m[r] - m_new) + __expf(c[2 * r] - m_new) +
-               __expf(c[2 * r + 1] - m_new);
-        m[r] = m_new;
-      }
+  for (int g = 0; g < kCols / 8; ++g) {
+    const int c = k0 + 8 * g;  // the group's first key
+    if (8 * g >= cols) continue;
+    if (c + 8 > S) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + 2 * t + (e & 1) < S) m[e >> 1] = extreme<kLowest>(m[e >> 1], s[4 * g + e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m[e >> 1] = extreme<kLowest>(m[e >> 1], s[4 * g + e]);
     }
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {  // the row's 8 columns of a tile lie in 4 lanes
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  // exp by the fast intrinsic and a multiplication by 1 / l: a few f32 ulps from
-  // expf and a division, far below the bf16 rounding of p that follows
-  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+  m[0] = quad_max<kLowest>(m[0]);
+  m[1] = quad_max<kLowest>(m[1]);
+}
 
-  // pass 2: p = exp(s - m) / l rounded to bf16, out = p v
-  float o[D / 8][4] = {};
-  for (int k0 = 0; k0 < S; k0 += kMmaKeys) {
-    const int kn = min(kMmaKeys, S - k0);
-    __syncthreads();
-    load_block_bf16<D>(k_s, kPitch, k, ss, k0, kn);
-    load_block_bf16<D>(v_s, kPitch, v, ss, k0, kn);
-    __syncthreads();
-    for (int jj = 0; jj < (kn + 15) / 16; ++jj) {  // 16 keys: two score tiles, one k step
-      float c_lo[4], c_hi[4];
-      score_tile(k0, 2 * jj, c_lo);
-      score_tile(k0, 2 * jj + 1, c_hi);
-      uint32_t pa[4];
-      pa[0] = pack_bf16(__expf(c_lo[0] - m[0]) * inv_l[0], __expf(c_lo[1] - m[0]) * inv_l[0]);
-      pa[1] = pack_bf16(__expf(c_lo[2] - m[1]) * inv_l[1], __expf(c_lo[3] - m[1]) * inv_l[1]);
-      pa[2] = pack_bf16(__expf(c_hi[0] - m[0]) * inv_l[0], __expf(c_hi[1] - m[0]) * inv_l[0]);
-      pa[3] = pack_bf16(__expf(c_hi[2] - m[1]) * inv_l[1], __expf(c_hi[3] - m[1]) * inv_l[1]);
-      // lanes 0-15 address the 16 keys' rows at column tile nd, lanes 16-31 at nd + 1
-      const bf16* vr = v_s + (jj * 16 + lane % 16) * kPitch + (lane / 16) * 8;
+// m2: each row's max of the scaled scores s * scale2 (in units of log 2, with
+// scale2 = scale * log2 e), over the columns spatial_extreme takes. That is
+// the max of the raw scores times scale2, or their min where scale2 < 0: the
+// softmax costs a few instructions a score and is what bounds this kernel,
+// so no score is scaled or masked that need not be.
+template <int kCols>
+__device__ __forceinline__ void spatial_max(const float (&s)[kCols / 2], int k0, int cols, int S,
+                                            float scale2, float (&m2)[2]) {
+  float m[2];
+  if (scale2 < 0.f) {
+    spatial_extreme<true, kCols>(s, k0, cols, S, m);
+  } else {
+    spatial_extreme<false, kCols>(s, k0, cols, S, m);
+  }
+  m2[0] = m[0] * scale2;
+  m2[1] = m[1] * scale2;
+}
+
+// s = 2^(s * scale2 - m2) over the columns below `cols` and below S, 0 at the
+// others (no exponential taken there); sum: the thread's share of each row's
+// sum. As in spatial_extreme, only a group that reaches S (or lies past the
+// width) is looked at column by column: a test a score would cost as much as
+// the exponential.
+template <int kCols>
+__device__ __forceinline__ void spatial_exp(float (&s)[kCols / 2], int k0, int cols, int S,
+                                            float scale2, const float (&m2)[2],
+                                            float (&sum)[2]) {
+  const int t = threadIdx.x % 4;
 #pragma unroll
-      for (int nd = 0; nd < D / 8; nd += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vr + nd * 8);
-        mma_16816(o[nd], pa, vb[0], vb[1]);
-        mma_16816(o[nd + 1], pa, vb[2], vb[3]);
+  for (int g = 0; g < kCols / 8; ++g) {
+    const int c = k0 + 8 * g;
+    if (8 * g >= cols || c + 8 > S) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = s[4 * g + e];
+        const bool live = 8 * g < cols && c + 2 * t + (e & 1) < S;
+        x = live ? fast_exp2(fmaf(x, scale2, -m2[e >> 1])) : 0.f;
+        sum[e >> 1] += x;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = s[4 * g + e];
+        x = fast_exp2(fmaf(x, scale2, -m2[e >> 1]));
+        sum[e >> 1] += x;
       }
     }
-  }
-
-  const int row = q0 + warp * 16 + g;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    bf16* dst = out + nd * 8 + 2 * t;
-    if (row < S)
-      *reinterpret_cast<__nv_bfloat162*>(dst + row * os) = __floats2bfloat162_rn(o[nd][0], o[nd][1]);
-    if (row + 8 < S)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (row + 8) * os) =
-          __floats2bfloat162_rn(o[nd][2], o[nd][3]);
   }
 }
 
-template <int D>
-int launch_spatial_mma(const void* q, const void* k, const void* v, void* out, int B, int H, int S,
-                       long long sb, long long sh, long long ss, long long ob, long long oh,
-                       long long os, float scale, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kMmaRows + 2 * kMmaKeys) * (D + 8) * sizeof(bf16);
-  auto kernel = spatial_attention_mma_kernel<D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// o += round_bf16(s * inv_l) v over the first kCols keys rounded up to 16, 16
+// at a time (p is 0 past S and v's rows past S are zeros): k-step i is the
+// accumulator's 8-column groups 2i and 2i + 1 as they lie in the registers
+// (for a width of 64k + 8 the last step's second group is zeros).
+template <int D, int kCols>
+__device__ __forceinline__ void spatial_pv(float (&o)[D / 2], const float (&s)[kCols / 2],
+                                           const float (&inv_l)[2], uint32_t vt) {
+  using Op = Operand<D>;
+  constexpr int kGroups = kCols / 8, kSteps = (kGroups + 1) / 2;
+  uint32_t p[kSteps][4];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int g = 2 * ks + i;
+      const float* f = &s[4 * (g < kGroups ? g : 0)];
+      p[ks][2 * i] = g < kGroups ? pack_bf16(f[0] * inv_l[0], f[1] * inv_l[0]) : 0u;
+      p[ks][2 * i + 1] = g < kGroups ? pack_bf16(f[2] * inv_l[1], f[3] * inv_l[1]) : 0u;
+    }
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks)
+#pragma unroll
+    for (int half = 0; half < Op::kHalves; ++half)
+      Wgmma<Op::kN>::rs(o + 32 * half, p[ks], desc_mn_major<D>(vt, kSpChunk, 16 * ks, half), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<D / 2>(o);
+}
+
+// Work item: (b, h, query block), the block fastest. S <= 256: a block is the
+// whole (frame, head), one chunk of K and V serves its 4 query tiles (consumer
+// w takes tiles w and w + 2), each against kCols keys, and the softmax is
+// exact in one go. S > 256 (kCols 256 only): a block is 128 rows (one tile a
+// consumer), K passes in chunks twice: once for each row's max and sum, once
+// for p v. Element (b, h, s, :) of out at b * ob + h * oh + s * os.
+template <int D, int kCols>
+__global__ void __launch_bounds__(kCtaThreads, 1) spatial_attention_tma_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out, int B, int H, int S,
+    long long ob, long long oh, long long os, float scale) {
+  using L = SpatialLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t smem = smem_u32(align_smem(smem_raw));
+  const auto [q_full, q_empty, kv_full, kv_empty] =
+      init_barriers(smem + L::kBars, L::kQBufs, L::kStages);
+
+  const int chunks = (S + kSpChunk - 1) / kSpChunk;
+  const int block_rows = chunks == 1 ? kSpChunk : 2 * 64;
+  const int blocks = (S + block_rows - 1) / block_rows;
+  const long long items = static_cast<long long>(B) * H * blocks;
+
+  if (threadIdx.x < 128) {  // the producer
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      Ring qr, kr;
+      for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+        const int pair = static_cast<int>(item / blocks), b = pair / H, h = pair % H;
+        const int row0 = static_cast<int>(item % blocks) * block_rows;
+        const int boxes = (min(S - row0, block_rows) + kBox - 1) / kBox;
+        mbar_wait(q_empty + 8 * qr.slot, qr.phase ^ 1);
+        const uint32_t qbar = q_full + 8 * qr.slot;
+        mbar_expect_tx(qbar, static_cast<uint32_t>(boxes) * kBox * D * 2);
+        tma_rows<D>(smem + L::kQ + qr.slot * L::kTile, kSpChunk, q_map, qbar, b, h, row0, boxes);
+        qr.next(L::kQBufs);
+        // pass 0: K alone (the rows' max and sum); pass 1: K and V
+        for (int pass = chunks == 1 ? 1 : 0; pass < 2; ++pass)
+          for (int c = 0; c < chunks; ++c) {  // whole chunks: past S they arrive as zeros
+            mbar_wait(kv_empty + 8 * kr.slot, kr.phase ^ 1);
+            const uint32_t bar = kv_full + 8 * kr.slot, kt = smem + L::kKV + kr.slot * 2 * L::kTile;
+            mbar_expect_tx(bar, (pass + 1) * L::kTile);
+            tma_rows<D>(kt, kSpChunk, k_map, bar, b, h, c * kSpChunk, kSpChunk / kBox);
+            if (pass == 1)
+              tma_rows<D>(kt + L::kTile, kSpChunk, v_map, bar, b, h, c * kSpChunk, kSpChunk / kBox);
+            kr.next(L::kStages);
+          }
+      }
+    }
+  } else {  // the consumers
+    regs_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1, warp = threadIdx.x / 32 % 4;
+    const float scale2 = scale * 1.4426950408889634f;  // scores in units of log 2
+    const int width = (S + 7) / 8 * 8;  // score columns that count: S in whole 8-key groups
+    const float one[2] = {1.f, 1.f};
+    Ring qr, kr;
+    for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+      const int pair = static_cast<int>(item / blocks), b = pair / H, h = pair % H;
+      const int row0 = static_cast<int>(item % blocks) * block_rows;
+      const int rows = min(S - row0, block_rows);
+      bf16* out_bh = out + b * ob + h * oh;
+      mbar_wait(q_full + 8 * qr.slot, qr.phase);
+      const uint32_t qt = smem + L::kQ + qr.slot * L::kTile;
+      if (chunks == 1) {
+        mbar_wait(kv_full + 8 * kr.slot, kr.phase);
+        const uint32_t kt = smem + L::kKV + kr.slot * 2 * L::kTile, vt = kt + L::kTile;
+        for (int tile = wg; 64 * tile < rows; tile += kConsumers) {
+          float s[kCols / 2], inv_l[2];
+          spatial_scores<D, kCols>(s, qt, tile, kt);
+          if (64 * tile + 16 * warp < rows) {  // else the warp's 16 rows all lie past S
+            float m2[2], l[2] = {0.f, 0.f};
+            spatial_max<kCols>(s, 0, width, S, scale2, m2);
+            spatial_exp<kCols>(s, 0, width, S, scale2, m2, l);
+            inv_l[0] = 1.f / quad_sum(l[0]);
+            inv_l[1] = 1.f / quad_sum(l[1]);
+          }
+          float o[D / 2] = {};
+          spatial_pv<D, kCols>(o, s, inv_l, vt);
+          store_rows<D>(out_bh, os, o, row0 + 64 * tile, S, one);
+        }
+        mbar_arrive(kv_empty + 8 * kr.slot);
+        kr.next(L::kStages);
+      } else if constexpr (kCols == kSpChunk) {
+        // this consumer's tile holds rows below S; this warp's 16 rows too
+        const bool mine = 64 * wg < rows, live = 64 * wg + 16 * warp < rows;
+        float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+        for (int c = 0; c < chunks; ++c) {  // pass 0: running max and sum
+          mbar_wait(kv_full + 8 * kr.slot, kr.phase);
+          if (mine) {
+            const int k0 = c * kSpChunk, cols = min(width - k0, kSpChunk);
+            float s[kSpChunk / 2], mx[2], sum[2] = {0.f, 0.f};
+            spatial_scores<D, kSpChunk>(s, qt, wg, smem + L::kKV + kr.slot * 2 * L::kTile);
+            if (live) {
+              spatial_max<kSpChunk>(s, k0, cols, S, scale2, mx);
+              const float m_new[2] = {fmaxf(m2[0], mx[0]), fmaxf(m2[1], mx[1])};
+              spatial_exp<kSpChunk>(s, k0, cols, S, scale2, m_new, sum);
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {  // the first chunk has a column below S: alpha 0
+                l[r] = l[r] * fast_exp2(m2[r] - m_new[r]) + sum[r];
+                m2[r] = m_new[r];
+              }
+            }
+          }
+          mbar_arrive(kv_empty + 8 * kr.slot);
+          kr.next(L::kStages);
+        }
+        const float inv_l[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+        float o[D / 2] = {};
+        for (int c = 0; c < chunks; ++c) {  // pass 1: p = 2^(s - m) / l, o += p v
+          mbar_wait(kv_full + 8 * kr.slot, kr.phase);
+          if (mine) {
+            const int k0 = c * kSpChunk, cols = min(width - k0, kSpChunk);
+            const uint32_t kt = smem + L::kKV + kr.slot * 2 * L::kTile;
+            float s[kSpChunk / 2], sum[2] = {0.f, 0.f};
+            spatial_scores<D, kSpChunk>(s, qt, wg, kt);
+            if (live) spatial_exp<kSpChunk>(s, k0, cols, S, scale2, m2, sum);
+            spatial_pv<D, kSpChunk>(o, s, inv_l, kt + L::kTile);
+          }
+          mbar_arrive(kv_empty + 8 * kr.slot);
+          kr.next(L::kStages);
+        }
+        if (mine) store_rows<D>(out_bh, os, o, row0 + 64 * wg, S, one);
+      }
+      mbar_arrive(q_empty + 8 * qr.slot);
+      qr.next(L::kQBufs);
+    }
   }
-  const dim3 grid(B * H, (S + kMmaRows - 1) / kMmaRows);
-  kernel<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), H, S, sb, sh, ss, ob, oh, os, scale);
-  return static_cast<int>(cudaGetLastError());
+}
+
+// the kernel of the first of kSpWidths[i..] that holds S's score width
+template <int D, int i = 0>
+int launch_spatial_tma(const TmaCall& c) {
+  constexpr int kCols = kSpWidths[i];
+  if constexpr (kCols < kSpChunk) {
+    if ((c.S + 7) / 8 * 8 > kCols) return launch_spatial_tma<D, i + 1>(c);
+  }
+  return launch_tma<spatial_attention_tma_kernel<D, kCols>, D>(
+      c, SpatialLayout<D>::kBytes, c.S <= kSpChunk ? kSpChunk : 128);
 }
 
 template <typename T>
@@ -446,235 +1030,240 @@ int launch_spatial(const void* q, const void* k, const void* v, void* out, int B
 //
 // What bounds it on the H100: operations. At the coupling shape (B 8, h 12,
 // S 3152, d 64) the two products are 2.44e11 FLOP, 0.247 ms at the bf16
-// tensor-core peak, against 0.046 ms for its 155 MB; forming the 3152^2 scores
-// twice, as the spatial kernel's exact softmax does, would add half again. So
-// the scores are formed once and never leave registers.
+// tensor-core peak, against 0.046 ms for its 155 MB; and 9.5e8 exponentials,
+// which the SM's special-function units take about as long as the products
+// take the tensor cores. So the scores are formed once, never leave
+// registers, and the exponentials of one key tile run while the tensor cores
+// multiply the previous tile's p into v.
 //
-// bf16 (head dim 16, 32, 64 or 128): a block of 8 warps takes 128 query rows of
-// one (batch, head), a warp 16 of them with q fragments in registers (mma.sync
-// m16n8k16, f32 accumulate; up to head dim 64 capped at 128 registers, so that
-// two blocks share an SM). Keys and values come 64 at a time by 16-byte
-// cp.async into two shared-memory stages, the next tile in flight while this
-// one is multiplied; both operands' fragments are read with ldmatrix. The
-// scores are kept in units of log 2 (scale * log2 e in one multiplication), so
-// every exponential is one ex2. S is not padded anywhere: the key loop ends at
-// S, the last tile's missing rows are zero-filled on the way in and its columns
-// masked. The TPU kernel's 512 x 512 blocks, its host padding of S to a
-// multiple of 512 and its scratch carried across grid steps are not carried
-// over; a 64-key tile moves the running max more often than a 512-key block, so
-// an unnormalised p may round to the neighbouring bf16 value. (A first version
-// with 4 warps and 64 rows a block, the keys' fragments by 4-byte loads and
-// __expf took 1.34 ms at the coupling shape against this one's 1.19; 8 warps
-// without the register cap, one block an SM, took 1.46.)
+// bf16 (head dim 16, 32, 64 or 128), warp-specialised as the spatial kernel:
+// a work item is 128 query rows of one (batch, head), consumer w takes rows
+// 64w .. 64w + 63; the producer streams 128-key tiles of K and V through a
+// ring (4 stages up to head dim 64, 2 at 128) and the next item's q into the
+// other of two query buffers. Per key tile j a consumer issues s_j = q k_j^T
+// (m64n128k16, q and k from shared memory) and o += p_{j-1} v_{j-1}
+// (m64nDk16, p from registers as the scores' accumulator lies, v MN-major),
+// waits for s_j alone, and computes its max, alpha and exponentials while the
+// p v product runs; then it rescales o, releases tile j - 1 and packs p_j.
+// The scores are kept in units of log 2 (scale * log2 e in one
+// multiplication), so every exponential is one ex2. S is not padded anywhere:
+// the last tile's missing rows arrive as zeros from TMA and its columns at or
+// beyond S are -inf (the first tile always has a column below S). A 128-key
+// tile moves the running max at other columns than the plain version's
+// 512-key blocks, so an unnormalised p may round to the neighbouring bf16 value.
 //
 // f32, any head dim that is a multiple of 8: a block takes 64 query rows, a warp
 // 8 of them, on the CUDA cores (no TF32). A lane forms the scores of keys lane
 // and lane + 32 of the tile with its warp's 8 rows at once, p goes through
 // shared memory, and a lane accumulates output columns lane, lane + 32, ...
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(bytes));
+constexpr int kBkTile = 128;  // keys of a tile; query rows of a work item
+// TMA boxes of a tile: all of them, also past S (they arrive as zeros), since
+// a row of v that holds stale shared memory would give 0 * NaN in p v
+constexpr int kBoxes = kBkTile / kBox;
+
+// key tiles of a row of S keys, the last one partial
+__device__ __forceinline__ int key_tiles(int S) { return (S + kBkTile - 1) / kBkTile; }
+
+template <int D>
+struct BlockedLayout {
+  static constexpr int kStages = D <= 64 ? 4 : 2;
+  static constexpr int kTile = kBkTile * D * 2;  // bytes of 128 rows
+  static constexpr int kQ = 0;                   // two query buffers
+  static constexpr int kKV = 2 * kTile;          // kStages of (K tile, V tile)
+  static constexpr int kBars = kKV + kStages * 2 * kTile;
+  static constexpr int kBytes = kBars + 2 * (2 + kStages) * 8 + 1024;  // + alignment
+};
+
+// issue s = q k^T (unscaled) for the consumer's 64 query rows against the
+// tile's 128 keys; no commit
+template <int D>
+__device__ __forceinline__ void blocked_scores(float (&s)[64], uint32_t qt, int wg, uint32_t kt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Wgmma<128>::ss(s, desc_k_major<D>(qt, kBkTile, 64 * wg, kk),
+                   desc_k_major<D>(kt, kBkTile, 0, kk), kk);
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
-// e^x for x <= 0 as 2^(x log2 e) is what __expf computes; with the scores kept
-// in units of log 2 the multiplication is paid once, in the scale. -inf gives 0.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+// issue o += p v over the tile's 128 keys; no commit
+template <int D>
+__device__ __forceinline__ void blocked_pv(float (&o)[D / 2], const uint32_t (&p)[8][4],
+                                           uint32_t vt) {
+  using Op = Operand<D>;
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+#pragma unroll
+    for (int half = 0; half < Op::kHalves; ++half)
+      Wgmma<Op::kN>::rs(o + 32 * half, p[ks], desc_mn_major<D>(vt, kBkTile, 16 * ks, half), 1);
 }
 
-// Four 8 x 8 bf16 tiles from row-major shared memory, as they lie: lane l gives
-// the address of row l % 8 of tile l / 8, and receives of each tile the elements
-// (g, 2t) and (g, 2t + 1): a b fragment of a row-major (n x k) operand.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// scores into units of log 2, columns at or beyond S (from k0 on) at -inf;
+// returns the max of the thread's two rows across the row's 4 lanes
+__device__ __forceinline__ void blocked_mask_max(float (&s)[64], int k0, int S, float scale2,
+                                                 float (&mx)[2]) {
+  const int t = threadIdx.x % 4;
+  mx[0] = mx[1] = -INFINITY;
+  const bool ragged = k0 + kBkTile > S;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& x = s[4 * j + e];
+      x = !ragged || k0 + 8 * j + 2 * t + (e & 1) < S ? x * scale2 : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
 }
 
-constexpr int kBlkWarps = 8, kBlkThreads = kBlkWarps * 32, kBlkRows = 16 * kBlkWarps;
+// The consumers take turns to issue their products: consumer w waits on
+// named barrier 1 + w before it issues and then arrives on the other's, so
+// that one's softmax runs while the other's wgmmas do. (256 threads a
+// barrier: the 128 that wait and the 128 that arrive; barrier 0 is
+// __syncthreads'.)
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
 
-// rows row0 .. row0 + kRows - 1 of src (those from `valid` on as zeros) into a
-// tile of `pitch` elements a row, without waiting: commit and wait are the caller's
-template <int D, int kRows>
-__device__ __forceinline__ void load_rows_async(bf16* tile, int pitch, const bf16* src,
-                                                long long ss, int row0, int valid) {
-  for (int idx = threadIdx.x; idx < kRows * (D / 8); idx += kBlkThreads) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    const bool ok = r < valid;
-    cp_async16(tile + r * pitch + c, ok ? src + (row0 + r) * ss + c : src, ok);
+// s = 2^(s - m); sum: the thread's share of each row's sum of the unrounded p
+__device__ __forceinline__ void blocked_exp(float (&s)[64], const float (&m)[2], float (&sum)[2]) {
+  sum[0] = sum[1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = fast_exp2(s[i] - m[(i >> 1) & 1]);
+    sum[(i >> 1) & 1] += s[i];
   }
 }
 
-// grid (B * H, ceil(S / kBlkRows)); addressing as spatial_attention_kernel.
+// p rounded to bf16, unnormalised: k-step i of the p v product is the
+// accumulator's 8-column groups 2i and 2i + 1 as they lie in the registers
+__device__ __forceinline__ void blocked_pack(uint32_t (&p)[8][4], const float (&s)[64]) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[ks][r] = pack_bf16(s[8 * ks + 2 * r], s[8 * ks + 2 * r + 1]);
+}
+
+// grid: persistent; work item (b, h, block of 128 query rows), the block
+// fastest. Addressing as spatial_attention_tma_kernel.
 template <int D>
-__global__ void __launch_bounds__(kBlkThreads, D <= 64 ? 2 : 1) blocked_attention_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, int H, int S, long long sb, long long sh, long long ss,
+__global__ void __launch_bounds__(kCtaThreads, 1) blocked_attention_tma_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out, int B, int H, int S,
     long long ob, long long oh, long long os, float scale) {
-  constexpr int kPitch = D + 8, kTile = kMmaKeys * kPitch;  // see spatial_attention_mma_kernel
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // kBlkRows x kPitch
-  bf16* k_s = q_s + kBlkRows * kPitch;            // two stages of kMmaKeys x kPitch
-  bf16* v_s = k_s + 2 * kTile;                    // two stages of kMmaKeys x kPitch
+  using L = BlockedLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t smem = smem_u32(align_smem(smem_raw));
+  const auto [q_full, q_empty, kv_full, kv_empty] = init_barriers(smem + L::kBars, 2, L::kStages);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int b = blockIdx.x / H, h = blockIdx.x % H, q0 = blockIdx.y * kBlkRows;
-  const long long in_base = b * sb + h * sh;
-  q += in_base;
-  k += in_base;
-  v += in_base;
-  out += b * ob + h * oh;
-  scale *= 1.4426950408889634f;  // scores in units of log 2: see fast_exp2
+  const int tiles = key_tiles(S), blocks = (S + kBkTile - 1) / kBkTile;
+  const long long items = static_cast<long long>(B) * H * blocks;
 
-  load_rows_async<D, kBlkRows>(q_s, kPitch, q, ss, q0, S - q0);
-  load_rows_async<D, kMmaKeys>(k_s, kPitch, k, ss, 0, S);
-  load_rows_async<D, kMmaKeys>(v_s, kPitch, v, ss, 0, S);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-  {
-    const bf16* lo = q_s + (warp * 16 + g) * kPitch + 2 * t;
-    const bf16* hi = lo + 8 * kPitch;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(lo + kk * 16);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(hi + kk * 16);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(lo + kk * 16 + 8);
-      qa[kk][3] = *reinterpret_cast<const uint32_t*>(hi + kk * 16 + 8);
-    }
-  }
-
-  // rows g (0) and g + 8 (1): running max, this lane's share of the running
-  // sum (alpha is the same in the row's 4 lanes, so the shares add up at the end)
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[D / 8][4] = {};
-  const int tiles = (S + kMmaKeys - 1) / kMmaKeys;
-  for (int it = 0; it < tiles; ++it) {
-    const int k0 = it * kMmaKeys;
-    const bf16* k_cur = k_s + (it & 1) * kTile;
-    const bf16* v_cur = v_s + (it & 1) * kTile;
-    cp_async_wait_all();
-    __syncthreads();  // this tile has landed; every warp has left the other stage
-    if (it + 1 < tiles) {
-      const int nxt = (it + 1) & 1, k1 = k0 + kMmaKeys;
-      load_rows_async<D, kMmaKeys>(k_s + nxt * kTile, kPitch, k, ss, k1, S - k1);
-      load_rows_async<D, kMmaKeys>(v_s + nxt * kTile, kPitch, v, ss, k1, S - k1);
-      cp_async_commit();
-    }
-
-    // scaled scores of this warp's 16 rows against the tile's 64 keys, 8 at a
-    // time; columns beyond S are -inf (the first tile always has a column below S)
-    float s[kMmaKeys / 8][4];
-#pragma unroll
-    for (int j = 0; j < kMmaKeys / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      if constexpr (D >= 32) {  // the 8 keys' fragments of two k steps in one load
-        const bf16* kr = k_cur + (j * 8 + lane % 8) * kPitch + (lane / 8) * 8;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; kk += 2) {
-          uint32_t kb[4];
-          ldmatrix_x4(kb, kr + kk * 16);
-          mma_16816(s[j], qa[kk], kb[0], kb[1]);
-          mma_16816(s[j], qa[kk + 1], kb[2], kb[3]);
+  if (threadIdx.x < 128) {  // the producer
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      Ring qr, kr;
+      for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+        const int pair = static_cast<int>(item / blocks), b = pair / H, h = pair % H;
+        const int row0 = static_cast<int>(item % blocks) * kBkTile;
+        mbar_wait(q_empty + 8 * qr.slot, qr.phase ^ 1);
+        const uint32_t qbar = q_full + 8 * qr.slot;
+        mbar_expect_tx(qbar, L::kTile);
+        tma_rows<D>(smem + L::kQ + qr.slot * L::kTile, kBkTile, q_map, qbar, b, h, row0, kBoxes);
+        qr.next(2);
+        for (int j = 0; j < tiles; ++j) {
+          mbar_wait(kv_empty + 8 * kr.slot, kr.phase ^ 1);
+          const uint32_t bar = kv_full + 8 * kr.slot, kt = smem + L::kKV + kr.slot * 2 * L::kTile;
+          mbar_expect_tx(bar, 2 * L::kTile);
+          tma_rows<D>(kt, kBkTile, k_map, bar, b, h, j * kBkTile, kBoxes);
+          tma_rows<D>(kt + L::kTile, kBkTile, v_map, bar, b, h, j * kBkTile, kBoxes);
+          kr.next(L::kStages);
         }
-      } else {
-        const bf16* kr = k_cur + (j * 8 + g) * kPitch + 2 * t;
-        mma_16816(s[j], qa[0], *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-      const int col = k0 + j * 8 + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = col + (e & 1) < S ? s[j][e] * scale : -INFINITY;
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kMmaKeys / 8; ++j)
-        tile_max = fmaxf(tile_max, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-      const float m_new = fmaxf(m[r], tile_max);
-      const float alpha = fast_exp2(m[r] - m_new);  // 0 on the first tile
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMmaKeys / 8; ++j) {
-        s[j][2 * r] = fast_exp2(s[j][2 * r] - m_new);
-        s[j][2 * r + 1] = fast_exp2(s[j][2 * r + 1] - m_new);
-        sum += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        o[nd][2 * r] *= alpha;
-        o[nd][2 * r + 1] *= alpha;
       }
     }
-
-    // o += round(p) v, 16 keys (two score tiles, one k step) at a time
+  } else {  // the consumers
+    regs_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1;
+    const float scale2 = scale * 1.4426950408889634f;  // scores in units of log 2
+    Ring qr, kr;
+    if (wg == 1) turn_pass(wg);  // consumer 0 issues first
+    for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+      const int pair = static_cast<int>(item / blocks), b = pair / H, h = pair % H;
+      const int row0 = static_cast<int>(item % blocks) * kBkTile + 64 * wg;
+      mbar_wait(q_full + 8 * qr.slot, qr.phase);
+      const uint32_t qt = smem + L::kQ + qr.slot * L::kTile;
+      {  // rows at or past S (zeros) are computed too, for the turns, and not stored
+        float s[64], o[D / 2] = {}, m[2], l[2], mx[2];
+        uint32_t p[8][4];
+        // tile 0
+        mbar_wait(kv_full + 8 * kr.slot, kr.phase);
+        uint32_t kt = smem + L::kKV + kr.slot * 2 * L::kTile;
+        turn_wait(wg);
+        wgmma_fence();
+        blocked_scores<D>(s, qt, wg, kt);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait<0>();
+        fence_regs<64>(s);
+        blocked_mask_max(s, 0, S, scale2, m);
+        blocked_exp(s, m, l);
+        blocked_pack(p, s);
+        int prev = kr.slot;
+        uint32_t v_prev = kt + L::kTile;
+        kr.next(L::kStages);
+        for (int j = 1; j < tiles; ++j) {
+          mbar_wait(kv_full + 8 * kr.slot, kr.phase);
+          kt = smem + L::kKV + kr.slot * 2 * L::kTile;
+          turn_wait(wg);
+          wgmma_fence();
+          blocked_scores<D>(s, qt, wg, kt);
+          wgmma_commit();
+          blocked_pv<D>(o, p, v_prev);
+          wgmma_commit();
+          turn_pass(wg);
+          wgmma_wait<1>();  // the scores; p v still runs
+          fence_regs<64>(s);
+          blocked_mask_max(s, j * kBkTile, S, scale2, mx);
+          float alpha[2], sum[2];
 #pragma unroll
-    for (int jj = 0; jj < kMmaKeys / 16; ++jj) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * jj][0], s[2 * jj][1]);
-      pa[1] = pack_bf16(s[2 * jj][2], s[2 * jj][3]);
-      pa[2] = pack_bf16(s[2 * jj + 1][0], s[2 * jj + 1][1]);
-      pa[3] = pack_bf16(s[2 * jj + 1][2], s[2 * jj + 1][3]);
-      const bf16* vr = v_cur + (jj * 16 + lane % 16) * kPitch + (lane / 16) * 8;
+          for (int r = 0; r < 2; ++r) {
+            const float m_new = fmaxf(m[r], mx[r]);
+            alpha[r] = fast_exp2(m[r] - m_new);
+            m[r] = m_new;
+          }
+          blocked_exp(s, m, sum);
+          wgmma_wait<0>();
+          fence_regs<D / 2>(o);
+          mbar_arrive(kv_empty + 8 * prev);
 #pragma unroll
-      for (int nd = 0; nd < D / 8; nd += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vr + nd * 8);
-        mma_16816(o[nd], pa, vb[0], vb[1]);
-        mma_16816(o[nd + 1], pa, vb[2], vb[3]);
+          for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+          l[0] = l[0] * alpha[0] + sum[0];
+          l[1] = l[1] * alpha[1] + sum[1];
+          blocked_pack(p, s);
+          prev = kr.slot;
+          v_prev = kt + L::kTile;
+          kr.next(L::kStages);
+        }
+        turn_wait(wg);
+        wgmma_fence();
+        blocked_pv<D>(o, p, v_prev);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait<0>();
+        fence_regs<D / 2>(o);
+        mbar_arrive(kv_empty + 8 * prev);
+        // alpha is the same in a row's 4 lanes, so the shares of l add up now
+        const float inv_l[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+        store_rows<D>(out + b * ob + h * oh, os, o, row0, S, inv_l);
       }
+      mbar_arrive(q_empty + 8 * qr.slot);
+      qr.next(2);
     }
+    if (wg == 0) turn_wait(wg);  // the last turn consumer 1 passed
   }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const int row = q0 + warp * 16 + g;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    bf16* dst = out + nd * 8 + 2 * t;
-    if (row < S)
-      *reinterpret_cast<__nv_bfloat162*>(dst + row * os) =
-          __floats2bfloat162_rn(o[nd][0] / l[0], o[nd][1] / l[0]);
-    if (row + 8 < S)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (row + 8) * os) =
-          __floats2bfloat162_rn(o[nd][2] / l[1], o[nd][3] / l[1]);
-  }
-}
-
-template <int D>
-int launch_blocked_mma(const void* q, const void* k, const void* v, void* out, int B, int H, int S,
-                       long long sb, long long sh, long long ss, long long ob, long long oh,
-                       long long os, float scale, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kBlkRows + 4 * kMmaKeys) * (D + 8) * sizeof(bf16);
-  auto kernel = blocked_attention_mma_kernel<D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(B * H, (S + kBlkRows - 1) / kBlkRows);
-  kernel<<<grid, kBlkThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), H, S, sb, sh, ss, ob, oh, os, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kBkWarps = 8, kBkThreads = kBkWarps * 32;
@@ -953,13 +1542,26 @@ int launch_temporal(const void* q, const void* k, const void* v, void* out, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// What the TMA kernels ask beyond the wrappers' checks: q, k, v 16-byte aligned
+// with strides of whole 16 bytes (a tensor map's), an output of 4-byte pairs.
+bool tma_operands(const void* q, const void* k, const void* v, const void* out, long long sb,
+                  long long sh, long long ss, long long ob, long long oh, long long os) {
+  const auto aligned = [](const void* p, uintptr_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  return aligned(q, 16) && aligned(k, 16) && aligned(v, 16) && sb % 8 == 0 && sh % 8 == 0 &&
+         ss % 8 == 0 && aligned(out, 4) && ob % 2 == 0 && oh % 2 == 0 && os % 2 == 0;
+}
+
 }  // namespace
 
 // q, k, v, out in one dtype (bf16 if is_bf16, else f32), head dim contiguous,
 // d a multiple of 8 and at most 128, S at most 1024; every row 16-byte aligned
 // (pointers aligned, strides multiples of 8 elements). Strides in elements.
-// bf16 has one path, the tensor-core kernel: d of 16, 32, 64 or 128 and an
-// output of 4-byte aligned pairs (even strides), else cudaErrorInvalidValue.
+// bf16 has one path, the TMA + wgmma kernel: d of 16, 32, 64 or 128 and an
+// output of 4-byte aligned pairs (even strides), else cudaErrorInvalidValue;
+// a tensor map that cuTensorMapEncodeTiled refuses is kTensorMapError (10000)
+// + its CUresult.
 extern "C" int maed_spatial_attention(int is_bf16, const void* q, const void* k, const void* v,
                                       void* out, int B, int H, int S, int d, long long sb,
                                       long long sh, long long ss, long long ob, long long oh,
@@ -967,22 +1569,15 @@ extern "C" int maed_spatial_attention(int is_bf16, const void* q, const void* k,
   const auto s = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
     return launch_spatial<float>(q, k, v, out, B, H, S, d, sb, sh, ss, ob, oh, os, scale, s);
-  // the tensor-core kernel writes 4-byte pairs and has its head dim at compile time
-  const bool pairs = reinterpret_cast<uintptr_t>(out) % 4 == 0 && ob % 2 == 0 && oh % 2 == 0 &&
-                     os % 2 == 0;
-#define MAED_SPATIAL_MMA(D) \
-  launch_spatial_mma<D>(q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, scale, s)
-  if (pairs && d == 16) return MAED_SPATIAL_MMA(16);
-  if (pairs && d == 32) return MAED_SPATIAL_MMA(32);
-  if (pairs && d == 64) return MAED_SPATIAL_MMA(64);
-  if (pairs && d == 128) return MAED_SPATIAL_MMA(128);
-#undef MAED_SPATIAL_MMA
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (S < 1 || S > 4 * kSpChunk || !tma_operands(q, k, v, out, sb, sh, ss, ob, oh, os))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TmaCall call{q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, scale, s};
+  return by_head_dim(d, [&](auto dim) { return launch_spatial_tma<decltype(dim)::value>(call); });
 }
 
-// As maed_spatial_attention, for any S: the online-softmax kernel (one pass over
-// the keys), which rounds an unnormalised p where the spatial kernel rounds a
-// normalised one.
+// As maed_spatial_attention, for any S: the online-softmax kernels (one pass
+// over the keys), which round an unnormalised p where the spatial kernels
+// round a normalised one.
 extern "C" int maed_blocked_attention(int is_bf16, const void* q, const void* k, const void* v,
                                       void* out, int B, int H, int S, int d, long long sb,
                                       long long sh, long long ss, long long ob, long long oh,
@@ -990,16 +1585,13 @@ extern "C" int maed_blocked_attention(int is_bf16, const void* q, const void* k,
   const auto s = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
     return launch_blocked_f32(q, k, v, out, B, H, S, d, sb, sh, ss, ob, oh, os, scale, s);
-  const bool pairs = reinterpret_cast<uintptr_t>(out) % 4 == 0 && ob % 2 == 0 && oh % 2 == 0 &&
-                     os % 2 == 0;
-#define MAED_BLOCKED_MMA(D) \
-  launch_blocked_mma<D>(q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, scale, s)
-  if (pairs && d == 16) return MAED_BLOCKED_MMA(16);
-  if (pairs && d == 32) return MAED_BLOCKED_MMA(32);
-  if (pairs && d == 64) return MAED_BLOCKED_MMA(64);
-  if (pairs && d == 128) return MAED_BLOCKED_MMA(128);
-#undef MAED_BLOCKED_MMA
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (S < 1 || !tma_operands(q, k, v, out, sb, sh, ss, ob, oh, os))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TmaCall call{q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, scale, s};
+  return by_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return launch_tma<blocked_attention_tma_kernel<D>, D>(call, BlockedLayout<D>::kBytes, kBkTile);
+  });
 }
 
 // As above for G clips of T frames (T at most 32) of N tokens of H heads.

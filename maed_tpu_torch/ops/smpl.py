@@ -148,7 +148,7 @@ def make_model(
     faces=None,
     vertex_joint_ids=None,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SMPLModel:
     """Assemble an SMPLModel on ``device`` from raw (numpy) arrays.
 

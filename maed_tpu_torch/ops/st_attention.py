@@ -28,7 +28,7 @@ import torch
 from maed_tpu_torch import kernels
 
 MAX_HEAD_DIM = 128   # the kernels keep 4 output columns per lane
-MAX_TOKENS = 1024    # spatial: a row's scores sit in shared memory
+MAX_TOKENS = 1024    # spatial: a row's scores in shared memory (f32), 4 key chunks (bf16)
 MAX_FRAMES = 32      # temporal: one warp holds a (token, head)'s q, k, v
 MMA_HEAD_DIMS = (16, 32, 64, 128)  # spatial in bf16: the tensor-core kernel's head dims
 

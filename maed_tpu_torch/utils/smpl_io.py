@@ -62,7 +62,7 @@ def load_smpl_pickle(path: str):
 
 
 def load_smpl_model(model_dir: str, gender: str = "NEUTRAL",
-                    device: torch.device | str = "cpu") -> SMPLModel:
+                    device: torch.device | str = "cuda") -> SMPLModel:
     """Load SMPL_<GENDER>.pkl + J_regressor_extra.npy from model_dir."""
     data = load_smpl_pickle(osp.join(model_dir, f"SMPL_{gender.upper()}.pkl"))
     extra = np.load(osp.join(model_dir, "J_regressor_extra.npy"))
@@ -79,7 +79,7 @@ def load_smpl_model(model_dir: str, gender: str = "NEUTRAL",
 
 
 def synthetic_smpl_model(num_verts: int = 400, seed: int = 0,
-                         device: torch.device | str = "cpu") -> SMPLModel:
+                         device: torch.device | str = "cuda") -> SMPLModel:
     """A random-but-valid SMPL-shaped model for runs without the SMPL files.
 
     Every tensor has the real model's meaning and shape structure; the
@@ -115,7 +115,7 @@ def synthetic_smpl_model(num_verts: int = 400, seed: int = 0,
 
 
 def find_smpl_model(data_dir: str = "data/smpl_data", allow_synthetic: bool = True,
-                    device: torch.device | str = "cpu") -> SMPLModel:
+                    device: torch.device | str = "cuda") -> SMPLModel:
     """Load the real model if present; otherwise fall back to a synthetic one.
 
     The fallback is loud (a warning on stderr) and refusable

@@ -173,13 +173,19 @@ def qkv_input(seed, BT, N, h, d, dtype, device):
 @pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-5, 0.0),
                                                (torch.bfloat16, 1e-2, 1e-2)])
 @pytest.mark.parametrize("BT, N, h, d", [(4, 197, 12, 64), (3, 37, 2, 16), (2, 70, 3, 128),
-                                         (2, 130, 2, 32), (3, 37, 2, 24), (1, 1, 1, 8)])
+                                         (2, 130, 2, 32), (3, 37, 2, 24), (1, 1, 1, 8),
+                                         (3, 1, 2, 64), (2, 64, 2, 64), (2, 65, 2, 64),
+                                         (2, 256, 2, 64), (2, 257, 2, 64), (2, 577, 2, 64),
+                                         (1, 1024, 2, 64)])
 def test_spatial_attention_kernel(cuda, dtype, atol, rtol, BT, N, h, d):
-    """Both output layouts and the (B, h, S, d) entry; N is ragged against the
-    query tiles and the 64-key tile. bf16 is the tensor-core kernel, which
-    takes head dims 16, 32, 64, 128 and raises for 24 and 8; f32 takes them
-    all. bf16 at 1e-2 abs + 1e-2 rel: a probability or an output (below 1)
-    rounding to the neighbouring value."""
+    """Both output layouts and the (B, h, S, d) entry. N is ragged against the
+    64-row query tiles and TMA boxes and against the 8-column score steps
+    (197, 65, 37); one token; a full tile (64) and a full 256-key chunk; and
+    the two-pass range past one chunk (257 = a last chunk of one key, 577,
+    1024 = 4 chunks). bf16 is the tensor-core kernel, which takes head dims
+    16, 32, 64, 128 and raises for 24 and 8; f32 takes them all. bf16 at 1e-2
+    abs + 1e-2 rel: a probability or an output (below 1) rounding to the
+    neighbouring value."""
     if dtype == torch.bfloat16 and d not in TST.MMA_HEAD_DIMS:
         before = dict(kernels.LAUNCHES)
         with pytest.raises(ValueError, match="tensor cores"):
@@ -229,13 +235,15 @@ def coupling_views(qkv, T):
                                                (torch.bfloat16, 2e-3, 1e-2)])
 @pytest.mark.parametrize("in_place", [False, True])
 @pytest.mark.parametrize("d", [32, 64])
-@pytest.mark.parametrize("S", [1025, 1576, 3152])
+@pytest.mark.parametrize("S", [1025, 1088, 1152, 1576, 3152])
 def test_blocked_attention_kernel(cuda, dtype, atol, rtol, in_place, d, S):
     """Kernel K against its plain version, through ``fused_attention``'s
-    dispatch: S just above the one-shot limit (1025 = 16 * 64 + 1: a last
-    tile of one key), 1576 and the coupling length 3152 (49 * 64 + 16), on
-    contiguous tensors and on the views of a qkv projection with the output
-    written into a (BT, N, h * d) tensor. f32 at 2e-5: the kernel's 64-key tiles and the plain
+    dispatch: S just above the one-shot limit (1025 = 8 * 128 + 1: a last
+    tile of one key), 1088 (a multiple of 64 but not of the bf16 kernel's
+    128-key tile), 1152 (9 whole tiles), 1576 and the coupling length 3152
+    (24 * 128 + 80), on contiguous tensors and on the views of a qkv
+    projection with the output written into a (BT, N, h * d) tensor. f32 at
+    2e-5: the kernels' key tiles (64 in f32, 128 in bf16) and the plain
     version's 512-key blocks rescale and sum in different orders. bf16 at
     2e-3 abs + 1e-2 rel: the outputs are means of v over hundreds of keys
     (|out| ~0.05), so rel carries one bf16 step of an output and abs the
@@ -268,8 +276,10 @@ def test_blocked_attention_kernel(cuda, dtype, atol, rtol, in_place, d, S):
                                         (1, 2, 1, 64), (2, 1, 70, 24)])
 def test_blocked_attention_kernel_small(cuda, dtype, atol, rtol, B, h, S, d):
     """The blocked kernel called directly below the dispatch limit: one tile,
-    a full tile, S ragged against the 64-row and 64-key tiles, one token; head
-    dim 24 runs in f32 and raises in bf16 (tensor cores alone)."""
+    a full 64-row TMA box, S ragged against the 128-row and 128-key tiles
+    (130: a second key tile of 2 keys and a second query block of 2 rows),
+    one token; head dim 24 runs in f32 and raises in bf16 (tensor cores
+    alone)."""
     rng = np.random.RandomState(30)
     q, k, v = (to_torch(rng.randn(B, h, S, d), dtype).to(cuda) for _ in range(3))
     if dtype == torch.bfloat16 and d not in TST.MMA_HEAD_DIMS:
@@ -304,6 +314,20 @@ def test_blocked_attention_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):  # (B, S, d)
         TA.fused_attention(q[0], q[0], q[0])
     assert kernels.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("scale", [-0.125, 0.0, 3.0])
+@pytest.mark.parametrize("S", [197, 577])
+def test_spatial_attention_kernel_takes_any_scale(cuda, scale, S):
+    """The bf16 spatial kernel takes each row's max of the raw scores (their
+    min for a negative scale) and scales it once; a zero scale is the mean of
+    v. Both the one-chunk and the two-pass range, at the bf16 limit."""
+    rng = np.random.RandomState(S)
+    q, k, v = (to_torch(rng.randn(2, 3, S, 64), torch.bfloat16).to(cuda) for _ in range(3))
+    before = kernels.LAUNCHES["spatial_attention"]
+    got = TA.fused_attention(q, k, v, scale)
+    assert kernels.LAUNCHES["spatial_attention"] == before + 1
+    assert_close(got.float(), TA._xla_attention(q, k, v, scale).float(), 1e-2, 1e-2)
 
 
 # launches of one block per st_mode, beside the MLP's two

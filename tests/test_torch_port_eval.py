@@ -13,6 +13,9 @@ tests/test_torch_port_modes.py), and the five metrics, means over joints and
 frames of distances between such points, at 0.1 mm + 1e-3 relative.
 """
 
+import functools
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import jax
@@ -152,6 +155,14 @@ POOL, IMG, VERTS = 8, 32, 64
 N_VALID = 3 * POOL - 2 * 5  # each batch of Windows switches 2 + 3 frames off
 
 
+@functools.lru_cache(maxsize=None)
+def gt_body():
+    """The JAX SMPL forward of the windows' GT theta, jitted once (eagerly it
+    runs op by op at every window batch)."""
+    smpl = j_synthetic_smpl(VERTS, 0)
+    return jax.jit(lambda betas, pose: JS.smpl_forward(smpl, betas, pose_axis_angle=pose))
+
+
 class Windows:
     """Two batches of POOL-frame windows, 2 and then 1 (the ragged last
     batch), uint8 frames that carry a running frame index in pixel (0, 0, 0);
@@ -164,7 +175,6 @@ class Windows:
 
     def __iter__(self):
         rng = np.random.RandomState(self.seed)
-        smpl = j_synthetic_smpl(VERTS, 0)
         first = 0
         for n in (2, 1):
             images = rng.randint(0, 256, (n, POOL, IMG, IMG, 3)).astype(np.uint8)
@@ -173,8 +183,7 @@ class Windows:
             theta[..., 3:75] = rng.randn(n, POOL, 72) * 0.2
             theta[..., 75:] = rng.randn(n, POOL, 10) * 0.5
             flat = theta.reshape(-1, 85)
-            out = JS.smpl_forward(smpl, jnp.asarray(flat[:, 75:]),
-                                  pose_axis_angle=jnp.asarray(flat[:, 3:75]))
+            out = gt_body()(jnp.asarray(flat[:, 75:]), jnp.asarray(flat[:, 3:75]))
             if self.joints == "49":
                 kp = np.asarray(out["joints"])
             elif self.joints == "native14":
@@ -216,7 +225,8 @@ def test_evaluator_reassembles_windows_as_jax(interp):
     re-interleaving, interpolation, the valid mask and the side accumulators,
     with an echo forward: equal to JAX's bit for bit."""
     kw = dict(seqlen=2, interp=interp, dataset_name="testset", batch_size=2, verbose=False)
-    j_ev, t_ev = JE.Evaluator(j_synthetic_smpl(VERTS, 0)), TE.Evaluator(t_synthetic_smpl(VERTS, 0))
+    j_ev = JE.Evaluator(j_synthetic_smpl(VERTS, 0))
+    t_ev = TE.Evaluator(t_synthetic_smpl(VERTS, 0, device="cpu"))
     shapes = []
     j_ev.inference(lambda x, jreg: echo(x, jnp), Windows("49"), **kw)
 
@@ -245,21 +255,24 @@ CONFIG = dict(num_blocks=1, num_heads=2, hidden_dim=32)
 
 @pytest.fixture(scope="module")
 def tiny_models():
-    """The tiny coupling MAED on both sides with the same weights, as
-    forwards ``(images, J_regressor) -> dict``."""
+    """The tiny coupling MAED on both sides with the same weights: the JAX one
+    as ``(apply(variables, images, J_regressor), variables)``, the Evaluator's
+    contract that jits the forward once for every call of its shapes (the
+    weights are arguments, not constants baked into each executable), the
+    port's as a forward ``(images, J_regressor) -> dict``."""
     x = np.zeros((2, 2, IMG, IMG, 3), np.float32)
-    j_smpl, t_smpl = j_synthetic_smpl(VERTS, 0), t_synthetic_smpl(VERTS, 0)
+    j_smpl, t_smpl = j_synthetic_smpl(VERTS, 0), t_synthetic_smpl(VERTS, 0, device="cpu")
     j_model = JMAED(encoder="ste", st_mode="coupling", decoder="ktd", **CONFIG)
     params = random_params(lambda: j_model.init(jax.random.PRNGKey(0), x, j_smpl), 0)
     t_model = MAED(img_size=IMG, st_mode="coupling", **CONFIG)
     t_model.load_state_dict(state_dict_from_jax(params), strict=True)
 
-    def j_forward(images, jreg):
+    def j_apply(variables, images, jreg):
         with jax.default_matmul_precision("highest"):
-            return j_model.apply({"params": params}, images, j_smpl, J_regressor=jreg)
+            return j_model.apply(variables, images, j_smpl, J_regressor=jreg)
 
-    return (j_forward, j_smpl), (lambda images, jreg: t_model(images, t_smpl, J_regressor=jreg),
-                                 t_smpl)
+    return ((j_apply, {"params": params}), j_smpl), \
+        (lambda images, jreg: t_model(images, t_smpl, J_regressor=jreg), t_smpl)
 
 
 def regressor17(seed=7):
@@ -274,14 +287,14 @@ def test_evaluator_run_matches_jax(tiny_models, tmp_path, monkeypatch, capsys, c
     J14 selection, at interp 1 and 2; '3dpw' without its regressor file
     (``allow_missing_regressor``) and a 14-joint GT, which takes the native
     bank's J49_TO_J14; a dataset without a protocol and the 49-joint GT."""
-    (j_forward, j_smpl), (t_forward, t_smpl) = tiny_models
+    ((j_apply, variables), j_smpl), (t_forward, t_smpl) = tiny_models
     monkeypatch.setattr(j_config, "DATA_DIR", str(tmp_path))  # no regressor file there
     jreg = regressor17() if case == "j14" else None
     kw = dict(seqlen=2, interp=interp, batch_size=2, verbose=False, J_regressor=jreg,
               dataset_name="testset" if case == "49" else "3dpw",
               allow_missing_regressor=case == "native14")
     j_ev, t_ev = JE.Evaluator(j_smpl), TE.Evaluator(t_smpl)
-    want_metrics, want_n = j_ev.run(j_forward, Windows(case, jreg), **kw)
+    want_metrics, want_n = j_ev.run(j_apply, Windows(case, jreg), variables=variables, **kw)
     got_metrics, got_n = t_ev.run(t_forward, Windows(case, jreg), data_dir=str(tmp_path), **kw)
     if case == "native14":
         assert "NOT comparable" in capsys.readouterr().err
@@ -346,13 +359,20 @@ def test_count_attn_returns_the_parallel_gates(tiny_models):
     """The parallel mode's gate toward the spatial branch per block, as the JAX
     Evaluator reads it from the sown intermediates (f32 behind the whole stem:
     1e-4, the f32 bound of tests/test_torch_port_slice.py); another mode has
-    none."""
-    j_smpl, t_smpl = j_synthetic_smpl(VERTS, 0), t_synthetic_smpl(VERTS, 0)
+    none. The JAX model's apply is handed over jitted: eagerly it runs op by
+    op, its Pallas kernels interpreted."""
+    j_smpl, t_smpl = j_synthetic_smpl(VERTS, 0), t_synthetic_smpl(VERTS, 0, device="cpu")
     clips = np.random.RandomState(9).randn(1, 2, IMG, IMG, 3).astype(np.float32)
     j_model = JMAED(encoder="ste", st_mode="parallel", decoder="ktd", **CONFIG)
     params = random_params(lambda: j_model.init(jax.random.PRNGKey(0), clips, j_smpl), 1)
-    with jax.default_matmul_precision("highest"):
-        want = JE.Evaluator(j_smpl).count_attn(j_model, {"params": params}, clips, j_smpl, 2)
+    def apply(variables, images):
+        with jax.default_matmul_precision("highest"):  # at trace time, inside the jit
+            return j_model.apply(variables, images, j_smpl, mutable=["intermediates"])
+
+    apply = jax.jit(apply)
+    jitted = SimpleNamespace(
+        apply=lambda variables, images, smpl, mutable: apply(variables, images))
+    want = JE.Evaluator(j_smpl).count_attn(jitted, {"params": params}, clips, j_smpl, 2)
     t_model = MAED(img_size=IMG, st_mode="parallel", **CONFIG)
     t_model.load_state_dict(state_dict_from_jax(params), strict=True)
     ev = TE.Evaluator(t_smpl)

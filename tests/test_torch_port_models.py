@@ -145,7 +145,7 @@ def test_block_matches_jax_f64(seqlen):
 def test_ktd_matches_jax_f64():
     x = np.random.RandomState(8).randn(4, 48)
     jreg = np.random.RandomState(9).rand(14, 64) / 32
-    j_smpl, t_smpl = j_synthetic_smpl(64, 0), t_synthetic_smpl(64, 0)
+    j_smpl, t_smpl = j_synthetic_smpl(64, 0), t_synthetic_smpl(64, 0, device="cpu")
     jmod = JKTD(hidden_dim=32, dtype=jnp.float64)
     params = random_params(
         lambda: jmod.init(jax.random.PRNGKey(0), x.astype(np.float32), j_smpl), 5)

@@ -71,12 +71,22 @@ def test_block_matches_jax_f64(mode, seqlen):
     assert (tmod.attn.last_gate is not None) == (mode == "parallel")
 
 
+def seeded(block, seed):
+    """``block`` with every parameter drawn from ``seed`` (a module's norms
+    start as uninitialised memory until weights are loaded)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, dtype=p.dtype) * 0.3)
+    return block
+
+
 def test_coupling_of_single_frames_equals_spatial():
     """With T = 1 a clip's tokens are a frame's: the two modes are one function."""
     x = to_torch(np.random.RandomState(8).randn(3, 7, 32))
     blocks = {mode: TBlock(32, 2, st_mode=mode, dtype=torch.float64).double()
               for mode in ("spatial", "coupling")}
-    blocks["coupling"].load_state_dict(blocks["spatial"].state_dict(), strict=True)
+    blocks["coupling"].load_state_dict(seeded(blocks["spatial"], 8).state_dict(), strict=True)
     with torch.no_grad():
         assert_close(blocks["coupling"](x, 1), blocks["spatial"](x, 1), 1e-12)
 
@@ -95,7 +105,7 @@ def test_coupling_takes_the_blocked_plain_version_beyond_1024_tokens(monkeypatch
     monkeypatch.setattr(TA, "attention_blocked_reference", counted)
     monkeypatch.setattr("maed_tpu_torch.models.vit.attention_blocked_reference", counted)
     rng = np.random.RandomState(9)
-    block = TBlock(16, 2, st_mode="coupling", dtype=torch.float64).double()
+    block = seeded(TBlock(16, 2, st_mode="coupling", dtype=torch.float64).double(), 9)
     x = to_torch(rng.randn(6, 180, 16))
     with torch.no_grad():
         got, plain = block(x, 6), block(x, 6, plain=True)
@@ -146,7 +156,7 @@ def test_maed_matches_jax_f64(mode):
         want = jax_forward(mode, as_f64(params), clips, jnp.float64)
     model = MAED(img_size=32, st_mode=mode, dtype=torch.float64, **CONFIG)
     model.load_state_dict(sd, strict=True)
-    got = model.double()(to_torch(clips), t_synthetic_smpl(64, 0))
+    got = model.double()(to_torch(clips), t_synthetic_smpl(64, 0, device="cpu"))
     assert_outputs_close(got, want, 1e-8)
 
 
@@ -157,7 +167,8 @@ def test_coupling_maed_matches_jax_through_its_pallas_attention(monkeypatch):
     want = jax_forward("coupling", params, clips, jnp.float32)
     model = MAED(img_size=32, st_mode="coupling", dtype=torch.float32, **CONFIG)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
-    assert_outputs_close(model(to_torch(clips), t_synthetic_smpl(64, 0)), want, 1e-3, 1e-3)
+    smpl = t_synthetic_smpl(64, 0, device="cpu")
+    assert_outputs_close(model(to_torch(clips), smpl), want, 1e-3, 1e-3)
 
 
 @pytest.mark.parametrize("mode", ST_MODES)

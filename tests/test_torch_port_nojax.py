@@ -1,9 +1,10 @@
 """maed_tpu_torch imports and runs without JAX, flax or triton, as it must on
 the machine with the card (which has no JAX): a fresh interpreter in which
 importing any of them fails imports every module of the port, maps a flax
-parameter tree onto the port's state_dict, runs the tiny eval forward on
-the CPU and drives ``core.evaluate.Evaluator.run`` over a coupling model; in
-the end no module of maed_tpu, jax, flax or triton is loaded."""
+parameter tree onto the port's state_dict, runs the tiny eval forward of a
+parallel and of a coupling model on the CPU and drives
+``core.evaluate.Evaluator.run`` over the coupling one; in the end no module of
+maed_tpu, jax, flax or triton is loaded."""
 
 import os
 import subprocess
@@ -21,14 +22,15 @@ import maed_tpu_torch
 for mod in pkgutil.walk_packages(maed_tpu_torch.__path__, "maed_tpu_torch."):
     importlib.import_module(mod.name)
 from maed_tpu_torch.core.builder import build_eval_model
-model, smpl = build_eval_model(num_blocks=1, num_heads=2, hidden_dim=32, img_size=32,
-                               dtype=torch.float32, device="cpu", seed=0,
-                               allow_synthetic_smpl=True, smpl_dir="absent")
 clips = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (1, 2, 32, 32, 3),
                                                           dtype=np.uint8))
-out = model(clips, smpl, J_regressor=torch.full((14, 6890), 1 / 6890))
-assert out["verts"].shape == (1, 2, 6890, 3) and out["kp_3d"].shape == (1, 2, 14, 3)
-assert all(torch.isfinite(v).all() for v in out.values())
+for st_mode in ("parallel", "coupling"):  # the coupling model is kept for Evaluator.run
+    model, smpl = build_eval_model(num_blocks=1, num_heads=2, hidden_dim=32, img_size=32,
+                                   st_mode=st_mode, dtype=torch.float32, device="cpu", seed=0,
+                                   allow_synthetic_smpl=True, smpl_dir="absent")
+    out = model(clips, smpl, J_regressor=torch.full((14, 6890), 1 / 6890))
+    assert out["verts"].shape == (1, 2, 6890, 3) and out["kp_3d"].shape == (1, 2, 14, 3)
+    assert all(torch.isfinite(v).all() for v in out.values()), st_mode
 from maed_tpu_torch.utils.weights import state_dict_from_jax
 tree = {"encoder": {"blocks_0": {"attn": {"qkv": {"kernel": np.ones((4, 12), np.float32)}},
                                  "norm1": {"scale": np.ones(4, np.float32)}}},
@@ -38,9 +40,6 @@ assert sorted(sd) == ["decoder.joint_regs.3.bias", "encoder.blocks.0.attn.qkv.we
                       "encoder.blocks.0.norm1.weight"]
 assert sd["encoder.blocks.0.attn.qkv.weight"].shape == (12, 4)
 from maed_tpu_torch.core.evaluate import Evaluator
-model, smpl = build_eval_model(num_blocks=1, num_heads=2, hidden_dim=32, img_size=32,
-                               st_mode="coupling", dtype=torch.float32, device="cpu", seed=0,
-                               allow_synthetic_smpl=True, smpl_dir="absent")
 rng = np.random.RandomState(1)
 kp3d = np.concatenate([rng.randn(3, 4, 14, 3), np.ones((3, 4, 14, 1))], -1).astype(np.float32)
 theta = (rng.randn(3, 4, 85) * 0.1).astype(np.float32)

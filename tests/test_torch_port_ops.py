@@ -8,6 +8,7 @@ torch.float64, at atol 1e-9: both sides compute the same formulas, so they
 differ by rounding only.
 """
 
+import inspect
 import pickle
 
 import numpy as np
@@ -65,9 +66,20 @@ def assert_same_smpl(t_model, j_model):
             np.testing.assert_array_equal(got, np.asarray(want), err_msg=field)
 
 
+def test_entry_points_default_to_the_card():
+    """The body-model loaders and the model builder place their tensors on the
+    card unless the caller asks for another device (``Evaluator`` takes its
+    device from the body model), as the port's entry points do."""
+    from maed_tpu_torch.core.builder import build_eval_model
+
+    for fn in (TIO.load_smpl_model, TIO.synthetic_smpl_model, TIO.find_smpl_model,
+               TS.make_model, build_eval_model):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+
+
 @pytest.mark.parametrize("num_verts, seed", [(64, 0), (6890, 3)])
 def test_synthetic_smpl_is_identical(num_verts, seed):
-    assert_same_smpl(TIO.synthetic_smpl_model(num_verts, seed),
+    assert_same_smpl(TIO.synthetic_smpl_model(num_verts, seed, device="cpu"),
                      JIO.synthetic_smpl_model(num_verts, seed))
 
 
@@ -83,13 +95,13 @@ def test_smpl_files_load_as_in_jax(tmp_path, capsys):
     with open(tmp_path / "SMPL_NEUTRAL.pkl", "wb") as f:
         pickle.dump(data, f)
     np.save(tmp_path / "J_regressor_extra.npy", rng.rand(9, V))
-    loaded = TIO.find_smpl_model(str(tmp_path), allow_synthetic=False)
+    loaded = TIO.find_smpl_model(str(tmp_path), allow_synthetic=False, device="cpu")
     assert_same_smpl(loaded, JIO.load_smpl_model(str(tmp_path)))
 
     missing = str(tmp_path / "absent")
     with pytest.raises(FileNotFoundError):
-        TIO.find_smpl_model(missing, allow_synthetic=False)
-    fallback = TIO.find_smpl_model(missing)
+        TIO.find_smpl_model(missing, allow_synthetic=False, device="cpu")
+    fallback = TIO.find_smpl_model(missing, device="cpu")
     assert "SYNTHETIC" in capsys.readouterr().err
     assert_same_smpl(fallback, JIO.synthetic_smpl_model(num_verts=6890))
 
@@ -140,7 +152,8 @@ def _smpl_inputs(rng, B=3):
 def test_smpl_matches_jax_f64(piece):
     rng = np.random.RandomState(1)
     betas, rotmats = _smpl_inputs(rng)
-    j_model, t_model = JIO.synthetic_smpl_model(64, 0), TIO.synthetic_smpl_model(64, 0)
+    j_model = JIO.synthetic_smpl_model(64, 0)
+    t_model = TIO.synthetic_smpl_model(64, 0, device="cpu")
     verts = rng.randn(3, 64, 3)
     joints = rng.randn(3, 24, 3)
     aa = rng.randn(3, 72) * 0.4
@@ -203,7 +216,8 @@ def test_regressor_output_matches_jax_f64(with_regressor):
     pose6d, shape = rng.randn(nt, 144), rng.randn(nt, 10) * 0.5
     cam = np.concatenate([0.6 + rng.rand(nt, 1), 0.1 * rng.randn(nt, 2)], axis=1)
     jreg = rng.rand(14, 64) / 64 if with_regressor else None
-    j_model, t_model = JIO.synthetic_smpl_model(64, 0), TIO.synthetic_smpl_model(64, 0)
+    j_model = JIO.synthetic_smpl_model(64, 0)
+    t_model = TIO.synthetic_smpl_model(64, 0, device="cpu")
     with jax.enable_x64(True):
         want = j_regressor_output(j_model, jnp.asarray(pose6d), jnp.asarray(shape),
                                   jnp.asarray(cam), None if jreg is None else jnp.asarray(jreg))

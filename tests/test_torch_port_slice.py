@@ -119,7 +119,7 @@ def test_slice_matches_jax(params, dtype, variant):
 
     model = MAED(img_size=32, standardize_ws=not folded, dtype=tdt, **CONFIG)
     model.load_state_dict(sd, strict=True)
-    got = model.to(tdt)(to_torch(clips), t_synthetic_smpl(64, 0),
+    got = model.to(tdt)(to_torch(clips), t_synthetic_smpl(64, 0, device="cpu"),
                         J_regressor=None if jreg is None else to_torch(jreg))
     assert got["theta"].dtype == tdt
     assert_outputs_close(got, want, atol, rtol)
@@ -144,7 +144,7 @@ def test_slice_matches_jax_through_its_pallas_kernels(params, monkeypatch):
     want = jax_forward(params, clips, j_synthetic_smpl(64, 0), None, jnp.float32, True)
     model = MAED(img_size=32, dtype=torch.float32, **CONFIG)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
-    got = model(to_torch(clips), t_synthetic_smpl(64, 0))
+    got = model(to_torch(clips), t_synthetic_smpl(64, 0, device="cpu"))
     assert_outputs_close(got, want, 1e-4, 1e-3)
 
 
