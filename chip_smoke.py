@@ -8,7 +8,9 @@
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the flagship eval forward gives it, in f32 and bf16, and times
    both, beside the least time the card could take for the same work and,
-   where one PyTorch call computes the same function, that call.
+   where one PyTorch call computes the same function, that call (for LN +
+   MLP and LN + qkv, which no one call computes, their products through
+   cuBLAS as ``gemm_library_ms``).
 3. Drives the eval forward the way a user would: ``build_eval_model`` for
    the released stage-2 MAED (6 blocks, 12 heads, KTD hidden 1024) in bf16
    with seeded random weights and the synthetic 6890-vertex SMPL body, then
@@ -47,26 +49,29 @@ REQUESTS = 3
 # the eval protocol's loader: window batches (the second is ragged and padded
 # to the first's size), frames a window
 EVAL_BATCHES, POOL = (8, 5), 128
-# kernel launches per forward: the stem's 52 GroupNorms, the MLP's two
-# launches per block, the final norm and SMPL's skinning; then per block
-# what the attention of each st_mode launches (parallel: norm1 + qkv, the
-# spatial and the temporal branch, the gate and the blend + proj; coupling:
-# norm1 + qkv and the blocked attention; temporal: norm1 by itself)
+# bf16 kernel launches per forward: the stem's 52 GroupNorms, the MLP's three
+# launches per block (norm2's rows, fc1, fc2), the final norm and SMPL's
+# skinning; then per block what the attention of each st_mode launches
+# (parallel: norm1's rows and the qkv product, the spatial and the temporal
+# branch, the gate and the blend + proj; coupling: norm1's rows, qkv and the
+# blocked attention; temporal: norm1 by itself)
 BLOCK_KERNELS = {
-    "parallel": ("ln_dense", "spatial_attention", "temporal_attention", "gate_alpha", "gate_proj"),
-    "coupling": ("ln_dense", "attention_blocked"),
-    "vanilla": ("ln_dense", "spatial_attention"),
+    "parallel": ("ln_rows", "ln_dense", "spatial_attention", "temporal_attention", "gate_alpha",
+                 "gate_proj"),
+    "coupling": ("ln_rows", "ln_dense", "attention_blocked"),
+    "vanilla": ("ln_rows", "ln_dense", "spatial_attention"),
     "temporal": ("layernorm", "temporal_attention"),
-    "series": ("ln_dense", "spatial_attention", "temporal_attention"),
+    "series": ("ln_rows", "ln_dense", "spatial_attention", "temporal_attention"),
 }
 
 
 def per_forward(mode: str, depth: int = 6) -> dict:
-    """Launches of every kernel in one forward of ``mode`` at ``depth`` blocks."""
+    """Launches of every kernel in one bf16 forward of ``mode`` at ``depth`` blocks."""
     from maed_tpu_torch import kernels
 
     counts = dict.fromkeys(kernels.LAUNCHES, 0)
-    counts.update(groupnorm=52, layernorm=1, skinning=1, ln_mlp_fc1=depth, ln_mlp_fc2=depth)
+    counts.update(groupnorm=52, layernorm=1, skinning=1, ln_rows=depth, ln_mlp_fc1=depth,
+                  ln_mlp_fc2=depth)
     for name in BLOCK_KERNELS[mode]:
         counts[name] += depth
     return counts
@@ -212,7 +217,11 @@ def phase_kernels(device):
         record["layernorm"] = rec  # the last dtype's, bf16, is the one kept
 
     # C: LN + MLP, and D: LN + dense (the qkv projection), bf16 and f32.
-    # Weights as nn.Linear stores them.
+    # Weights as nn.Linear stores them. In bf16 both are the LN pre-pass and
+    # then the TMA + wgmma GEMM (once for D, twice for C); beside each, the
+    # same products alone through cuBLAS (torch.matmul on the same bf16
+    # operands, one call a product, summed) as gemm_library_ms: no one
+    # library call computes LN + dense + epilogue, and the port never calls it.
     x = rng.randn(M, C)
     w1, w2 = rng.randn(H, C) / np.sqrt(C), rng.randn(C, H) / np.sqrt(H)
     wq = rng.randn(3 * C, C) / np.sqrt(C)
@@ -232,7 +241,32 @@ def phase_kernels(device):
                       lambda: mlp.ln_dense_reference(*dargs), atol_d, rtol_d,
                       moved=dargs[:-1], flops=2.0 * M * C * 3 * C, kind=kinds[dt], iters=10)
         record["ln_dense"] = rec
-    del margs, dargs, xd
+    # the bf16 pieces: the pre-pass against its plain version within one bf16
+    # step of its outputs (f32 statistics summed in another order may move a
+    # value across a rounding boundary), each GEMM launch alone, and cuBLAS
+    xn = mlp.ln_rows(xd, scale, bias, 1e-6)
+    record["ln_rows"] = compare(
+        "ln_rows bf16", lambda: mlp.ln_rows(xd, scale, bias, 1e-6),
+        lambda: mlp.ln_rows_reference(xd, scale, bias, 1e-6), 1e-6, 2.0 ** -7,
+        moved=(xd, scale, bias), flops=8.0 * M * C, kind="f32",
+        library=lambda: F.layer_norm(xd, (C,), scale.to(bf16), bias.to(bf16), 1e-6), iters=50)
+    w1d, w2d, wqd = margs[3], margs[5], dargs[3]
+    h = mlp.dense(xn, w1d, b1, "gelu")
+    products = {"fc1": (lambda: mlp.dense(xn, w1d, b1, "gelu"),
+                        lambda: torch.matmul(xn, w1d.t())),
+                "fc2": (lambda: mlp.dense(h, w2d, b2, "residual", xd),
+                        lambda: torch.matmul(h, w2d.t())),
+                "qkv": (lambda: mlp.dense(xn, wqd, bq), lambda: torch.matmul(xn, wqd.t()))}
+    gemm = {name: (time_ms(kern, 10), time_ms(lib, 10)) for name, (kern, lib) in products.items()}
+    for name, (kern_ms, lib_ms) in gemm.items():
+        print(f"    dense GEMM {name} alone: kernel {kern_ms:.4f} ms, cuBLAS {lib_ms:.4f} ms")
+    record["ln_mlp"].update(gemm_library_ms=gemm["fc1"][1] + gemm["fc2"][1],
+                            fc1_ms=gemm["fc1"][0], fc2_ms=gemm["fc2"][0])
+    record["ln_dense"].update(gemm_library_ms=gemm["qkv"][1], qkv_ms=gemm["qkv"][0])
+    c_rec, d_rec = record["ln_mlp"], record["ln_dense"]
+    print(f"    C: {c_rec['ms']:.4f} ms, cuBLAS products {c_rec['gemm_library_ms']:.4f}; "
+          f"D: {d_rec['ms']:.4f} ms, cuBLAS product {d_rec['gemm_library_ms']:.4f}")
+    del margs, dargs, xd, xn, h, products
 
     # E: the attention's tail, gate + blend + proj + residual, bf16 and f32.
     # alpha at one bf16 step of a probability (4e-3). The output in bf16 at
@@ -712,6 +746,10 @@ def main() -> int:
         dict(name="fused_ln_dense", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:157",
              launches=launches["ln_dense"], **record["ln_dense"]),
+        # the bf16 pre-pass of C and D: LN(x) rounded, once a row
+        dict(name="ln_rows", route="cuda", source=src + "csrc/ln_mlp.cu",
+             replaces=f"{jax_ops}mlp.py:99, {jax_ops}mlp.py:157",
+             launches=launches["ln_rows"], **record["ln_rows"]),
         dict(name="fused_gate_proj", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:272",
              launches=launches["gate_alpha"], launches_proj=launches["gate_proj"],

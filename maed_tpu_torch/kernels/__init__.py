@@ -34,9 +34,10 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "skinning": 0,      # csrc/skinning.cu
     "layernorm": 0,     # ops/layernorm.py (Triton)
-    "ln_mlp_fc1": 0,    # csrc/ln_mlp.cu, LN + fc1 + GELU launch
+    "ln_rows": 0,       # csrc/ln_mlp.cu, LN(x) rounded to bf16, the pre-pass of C and D in bf16
+    "ln_mlp_fc1": 0,    # csrc/ln_mlp.cu, (LN +) fc1 + GELU launch
     "ln_mlp_fc2": 0,    # csrc/ln_mlp.cu, fc2 + residual launch
-    "ln_dense": 0,      # csrc/ln_mlp.cu, LN + dense (the qkv projection)
+    "ln_dense": 0,      # csrc/ln_mlp.cu, (LN +) dense (the qkv projection)
     "gate_alpha": 0,    # csrc/ln_mlp.cu, the attention's gate: branch means, softmax pairs
     "gate_proj": 0,     # csrc/ln_mlp.cu, blend + proj + residual launch
     "groupnorm": 0,     # csrc/groupnorm.cu
@@ -51,15 +52,14 @@ _c_i64 = ctypes.c_longlong
 _SIGNATURES = {
     # v_posed, weights, A, out, B, V, stream
     "maed_skinning_f32": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr),
-    # is_bf16, x, ln_scale, ln_bias, eps, w1, b1, h, M, C, H, stream
-    "maed_ln_fc1_gelu": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_float, _c_ptr, _c_ptr,
-                         _c_ptr, _c_int, _c_int, _c_int, _c_ptr),
-    # is_bf16, h, w2, b2, x, out, M, H, C, stream
-    "maed_fc2_residual": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-                          _c_int, _c_int, _c_int, _c_ptr),
-    # is_bf16, x, ln_scale, ln_bias, eps, w, b, out, M, C, O, stream
-    "maed_ln_dense": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_float, _c_ptr, _c_ptr,
-                      _c_ptr, _c_int, _c_int, _c_int, _c_ptr),
+    # x, ln_scale, ln_bias, eps, out, M, C, stream
+    "maed_ln_rows": (_c_ptr, _c_ptr, _c_ptr, _c_float, _c_ptr, _c_int, _c_int, _c_ptr),
+    # epilogue, a, w, bias, residual, out, M, N, K, stream
+    "maed_dense_bf16": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int,
+                        _c_ptr),
+    # epilogue, a, ln_scale, ln_bias, eps, w, bias, residual, out, M, N, K, stream
+    "maed_dense_f32": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+                       _c_int, _c_int, _c_int, _c_ptr),
     # is_bf16, y_s, y_t, w_ts, b_ts, alpha, BT, N, C, stream
     "maed_gate_alpha": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int,
                         _c_ptr),

@@ -5,7 +5,11 @@ and their plain PyTorch versions.
 
 Counterpart of ``maed_tpu/ops/mlp.py``: ``fused_ln_mlp`` and
 ``ln_mlp_reference``, ``fused_ln_dense`` and ``ln_dense_reference``,
-``fused_gate_proj`` and ``gate_proj_reference``. The weights are taken as
+``fused_gate_proj`` and ``gate_proj_reference``. In bf16 the first two are
+split where the TPU kernels round: ``ln_rows`` (LN(x) rounded to the dtype)
+and then ``dense`` (the product with a bias, GELU or residual epilogue) once
+or twice; ``ln_rows_reference`` and ``dense_reference`` are those pieces'
+plain versions, and chained they equal the whole references bit for bit. The weights are taken as
 ``nn.Linear`` stores them: w1 (H, C), w2 (C, H), w (O, C), w_ts (2C, 2C) and
 w_p (C, C), in x's dtype; the biases stay f32, as in the TPU kernels. The JAX
 package gates its MLP kernel on the weights fitting in VMEM
@@ -39,6 +43,39 @@ def _product(a, w, dtype):
     """a @ w.T of operands rounded to ``dtype``, accumulated in promote(dtype, f32)."""
     st = torch.promote_types(dtype, torch.float32)
     return torch.matmul(a.to(dtype).to(st), w.to(dtype).to(st).t())
+
+
+def ln_rows_reference(x, ln_scale, ln_bias, eps):
+    """LN(x) rounded to x's dtype: statistics in promote(x.dtype, f32) as
+    E[x^2] - m^2, (x - m) * rstd * scale + bias there, one rounding. The
+    operand that fc1 and the qkv projection read."""
+    return _layernorm(x, ln_scale, ln_bias, eps).to(x.dtype)
+
+
+# the epilogues of the dense GEMM: the code its C entry takes, and the count a
+# launch goes under (the kernel whose product it is)
+_EPILOGUES = {"bias": (0, "ln_dense"), "gelu": (1, "ln_mlp_fc1"), "residual": (2, "ln_mlp_fc2")}
+
+
+def _epilogue(epilogue):
+    if epilogue not in _EPILOGUES:
+        raise ValueError(f"dense: epilogue {epilogue!r}, want one of {sorted(_EPILOGUES)}")
+    return _EPILOGUES[epilogue]
+
+
+def dense_reference(a, w, b, epilogue="bias", residual=None):
+    """a @ w.T (w (N, K)) accumulated in promote(a.dtype, f32), + b there,
+    then by ``epilogue``: "bias" rounds once to a's dtype; "gelu" takes the
+    exact-erf GELU there and rounds; "residual" rounds, then adds it to
+    ``residual`` in a's dtype."""
+    _epilogue(epilogue)
+    st = torch.promote_types(a.dtype, torch.float32)
+    y = _product(a, w, a.dtype) + b.to(st)
+    if epilogue == "gelu":
+        return _gelu_exact(y).to(a.dtype)
+    if epilogue == "residual":
+        return residual + y.to(a.dtype)
+    return y.to(a.dtype)
 
 
 def ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
@@ -104,9 +141,86 @@ def _check_operands(name, x, expected, widths, aligned):
         raise ValueError(f"{name}: {x.numel() // x.shape[-1]} rows exceed the grid")
 
 
+def _launch_ln_rows(x2, ln_scale, ln_bias, eps):
+    """LN of the rows of the checked bf16 (M, C) x2, rounded: one launch."""
+    out = torch.empty_like(x2)
+    lib = kernels.library()
+    with torch.cuda.device(x2.device):
+        kernels.check(lib.maed_ln_rows(
+            x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), eps, out.data_ptr(),
+            x2.shape[0], x2.shape[1], torch.cuda.current_stream().cuda_stream), "maed_ln_rows")
+    kernels.LAUNCHES["ln_rows"] += 1
+    return out
+
+
+def _launch_dense(epilogue, a2, w, b, residual=None, ln=None):
+    """epilogue(A @ w.T + b) of the checked (M, K) a2: one launch, the TMA +
+    wgmma kernel in bf16, the scalar one in f32, which takes ``ln`` =
+    (ln_scale, ln_bias, eps) for "bias" and "gelu" and normalizes a2's rows
+    as its A there."""
+    code, count = _epilogue(epilogue)
+    (M, K), N = a2.shape, w.shape[0]
+    out = torch.empty((M, N), dtype=a2.dtype, device=a2.device)
+    res = None if residual is None else residual.data_ptr()
+    lib = kernels.library()
+    with torch.cuda.device(a2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if a2.dtype == torch.bfloat16:
+            status = lib.maed_dense_bf16(code, a2.data_ptr(), w.data_ptr(), b.data_ptr(), res,
+                                         out.data_ptr(), M, N, K, stream)
+        else:
+            scale, shift, eps = (None, None, 0.0) if ln is None else \
+                (ln[0].data_ptr(), ln[1].data_ptr(), ln[2])
+            status = lib.maed_dense_f32(code, a2.data_ptr(), scale, shift, eps, w.data_ptr(),
+                                        b.data_ptr(), res, out.data_ptr(), M, N, K, stream)
+        kernels.check(status, f"maed_dense ({epilogue})")
+    kernels.LAUNCHES[count] += 1
+    return out
+
+
+def ln_rows(x, ln_scale, ln_bias, eps=1e-6):
+    """:func:`ln_rows_reference` as one CUDA launch (bf16 x, any leading
+    shape): the pre-pass of :func:`fused_ln_mlp` and :func:`fused_ln_dense`
+    in bf16."""
+    if x.device.type == "cpu":
+        return ln_rows_reference(x, ln_scale, ln_bias, eps)
+    C = x.shape[-1]
+    _check_operands("ln_rows", x, (
+        (x, x.dtype, x.shape), (ln_scale, torch.float32, (C,)),
+        (ln_bias, torch.float32, (C,))), widths=(C,), aligned=(x,))
+    if x.dtype != torch.bfloat16:
+        raise ValueError("ln_rows: the kernel takes bf16 (in f32 the GEMM normalizes its A tile)")
+    return _launch_ln_rows(x.reshape(-1, C), ln_scale, ln_bias, eps).reshape(x.shape)
+
+
+def dense(a, w, b, epilogue="bias", residual=None):
+    """:func:`dense_reference` as one CUDA launch (bf16 a, any leading
+    shape, (..., K) -> (..., N)). It counts under the kernel whose product
+    the epilogue is: "bias" D, "gelu" C's fc1, "residual" C's fc2."""
+    if a.device.type == "cpu":
+        return dense_reference(a, w, b, epilogue, residual)
+    _epilogue(epilogue)
+    if a.dtype != torch.bfloat16:
+        raise ValueError("dense: the kernel takes bf16 (in f32 fused_ln_mlp and fused_ln_dense "
+                         "normalize in the GEMM)")
+    K, N = a.shape[-1], w.shape[0]
+    expected = [(a, a.dtype, a.shape), (w, a.dtype, (N, K)), (b, torch.float32, (N,))]
+    aligned = [a, w]
+    if epilogue == "residual":
+        if residual is None:
+            raise ValueError("dense: the residual epilogue needs a residual")
+        expected.append((residual, a.dtype, a.shape[:-1] + (N,)))
+        aligned.append(residual)
+    _check_operands("dense", a, expected, widths=(K, N), aligned=aligned)
+    out = _launch_dense(epilogue, a.reshape(-1, K), w, b,
+                        None if residual is None else residual.reshape(-1, N))
+    return out.reshape(a.shape[:-1] + (N,))
+
+
 def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6):
-    """:func:`ln_mlp_reference` as two CUDA launches (x f32 or bf16); any
-    leading shape."""
+    """:func:`ln_mlp_reference` on the card (x f32 or bf16; any leading
+    shape): in bf16 :func:`ln_rows`, then the GEMM with the GELU and the
+    residual epilogue; in f32 two launches, the first normalizing its rows."""
     if x.device.type == "cpu":
         return ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
     C = x.shape[-1]
@@ -115,30 +229,18 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6):
         (x, x.dtype, x.shape), (w1, x.dtype, (H, C)), (w2, x.dtype, (C, H)),
         (ln_scale, torch.float32, (C,)), (ln_bias, torch.float32, (C,)),
         (b1, torch.float32, (H,)), (b2, torch.float32, (C,))), widths=(C, H), aligned=(x, w1, w2))
-    is_bf16 = int(x.dtype == torch.bfloat16)
     x2 = x.reshape(-1, C)
-    M = x2.shape[0]
-    h = torch.empty((M, H), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x2)
-    lib = kernels.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernels.check(lib.maed_ln_fc1_gelu(
-            is_bf16, x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), eps,
-            w1.data_ptr(), b1.data_ptr(), h.data_ptr(), M, C, H, stream),
-            "maed_ln_fc1_gelu")
-        kernels.LAUNCHES["ln_mlp_fc1"] += 1
-        kernels.check(lib.maed_fc2_residual(
-            is_bf16, h.data_ptr(), w2.data_ptr(), b2.data_ptr(), x2.data_ptr(),
-            out.data_ptr(), M, H, C, stream), "maed_fc2_residual")
-        kernels.LAUNCHES["ln_mlp_fc2"] += 1
-    return out.reshape(x.shape)
+    if x.dtype == torch.bfloat16:
+        h = _launch_dense("gelu", _launch_ln_rows(x2, ln_scale, ln_bias, eps), w1, b1)
+    else:
+        h = _launch_dense("gelu", x2, w1, b1, ln=(ln_scale, ln_bias, eps))
+    return _launch_dense("residual", h, w2, b2, x2).reshape(x.shape)
 
 
 def fused_ln_dense(x, ln_scale, ln_bias, w, b, eps=1e-6):
-    """:func:`ln_dense_reference` as one CUDA launch (x f32 or bf16): the
-    first launch of :func:`fused_ln_mlp` with a plain bias epilogue; any
-    leading shape, (..., C) -> (..., O)."""
+    """:func:`ln_dense_reference` on the card (x f32 or bf16): in bf16
+    :func:`ln_rows`, then the GEMM with the bias epilogue; in f32 one launch
+    that normalizes its rows; any leading shape, (..., C) -> (..., O)."""
     if x.device.type == "cpu":
         return ln_dense_reference(x, ln_scale, ln_bias, w, b, eps)
     C = x.shape[-1]
@@ -148,15 +250,10 @@ def fused_ln_dense(x, ln_scale, ln_bias, w, b, eps=1e-6):
         (ln_scale, torch.float32, (C,)), (ln_bias, torch.float32, (C,)),
         (b, torch.float32, (O,))), widths=(C, O), aligned=(x, w))
     x2 = x.reshape(-1, C)
-    M = x2.shape[0]
-    out = torch.empty((M, O), dtype=x.dtype, device=x.device)
-    lib = kernels.library()
-    with torch.cuda.device(x.device):
-        kernels.check(lib.maed_ln_dense(
-            int(x.dtype == torch.bfloat16), x2.data_ptr(), ln_scale.data_ptr(),
-            ln_bias.data_ptr(), eps, w.data_ptr(), b.data_ptr(), out.data_ptr(), M, C, O,
-            torch.cuda.current_stream().cuda_stream), "maed_ln_dense")
-    kernels.LAUNCHES["ln_dense"] += 1
+    if x.dtype == torch.bfloat16:
+        out = _launch_dense("bias", _launch_ln_rows(x2, ln_scale, ln_bias, eps), w, b)
+    else:
+        out = _launch_dense("bias", x2, w, b, ln=(ln_scale, ln_bias, eps))
     return out.reshape(x.shape[:-1] + (O,))
 
 

@@ -75,16 +75,17 @@ def test_layernorm_kernel(cuda, dtype, atol, rtol, C):
                                                (torch.bfloat16, 5e-2, 2e-2)])
 @pytest.mark.parametrize("M, C, H", [(256, 768, 3072), (100, 80, 176)])
 def test_ln_mlp_kernel(cuda, dtype, atol, rtol, M, C, H):
-    """(100, 80, 176) leaves ragged tiles on every axis: M and N past a 64
-    tile, K past a 32 step. bf16 tolerates an h element rounding to the
-    neighbouring bf16 value on one side only."""
+    """(100, 80, 176) leaves ragged tiles on every axis: M past a 64 tile
+    (f32) and short of a 128 one (bf16), N short of a 256 tile, K past a 64
+    step. bf16 (the LN pre-pass, then two GEMM launches) tolerates an h
+    element rounding to the neighbouring bf16 value on one side only."""
     args = torch_mlp_args(mlp_inputs(np.random.RandomState(6), (M, C), H), dtype)
     args = [a.to(cuda) for a in args]
-    before = kernels.LAUNCHES["ln_mlp_fc1"], kernels.LAUNCHES["ln_mlp_fc2"]
+    before = [kernels.LAUNCHES[k] for k in ("ln_rows", "ln_mlp_fc1", "ln_mlp_fc2")]
     got = TMLP.fused_ln_mlp(*args)
     torch.cuda.synchronize()
-    assert (kernels.LAUNCHES["ln_mlp_fc1"], kernels.LAUNCHES["ln_mlp_fc2"]) == \
-        (before[0] + 1, before[1] + 1)
+    assert [kernels.LAUNCHES[k] for k in ("ln_rows", "ln_mlp_fc1", "ln_mlp_fc2")] == \
+        [before[0] + (dtype == torch.bfloat16), before[1] + 1, before[2] + 1]
     assert got.dtype == dtype
     assert_close(got.float(), TMLP.ln_mlp_reference(*args, 1e-6).float(), atol, rtol)
 
@@ -99,12 +100,88 @@ def test_ln_dense_kernel(cuda, dtype, atol, rtol, M, C, O):
     args = [to_torch(a, dt).to(cuda) for a, dt in
             ((x, dtype), (s, torch.float32), (b, torch.float32), (w.T, dtype),
              (bw, torch.float32))]
-    before = kernels.LAUNCHES["ln_dense"]
+    before = kernels.LAUNCHES["ln_rows"], kernels.LAUNCHES["ln_dense"]
     got = TMLP.fused_ln_dense(*args)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["ln_dense"] == before + 1
+    assert (kernels.LAUNCHES["ln_rows"], kernels.LAUNCHES["ln_dense"]) == \
+        (before[0] + (dtype == torch.bfloat16), before[1] + 1)
     assert got.dtype == dtype and got.shape == (M, O)
     assert_close(got.float(), TMLP.ln_dense_reference(*args, 1e-6).float(), atol, rtol)
+
+
+# bf16 limits of one GEMM launch by epilogue: one rounding of outputs up to
+# ~5 (bias, gelu); for the residual, v rounded and then x + v rounded, where
+# a v one step off moves the sum by that step (C's limit)
+DENSE_LIMITS = {"bias": (2e-2, 1e-2), "gelu": (2e-2, 1e-2), "residual": (5e-2, 2e-2)}
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "gelu", "residual"])
+@pytest.mark.parametrize("K", [8, 80, 776, 3072])
+@pytest.mark.parametrize("N", [8, 176, 264, 2304])
+@pytest.mark.parametrize("M", [1, 63, 100, 256, 8500])
+def test_dense_kernel(cuda, M, N, K, epilogue):
+    """The bf16 TMA + wgmma GEMM of C and D against its plain version at
+    ragged shapes: M one row, short of and past a 64-row consumer half, two
+    whole 128-row tiles, and 67 tiles (8500), which with N = 2304 make 603
+    output tiles, so that a persistent CTA takes several in turn; N a single
+    8-column group, short of a 256 tile, just past one, and 9 whole ones (the
+    qkv width); K short of one 64-wide k-step, past one, past 12 (776) and 48
+    (3072). It counts under the kernel whose product it is."""
+    rng = np.random.RandomState(M * 7 + N + K)
+    a = to_torch(rng.randn(M, K), torch.bfloat16).to(cuda)
+    w = to_torch(rng.randn(N, K) / np.sqrt(K), torch.bfloat16).to(cuda)
+    b = to_torch(rng.randn(N) * 0.1, torch.float32).to(cuda)
+    res = to_torch(rng.randn(M, N), torch.bfloat16).to(cuda) if epilogue == "residual" else None
+    count = {"bias": "ln_dense", "gelu": "ln_mlp_fc1", "residual": "ln_mlp_fc2"}[epilogue]
+    before = dict(kernels.LAUNCHES)
+    got = TMLP.dense(a, w, b, epilogue, res)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == dict(before, **{count: before[count] + 1})
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    want = TMLP.dense_reference(a, w, b, epilogue, res)
+    assert_close(got.float(), want.float(), *DENSE_LIMITS[epilogue])
+
+
+@pytest.mark.parametrize("M, C", [(1, 8), (63, 80), (100, 768), (300, 776), (37, 3072)])
+def test_ln_rows_kernel(cuda, M, C):
+    """The bf16 LN pre-pass against its plain version within one bf16 step
+    of each output (2^-7 of it): the f32 statistics are summed in another
+    order, which may move a value across a rounding boundary. C of one
+    16-byte chunk, past one 256-element sweep of a warp (776), several."""
+    x, s, b = ln_inputs(np.random.RandomState(M + C), (M, C))
+    x = to_torch(x, torch.bfloat16).to(cuda)
+    s, b = (to_torch(a, torch.float32).to(cuda) for a in (s, b))
+    before = kernels.LAUNCHES["ln_rows"]
+    got = TMLP.ln_rows(x, s, b, 1e-6)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ln_rows"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, C)
+    assert_close(got.float(), TMLP.ln_rows_reference(x, s, b, 1e-6).float(), 1e-6, 2.0 ** -7)
+
+
+def test_dense_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    launches = dict(kernels.LAUNCHES)
+    a, w, b = (torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16),
+               torch.zeros(8, 16, device=cuda, dtype=torch.bfloat16), torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError):  # f32: the pre-pass is the bf16 path's
+        TMLP.ln_rows(a.float(), torch.ones(16, device=cuda), b.repeat(2))
+    with pytest.raises(ValueError):  # C = 12 is not a multiple of 8
+        TMLP.ln_rows(a[:, :12].contiguous(), torch.ones(12, device=cuda),
+                     torch.zeros(12, device=cuda))
+    with pytest.raises(ValueError):  # the residual epilogue without a residual
+        TMLP.dense(a, w, b, "residual")
+    with pytest.raises(ValueError):  # a residual of another shape
+        TMLP.dense(a, w, b, "residual", torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # N = 12 is not a multiple of 8
+        TMLP.dense(a, torch.zeros(12, 16, device=cuda, dtype=torch.bfloat16),
+                   torch.zeros(12, device=cuda))
+    with pytest.raises(ValueError):  # w in another dtype
+        TMLP.dense(a, w.float(), b)
+    with pytest.raises(ValueError):  # f32: there the GEMM of C and D normalizes its own A
+        TMLP.dense(a.float(), w.float(), b)
+    with pytest.raises(ValueError):  # an unknown epilogue
+        TMLP.dense(a, w, b, "relu")
+    assert kernels.LAUNCHES == launches
 
 
 @pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
@@ -330,7 +407,8 @@ def test_spatial_attention_kernel_takes_any_scale(cuda, scale, S):
     assert_close(got.float(), TA._xla_attention(q, k, v, scale).float(), 1e-2, 1e-2)
 
 
-# launches of one block per st_mode, beside the MLP's two
+# launches of one block per st_mode, beside the MLP's (in bf16 each of
+# ln_dense's and the MLP's products also has its LN pre-pass, ln_rows)
 BLOCK_LAUNCHES = {
     "vanilla": {"ln_dense": 1, "spatial_attention": 1},
     "spatial": {"ln_dense": 1, "spatial_attention": 1},
@@ -371,6 +449,8 @@ def test_block_of_every_mode_through_the_kernels(cuda, mode, dtype, atol, rtol):
         expect = dict(BLOCK_LAUNCHES[mode], ln_mlp_fc1=1, ln_mlp_fc2=1)
         if mode == "coupling" and not want_blocked:
             expect = dict(ln_dense=1, spatial_attention=1, ln_mlp_fc1=1, ln_mlp_fc2=1)
+        if dtype == torch.bfloat16:
+            expect["ln_rows"] = 1 + expect.get("ln_dense", 0)
         assert launches == expect
         assert got.shape == x.shape and got.dtype == dtype
         assert_close(got.float(), want.float(), atol, rtol)

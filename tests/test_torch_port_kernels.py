@@ -121,6 +121,77 @@ def test_ln_dense_reference_matches_jax_f64():
     assert_close(got, want, 1e-9)
 
 
+# ------------------------------------- the bf16 split of C and D: pre-pass + GEMM
+
+SPLIT_DTYPES = [torch.float64, torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", SPLIT_DTYPES)
+def test_ln_dense_reference_equals_its_split(dtype):
+    """Kernel D runs in bf16 as the LN pre-pass and then the GEMM with the
+    bias epilogue; chained, their plain versions are D's reference bit for
+    bit, because the split lies where the TPU kernel rounds (LN(x) to x's
+    dtype)."""
+    x, s, b, w, bw = torch_ln_dense_args(ln_dense_inputs(np.random.RandomState(15), (3, 7, 64), 48),
+                                         dtype)
+    xn = TMLP.ln_rows_reference(x, s, b, 1e-6)
+    assert xn.dtype == dtype
+    got = TMLP.dense_reference(xn, w, bw, "bias")
+    want = TMLP.ln_dense_reference(x, s, b, w, bw, 1e-6)
+    assert got.dtype == dtype and torch.equal(got, want)
+    # the wrappers take these plain versions for a CPU tensor
+    assert torch.equal(TMLP.dense(TMLP.ln_rows(x, s, b, 1e-6), w, bw), want)
+
+
+@pytest.mark.parametrize("dtype", SPLIT_DTYPES)
+def test_ln_mlp_reference_equals_its_split(dtype):
+    """Kernel C runs in bf16 as the LN pre-pass, the GEMM with the GELU
+    epilogue (h rounded to x's dtype, where the TPU kernel rounds it) and the
+    GEMM with the residual epilogue: bit for bit C's reference."""
+    x, s, b, w1, b1, w2, b2 = torch_mlp_args(mlp_inputs(np.random.RandomState(16), (3, 7, 64), 96),
+                                             dtype)
+    h = TMLP.dense_reference(TMLP.ln_rows_reference(x, s, b, 1e-6), w1, b1, "gelu")
+    assert h.dtype == dtype and h.shape == (3, 7, 96)
+    got = TMLP.dense_reference(h, w2, b2, "residual", x)
+    want = TMLP.ln_mlp_reference(x, s, b, w1, b1, w2, b2, 1e-6)
+    assert got.dtype == dtype and torch.equal(got, want)
+    h_cpu = TMLP.dense(TMLP.ln_rows(x, s, b, 1e-6), w1, b1, "gelu")
+    assert torch.equal(TMLP.dense(h_cpu, w2, b2, "residual", x), want)
+
+
+def test_ln_rows_reference_matches_jax_f64():
+    args = ln_inputs(np.random.RandomState(17), (4, 9, 48))
+    with jax.enable_x64(True):
+        want = JLN.layernorm_reference(*(jnp.asarray(a) for a in args), 1e-6)
+    got = TMLP.ln_rows_reference(*(to_torch(a) for a in args), 1e-6)
+    assert got.dtype == torch.float64
+    assert_close(got, want, 1e-9)
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "gelu", "residual"])
+def test_dense_reference_matches_jax_f64(epilogue):
+    """Each epilogue of the GEMM's plain version against the same steps in
+    JAX (its exact-erf GELU) in f64; w as flax stores it, (K, N)."""
+    rng = np.random.RandomState(18)
+    a, w, bw, res = rng.randn(5, 40), rng.randn(40, 24) / np.sqrt(40), rng.randn(24), rng.randn(5, 24)
+    with jax.enable_x64(True):
+        y = jnp.dot(jnp.asarray(a), jnp.asarray(w)) + jnp.asarray(bw)
+        want = np.asarray({"bias": y, "gelu": JMLP._gelu_exact(y),
+                           "residual": jnp.asarray(res) + y}[epilogue])
+    got = TMLP.dense_reference(to_torch(a), to_torch(w.T), to_torch(bw), epilogue,
+                               to_torch(res) if epilogue == "residual" else None)
+    assert got.dtype == torch.float64
+    assert_close(got, want, 1e-9)
+
+
+def test_dense_raises_on_an_unknown_epilogue():
+    a = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="epilogue"):
+        TMLP.dense_reference(a, torch.zeros(8, 8), torch.zeros(8), "relu")
+    with pytest.raises(ValueError, match="epilogue"):
+        TMLP.dense(a, torch.zeros(8, 8), torch.zeros(8), "relu")
+
+
 # ------------------------------------------------------------ gate + proj (E)
 
 GATE_SHAPES = [(4, 13, 32), (2, 197, 16), (3, 1, 8)]   # BT, N, C; odd and single token counts

@@ -24,11 +24,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (pins one card before torch starts)
 import torch  # noqa: E402
 
-# kind of kernel, by a piece of its name; first match wins
+# kind of kernel, by a piece of its name; first match wins. C's and D's GEMM
+# launches are told apart by their epilogue tag: BiasOnly is D, BiasGelu and
+# BiasResidual C, once E's GateBlend launch has been taken out. Their shared
+# LN pre-pass has a row of its own (C's launches of it are as many as D's on
+# every path that runs D: 12 a forward, half of them C's).
 KINDS = (
+    ("ln pre-pass (kernels C, D)", ("ln_rows_kernel",)),
     ("ln_dense (kernel D)", ("biasonly",)),
-    ("gate_proj (kernel E)", ("gateblend", "gate_alpha_kernel")),
-    ("ln_mlp (kernel C)", ("gemm_bf16_kernel<", "gemm_f32_kernel<")),
+    ("gate_proj (kernel E)", ("gateblend", "gate_alpha_kernel", "gate_proj_bf16_kernel")),
+    ("ln_mlp (kernel C)", ("biasgelu", "biasresidual")),
     ("groupnorm (kernel I)", ("groupnorm_kernel",)),
     ("blocked attention (kernel K)", ("blocked_attention",)),
     ("spatial attention (kernels F, J)", ("spatial_attention",)),
