@@ -9,8 +9,10 @@
    shapes the flagship eval forward gives it, in f32 and bf16, and times
    both, beside the least time the card could take for the same work and,
    where one PyTorch call computes the same function, that call (for LN +
-   MLP and LN + qkv, which no one call computes, their products through
-   cuBLAS as ``gemm_library_ms``).
+   MLP, LN + qkv and the attention's gated tail, which no one call
+   computes, their products through cuBLAS as ``gemm_library_ms``). The
+   tail's bf16 pieces (means, gate, blend, proj) and GroupNorm at each of
+   the stem's 12 kinds of site are timed on the device one by one.
 3. Drives the eval forward the way a user would: ``build_eval_model`` for
    the released stage-2 MAED (6 blocks, 12 heads, KTD hidden 1024) in bf16
    with seeded random weights and the synthetic 6890-vertex SMPL body, then
@@ -53,11 +55,11 @@ EVAL_BATCHES, POOL = (8, 5), 128
 # launches per block (norm2's rows, fc1, fc2), the final norm and SMPL's
 # skinning; then per block what the attention of each st_mode launches
 # (parallel: norm1's rows and the qkv product, the spatial and the temporal
-# branch, the gate and the blend + proj; coupling: norm1's rows, qkv and the
-# blocked attention; temporal: norm1 by itself)
+# branch, the tail's branch means, gate, blend and proj; coupling: norm1's
+# rows, qkv and the blocked attention; temporal: norm1 by itself)
 BLOCK_KERNELS = {
-    "parallel": ("ln_rows", "ln_dense", "spatial_attention", "temporal_attention", "gate_alpha",
-                 "gate_proj"),
+    "parallel": ("ln_rows", "ln_dense", "spatial_attention", "temporal_attention", "gate_means",
+                 "gate_alpha", "gate_blend", "gate_proj"),
     "coupling": ("ln_rows", "ln_dense", "attention_blocked"),
     "vanilla": ("ln_rows", "ln_dense", "spatial_attention"),
     "temporal": ("layernorm", "temporal_attention"),
@@ -93,6 +95,14 @@ def expect_launches(launches: dict, mode: str, forwards: int, depth: int = 6, ex
 GROUPNORM_SHAPES = ((112, 64, True), (56, 64, True), (56, 256, False), (56, 128, True),
                     (28, 128, True), (28, 512, False), (28, 256, True), (14, 256, True),
                     (14, 1024, False))
+# the 52 sites a forward: (side, channels, relu, residual, launches a forward);
+# the 16 bottlenecks' norm3 takes the shortcut as its residual, the ReLU after
+GROUPNORM_SITES = ((112, 64, True, False, 1), (56, 64, True, False, 6),
+                   (56, 256, False, False, 1), (56, 256, True, True, 3),
+                   (56, 128, True, False, 1), (28, 128, True, False, 7),
+                   (28, 512, False, False, 1), (28, 512, True, True, 4),
+                   (28, 256, True, False, 1), (14, 256, True, False, 17),
+                   (14, 1024, False, False, 1), (14, 1024, True, True, 9))
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
 # memory bytes/s, and FLOP/s of the bf16 tensor cores and of f32 outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -114,11 +124,15 @@ def card_identity() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters launches, after a warmup."""
+def time_ms(fn, iters: int, queued: bool = False) -> float:
+    """Mean device time of fn() over iters launches, after a warmup. With
+    ``queued`` the launches wait behind a sleep on the card, so that the
+    events time the kernels and not the host's work between them."""
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -178,6 +192,7 @@ def phase_kernels(device):
     skinning is f32."""
     import torch.nn.functional as F
 
+    from maed_tpu_torch import kernels
     from maed_tpu_torch.ops import attention, groupnorm, layernorm, mlp, skinning, st_attention
 
     rng = np.random.RandomState(0)
@@ -286,7 +301,29 @@ def phase_kernels(device):
                       moved=(*gargs, alpha), flops=2.0 * M * C * C + 2.0 * B * (2 * C) ** 2,
                       kind=kinds[dt], iters=10)
         record["gate_proj"] = rec
-    del gargs, alpha
+    # the bf16 pieces, each against its plain version and timed on the
+    # device: the means within one bf16 step (f32 sums in another order),
+    # alpha from the same means at 4e-3, the blend from the same alpha bit
+    # for bit, the proj GEMM at C's fc2 limits; beside them cuBLAS on the same
+    # proj product (gemm_library_ms), which no one call computes with the gate
+    ysd, ytd, xrd, wtsd, _, wpd, _ = gargs
+    means = mlp.gate_means_reference(ysd, ytd)
+    check_close("gate_means bf16", mlp.gate_means(ysd, ytd), means, 1e-6, 2.0 ** -8)
+    alpha = mlp.gate_alpha(means, wtsd, bts)
+    check_close("gate_alpha bf16", alpha, mlp.gate_alpha_reference(means, wtsd, bts), 4e-3)
+    yb = mlp.gate_blend(ysd, ytd, alpha)
+    check_close("gate_blend bf16", yb, mlp.gate_blend_reference(ysd, ytd, alpha), 0.0)
+    check_close("gate proj GEMM bf16", mlp.dense(yb, wpd, bp, "proj", xrd),
+                mlp.dense_reference(yb, wpd, bp, "proj", xrd), 5e-2, 2e-2)
+    parts = dict(means_ms=time_ms(lambda: mlp.gate_means(ysd, ytd), 20, queued=True),
+                 alpha_ms=time_ms(lambda: mlp.gate_alpha(means, wtsd, bts), 20, queued=True),
+                 blend_ms=time_ms(lambda: mlp.gate_blend(ysd, ytd, alpha), 20, queued=True),
+                 proj_ms=time_ms(lambda: mlp.dense(yb, wpd, bp, "proj", xrd), 20, queued=True),
+                 device_ms=time_ms(lambda: mlp.fused_gate_proj(*gargs), 20, queued=True),
+                 gemm_library_ms=time_ms(lambda: torch.matmul(yb, wpd.t()), 20, queued=True))
+    record["gate_proj"].update(parts)
+    print("    E on the device: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+    del gargs, alpha, means, yb, ysd, ytd, xrd
 
     # F, J (spatial) and G, H (temporal) attention on one qkv projection.
     # bf16 at 1e-2 abs + 1e-2 rel: a probability or an output (magnitudes
@@ -373,48 +410,78 @@ def phase_kernels(device):
                 lambda: attention.attention_blocked_reference(qs, ks, vs, 32 ** -0.5), atol, rtol)
     del qkv, qv, kv, vv, qc, kc, vc, qs, ks, vs
 
-    # I: GroupNorm(32, eps 1e-5), timed at four sites of the stem, in the
-    # channels-last memory layout cuDNN hands the model; then held against its
-    # plain version at every distinct shape of the 52 sites, each of which
-    # picks its own groups per block, staging and chunk width. The record is
-    # the site that F.group_norm computes too (no ReLU, no residual).
-    # bf16 at 2e-2 abs + 1e-2 rel: mul, add or an output up to ~5 rounding to
-    # the neighbouring bf16 value.
-    sites = (("stem 112x112x64 +relu", 112, 64, True, False),
-             ("stage-1 norm3 56x56x256", 56, 256, False, False),
-             ("stage-1 norm3 56x56x256 +residual +relu", 56, 256, True, True),
-             ("stage-3 norm2 14x14x256 +relu", 14, 256, True, False))
+    # I: GroupNorm(32, eps 1e-5), 128 frames in the channels-last memory
+    # layout cuDNN hands the model, inputs drawn on the card. Each of the 12
+    # kinds of site of a forward in bf16 (the cluster kernel) against its
+    # plain version, timed on the device beside its bound and F.group_norm on
+    # the same frames (the library call where the site has no residual and
+    # no ReLU); from them the 52 launches of a forward. Then each of the nine
+    # shapes with and without the residual (and the ReLU after it) in f32 (the
+    # strided kernel) and bf16, and one bf16 frame beyond the cluster kernel's
+    # shared memory (the strided kernel in bf16). bf16 at 2e-2 abs + 1e-2 rel:
+    # mul, add or an output up to ~5 rounding to the neighbouring bf16 value.
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def gn_inputs(frames, side, ch, with_res, dt):
+        x = (torch.randn(frames, side, side, ch, device=device, generator=gen) * 2 + 0.5).to(dt)
+        res = torch.randn(x.shape, device=device, generator=gen).to(dt) if with_res else None
+        return (x, torch.rand(ch, device=device, generator=gen) + 0.5,
+                torch.randn(ch, device=device, generator=gen) * 0.1, res)
+
     print("kernel I groupnorm")
-    record["groupnorm_sites"] = []
-    for name, side, ch, relu, with_res in sites:
-        x = rng.randn(B, side, side, ch).astype(np.float32) * 2 + 0.5
-        res = rng.randn(B, side, side, ch).astype(np.float32) if with_res else None
-        gs, gb = T(rng.rand(ch) + 0.5), T(rng.randn(ch) * 0.1)
-        for dt, atol, rtol in ((f32, 1e-4, 0.0), (bf16, 2e-2, 1e-2)):
-            xd, rd = T(x, dt), None if res is None else T(res, dt)
-            gargs = (xd, gs, gb, 32, 1e-5, relu, rd)
-            library = None
-            if not relu and not with_res:
-                x_nchw, gsd, gbd = xd.permute(0, 3, 1, 2), gs.to(dt), gb.to(dt)
-                library = lambda: F.group_norm(x_nchw, 32, gsd, gbd, 1e-5)  # noqa: E731
-            rec = compare(f"groupnorm {name} {dt}", lambda: groupnorm.fused_groupnorm(*gargs),
-                          lambda: groupnorm.groupnorm_reference(*gargs), atol, rtol,
-                          moved=[t for t in (xd, rd, gs, gb) if t is not None],
-                          flops=8.0 * xd.numel(), kind="f32", library=library)
-            if dt == bf16:
-                record["groupnorm_sites"].append(dict(site=name, **rec))
-                if library is not None:
-                    record["groupnorm"] = rec
-    del xd, rd, gargs
+    sites = []
+    for side, ch, relu, with_res, per in GROUPNORM_SITES:
+        x, gs, gb, res = gn_inputs(B, side, ch, with_res, bf16)
+        gargs = (x, gs, gb, 32, 1e-5, relu, res)
+        x_nchw, gsb, gbb = x.permute(0, 3, 1, 2), gs.to(bf16), gb.to(bf16)
+        library = lambda: F.group_norm(x_nchw, 32, gsb, gbb, 1e-5)  # noqa: E731
+        name = (f"{side}x{side}x{ch}" + (" +residual" if with_res else "")
+                + (" +relu" if relu else ""))
+        rec = compare(f"groupnorm {name} bf16", lambda: groupnorm.fused_groupnorm(*gargs),
+                      lambda: groupnorm.groupnorm_reference(*gargs), 2e-2, 1e-2,
+                      moved=[t for t in (x, gs, gb, res) if t is not None],
+                      flops=8.0 * x.numel(), kind="f32",
+                      library=library if not relu and not with_res else None)
+        # ms on the device (its launches queued behind a sleep: the small
+        # sites take less than the wrapper's host work), events_ms as above
+        rec.update(events_ms=rec["ms"],
+                   ms=time_ms(lambda: groupnorm.fused_groupnorm(*gargs), 20, queued=True),
+                   group_norm_ms=time_ms(library, 20, queued=True))
+        print(f"    on the device: kernel {rec['ms']:.4f} ms, "
+              f"F.group_norm {rec['group_norm_ms']:.4f}")
+        sites.append(dict(site=name, launches_per_forward=per, **rec))
+        if (side, ch, relu, with_res) == (56, 256, False, False):
+            record["groupnorm"] = dict(rec)
+        del x, res, gargs, x_nchw
+    if sum(site["launches_per_forward"] for site in sites) != per_forward("parallel")["groupnorm"]:
+        raise AssertionError("GROUPNORM_SITES do not add up to a forward's GroupNorm launches")
+    record["groupnorm"].update(
+        sites=sites,
+        forward_ms=sum(t["ms"] * t["launches_per_forward"] for t in sites),
+        forward_bound_ms=sum(t["bound_ms"] * t["launches_per_forward"] for t in sites),
+        forward_group_norm_ms=sum(t["group_norm_ms"] * t["launches_per_forward"] for t in sites))
+    print("    a forward's 52 GroupNorms: " + ", ".join(
+        f"{k} {record['groupnorm'][k]:.4f}"
+        for k in ("forward_ms", "forward_bound_ms", "forward_group_norm_ms")))
     for side, ch, relu in GROUPNORM_SHAPES:
-        x = rng.randn(B, side, side, ch).astype(np.float32) * 2 + 0.5
-        gs, gb = T(rng.rand(ch) + 0.5), T(rng.randn(ch) * 0.1)
-        for dt, atol, rtol in ((f32, 1e-4, 0.0), (bf16, 2e-2, 1e-2)):
-            gargs = (T(x, dt), gs, gb, 32, 1e-5, relu)
-            compare(f"groupnorm {side}x{side}x{ch}{' +relu' if relu else ''} {dt}",
-                    lambda: groupnorm.fused_groupnorm(*gargs),
-                    lambda: groupnorm.groupnorm_reference(*gargs), atol, rtol)
-    del gargs
+        for with_res in (False, True):
+            for dt, atol, rtol in ((f32, 1e-4, 0.0), (bf16, 2e-2, 1e-2)):
+                x, gs, gb, res = gn_inputs(B, side, ch, with_res, dt)
+                gargs = (x, gs, gb, 32, 1e-5, relu or with_res, res)
+                compare(f"groupnorm {side}x{side}x{ch}{' +residual' if with_res else ''}"
+                        f"{' +relu' if relu or with_res else ''} {dt}",
+                        lambda: groupnorm.fused_groupnorm(*gargs),
+                        lambda: groupnorm.groupnorm_reference(*gargs), atol, rtol)
+                del x, res, gargs
+    x, gs, gb, res = gn_inputs(16, 80, 256, True, bf16)
+    gargs = (x, gs, gb, 32, 1e-5, True, res)
+    before = kernels.LAUNCHES["groupnorm_strided"]
+    compare("groupnorm 80x80x256 +residual +relu bf16, 16 frames (3.2 MB a frame: strided)",
+            lambda: groupnorm.fused_groupnorm(*gargs),
+            lambda: groupnorm.groupnorm_reference(*gargs), 2e-2, 1e-2)
+    if kernels.LAUNCHES["groupnorm_strided"] != before + 1:
+        raise AssertionError("a 3.2 MB bf16 frame did not go to the strided GroupNorm kernel")
+    del x, res, gargs
     torch.cuda.synchronize()
     return record
 
@@ -750,14 +817,17 @@ def main() -> int:
         dict(name="ln_rows", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=f"{jax_ops}mlp.py:99, {jax_ops}mlp.py:157",
              launches=launches["ln_rows"], **record["ln_rows"]),
+        # the tail's four bf16 launches: the means, the gate, the blend, the proj GEMM
         dict(name="fused_gate_proj", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:272",
-             launches=launches["gate_alpha"], launches_proj=launches["gate_proj"],
+             launches=launches["gate_proj"], launches_means=launches["gate_means"],
+             launches_alpha=launches["gate_alpha"], launches_blend=launches["gate_blend"],
              **record["gate_proj"]),
+        # the cluster kernel in bf16; the strided one takes f32 and larger frames
         dict(name="fused_groupnorm", route="cuda", source=src + "csrc/groupnorm.cu",
              replaces=jax_ops + "groupnorm.py:83",
-             launches=launches["groupnorm"], **record["groupnorm"],
-             sites=record["groupnorm_sites"]),
+             launches=launches["groupnorm"], launches_strided=launches["groupnorm_strided"],
+             **record["groupnorm"]),
         dict(name="spatial_attention", route="cuda", source=src + "csrc/st_attention.cu",
              replaces=f"{jax_ops}attention.py:47, {jax_ops}st_attention.py:96",
              launches=launches["spatial_attention"], **record["spatial"]),

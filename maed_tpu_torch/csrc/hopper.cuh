@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the bf16 TMA + wgmma kernels of
 // st_attention.cu (spatial and blocked attention) and ln_mlp.cu (the dense
-// GEMM of kernels C and D).
+// GEMM of kernels C, D and E), and by groupnorm.cu's cluster kernel (bulk
+// copies, mbarriers, cluster barriers and distributed shared memory).
 //
 // Those kernels are warp-specialised: a CTA of three warpgroups, the first of
 // which only issues TMA loads (one thread, its registers given back with
@@ -301,6 +302,50 @@ __device__ __forceinline__ void bulk_wait() {
     asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
   }
 }
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global memory
+// at src into shared memory at dst, completing on the mbarrier at bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// ask for `bytes` (a multiple of 16) of global memory at src to be brought into L2
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+
+// thread-block clusters: this CTA's rank and the cluster's size, the cluster
+// barrier in its two halves (every thread of every member arrives, then waits;
+// the release / acquire order shared memory writes before the barrier against
+// reads after it), and a float of a member's shared memory at this CTA's
+// address `local` of the same variable
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_ranks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ float ld_cluster_f32(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
 // make this thread's writes to shared memory visible to TMA (the async proxy)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

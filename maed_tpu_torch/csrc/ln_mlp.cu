@@ -1,4 +1,4 @@
-// The ViT block's fused dense paths, f32 or bf16:
+// The ViT block's fused dense paths, f32 or bf16 (kernels C, D and E):
 //   the MLP half,          out = x + fc2(gelu(fc1(LayerNorm(x))))
 //   the qkv projection,    qkv = LayerNorm(x) @ Wqkv^T + b
 //   the attention's tail,  out = x + proj(y_t * a_t + y_s * a_s), with the
@@ -53,45 +53,52 @@
 //
 //   C: ln_rows, dense<BiasGelu> -> h (M x H), dense<BiasResidual> (+ x).
 //   D: ln_rows, dense<BiasOnly>.
+//   E: (below) the means, the gate and the blend, then dense<ProjResidual>.
 //
 // The attention's tail (mlp.py:272-296) reads the two branch outputs y_s and
 // y_t (BT, N, C) and the block input x, 4 x 38.7 MB in bf16 (0.046 ms at
 // 3.35 TB/s) against 30 GFLOP of proj (0.030 ms at the peak): memory bounds it.
 // The TPU kernel takes one frame per grid step, so a step has the frame's two
-// branch means, hence its gate, before it blends and projects. A 128-row GEMM
-// tile here spans frames (N = 197), and the gate needs all N rows of a frame
-// before the first blended one, so it is two launches:
+// branch means, hence its gate, before it blends and projects. A GEMM tile
+// here spans frames (N = 197), and the gate needs all N rows of a frame
+// before the first blended one, so the tail is four launches, each over the
+// whole card (kernel E, bf16, one C call, maed_gate_proj):
 //
-//   1. gate_alpha: a block per frame takes the f32 means over N of y_s and
-//      y_t (partial sums of row groups through shared memory), rounds them to
-//      the dtype, multiplies them with the (2C x 2C) gate weight (a warp per
-//      channel takes the two rows of its (spatial, temporal) logit pair; the
-//      4.7 MB weight stays in L2 across the 128 blocks), adds the f32 bias and
-//      writes the 2-way softmax, rounded, as alpha (BT, C, 2): what the TPU
-//      kernel returns as its second output.
-//   2. gate_proj: the blend y_t * a_t + y_s * a_s (each product and the sum
-//      rounded to the dtype, as mlp.py:292 in bf16) as the prologue of a GEMM
-//      on the A tile, then + f32 bias, rounded, + x. The TPU kernel's column
-//      permutation of the gate (lane-aligned slices for Mosaic) is not needed:
-//      a pair is two neighbouring rows.
+//   1. gate_means_kernel: the f32 means over N of y_s and y_t, rounded to the
+//      dtype as mlp.py:277-279 rounds them, into (BT, 2C) = [mean y_s | mean
+//      y_t] per frame. A block takes 256 channels of one branch of one frame
+//      (8 row groups of 32 16-byte columns, pooled in shared memory): 768
+//      blocks at the flagship shape, so the 77 MB are read by every SM.
+//   2. gate_alpha_bf16_kernel: the gate as one batched product, (BT, 2C) x
+//      w_ts^T + b_ts, bf16 operands and f32 accumulation with mma.sync
+//      m16n8k16 (0.6 GFLOP: the tensor cores take it in a few microseconds,
+//      where SIMT f32 would need ~10 at its peak). A block takes 64 frames x
+//      32 logits through a 4-stage cp.async ring of 128-wide k-slices, so each
+//      w_ts element comes from device memory once for every 64 frames (not
+//      once a frame). The accumulator fragment holds neighbouring columns
+//      (2c, 2c + 1) in one thread: the (spatial, temporal) pair's 2-way
+//      softmax is taken there, and alpha is written rounded as (BT, C, 2),
+//      what the TPU kernel returns as its second output.
+//   3. gate_blend_kernel: y = rnd(rnd(y_t * a_t) + rnd(y_s * a_s)), the
+//      dtype's roundings of mlp.py:292, into a bf16 (BT * N, C) buffer: like
+//      ln_rows for C and D, one pass of 16-byte chunks (116 MB moved) instead
+//      of a blend in the GEMM's A path, which TMA cannot compute.
+//   4. dense_bf16_kernel<ProjResidual>: the GEMM of C and D with the bias +
+//      residual epilogue, out = x + rnd(y @ w_p^T + b_p), the rounding of
+//      mlp.py:294-295. ProjResidual is BiasResidual's code under a tag of
+//      its own, so that a profile tells E's product from C's fc2.
 //
-// bf16 gate_proj (gate_proj_bf16_kernel): a block computes a 128 x 128 tile
-// with 8 warps, each a 64 x 32 sub-tile of nvcuda::wmma 16x16x16 bf16
-// fragments with f32 accumulators, walking K in steps of 32 through two
-// shared-memory stages: the W tile arrives by 16-byte cp.async while the
-// previous stage is multiplied, the next blended A tile is loaded into
-// registers, computed and stored to the other stage. The epilogue stages each
-// 16 x 16 accumulator through shared memory and writes 16-byte rows. Rows and
-// columns need a multiple of 8 elements.
-//
+// The TPU kernel's column permutation of the gate (lane-aligned slices for
+// Mosaic) is not needed: a pair is two neighbouring rows of w_ts.
+
 // f32 (the reference eval protocol's dtype), all three: gemm_f32_kernel, a
 // 64 x 64 tile with 128 threads, each a 4 x 8 micro-tile of scalar FMAs, no
 // TF32, with the LayerNorm (statistics of the block's rows first) or the blend
-// as the A tile's prologue.
+// as the A tile's prologue; E's means as in bf16, its gate product by
+// gate_alpha_f32_kernel (a warp a logit pair and 8 frames, SIMT f32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 #include <type_traits>
@@ -101,17 +108,17 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 // The prologues and epilogues, as types so that a profile names each launch:
 // + bias (the qkv projection), + bias then GELU (fc1), + bias then + residual
-// (fc2 and the attention's proj).
+// (fc2; ProjResidual, the same code, the attention's proj).
 struct NoPrologue {};
 struct LayerNormRows {};  // A = LayerNorm(a) over each row
 struct GateBlend {};      // A = a2 * alpha[.., 1] + a * alpha[.., 0], alpha per frame and column
 struct BiasOnly {};
 struct BiasGelu {};
 struct BiasResidual {};
+struct ProjResidual {};
 template <typename A, typename B>
 constexpr bool kSame = std::is_same<A, B>::value;
 
@@ -472,157 +479,6 @@ int launch_dense_bf16(const void* a, const void* w, const float* bias, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------- bf16: gate_proj (wmma)
-
-constexpr int BM = 128, BN = 128, BK = 32, kThreads = 256;
-constexpr int kPitch = BK + 8;  // 80-byte rows: 16-byte aligned, as wmma and cp.async need
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// out = x + (blend @ w^T + bias), blend = a2 * alpha[.., 1] + a * alpha[.., 0]:
-// row m belongs to frame m / rows_per_frame, whose gate is alpha + frame * 2K,
-// (spatial, temporal) pairs per column. Two blocks to an SM: at 256 threads
-// that caps a thread at 128 registers, where the blend would take 130-134 (a
-// few bytes spill) and leave the SM with one block, which costs a third of
-// the launch's time.
-__global__ void __launch_bounds__(kThreads, 2) gate_proj_bf16_kernel(
-    const bf16* __restrict__ a, const bf16* __restrict__ a2, const bf16* __restrict__ alpha,
-    int rows_per_frame, const bf16* __restrict__ w, const float* __restrict__ bias,
-    const bf16* __restrict__ residual, bf16* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(128) bf16 a_s[2][BM * kPitch];
-  __shared__ __align__(128) bf16 w_s[2][BN * kPitch];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
-
-  // Each thread moves 2 chunks of 8 elements of each 128 x 32 tile:
-  // chunk c = tid + i * kThreads is row c / 4, columns (c % 4) * 8 .. + 7.
-  auto load_w_async = [&](bf16* dst, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads, r = c >> 2, kc = (c & 3) * 8;
-      const bool ok = n0 + r < N && k0 + kc < K;
-      cp_async16(dst + r * kPitch + kc, ok ? w + static_cast<size_t>(n0 + r) * K + k0 + kc : w,
-                 ok);
-    }
-  };
-  uint4 a_next[2], a2_next[2];
-  auto load_a_regs = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads, r = c >> 2, kc = (c & 3) * 8;
-      const bool ok = m0 + r < M && k0 + kc < K;
-      const size_t o = static_cast<size_t>(m0 + r) * K + k0 + kc;
-      a_next[i] = ok ? *reinterpret_cast<const uint4*>(a + o) : make_uint4(0, 0, 0, 0);
-      a2_next[i] = ok ? *reinterpret_cast<const uint4*>(a2 + o) : make_uint4(0, 0, 0, 0);
-    }
-  };
-  auto store_a_blended = [&](bf16* dst, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads, r = c >> 2, kc = (c & 3) * 8, k = k0 + kc;
-      uint4 packed = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M && k < K) {
-        const bf16* xv = reinterpret_cast<const bf16*>(&a_next[i]);
-        bf16* yv = reinterpret_cast<bf16*>(&packed);
-        const bf16* tv = reinterpret_cast<const bf16*>(&a2_next[i]);
-        const uint4* gate = reinterpret_cast<const uint4*>(
-            alpha + (static_cast<size_t>((m0 + r) / rows_per_frame) * K + k) * 2);
-        const uint4 pairs[2] = {gate[0], gate[1]};  // 8 (spatial, temporal) pairs
-        const bf16* g = reinterpret_cast<const bf16*>(pairs);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const bf16 t = __float2bfloat16(__bfloat162float(tv[e]) * __bfloat162float(g[2 * e + 1]));
-          const bf16 s = __float2bfloat16(__bfloat162float(xv[e]) * __bfloat162float(g[2 * e]));
-          yv[e] = __float2bfloat16(__bfloat162float(t) + __bfloat162float(s));
-        }
-      }
-      *reinterpret_cast<uint4*>(dst + r * kPitch + kc) = packed;
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  load_w_async(w_s[0], 0);
-  load_a_regs(0);
-  store_a_blended(a_s[0], 0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  const int nk = (K + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1, nxt = cur ^ 1;
-    const bool more = kt + 1 < nk;
-    if (more) {  // stage kt + 1 while stage kt is multiplied
-      load_w_async(w_s[nxt], (kt + 1) * BK);
-      load_a_regs((kt + 1) * BK);
-      cp_async_commit();
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfrag[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], a_s[cur] + (wm * 64 + i * 16) * kPitch + kk, kPitch);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfrag[j], w_s[cur] + (wn * 32 + j * 16) * kPitch + kk, kPitch);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfrag[j], acc[i][j]);
-    }
-    if (more) {
-      store_a_blended(a_s[nxt], (kt + 1) * BK);
-      cp_async_wait_all();
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: each 16 x 16 accumulator goes through this warp's 1 KB of the
-  // (now idle) A stages; lane l then finishes row l / 2, columns (l % 2) * 8 .. + 7:
-  // + bias, rounded, + residual, rounded.
-  float* stage = reinterpret_cast<float*>(a_s[0]) + warp * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm * 64 + i * 16 + r, n = n0 + wn * 32 + j * 16 + c0;
-      if (m < M && n < N) {  // N % 8 == 0: the 8 columns are all in or all out
-        const size_t o = static_cast<size_t>(m) * N + n;
-        uint4 packed;
-        bf16* y = reinterpret_cast<bf16*>(&packed);
-        const uint4 res4 = *reinterpret_cast<const uint4*>(residual + o);
-        const bf16* res = reinterpret_cast<const bf16*>(&res4);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const bf16 v = __float2bfloat16(stage[r * 16 + c0 + e] + bias[n + e]);
-          y[e] = __float2bfloat16(__bfloat162float(res[e]) + __bfloat162float(v));
-        }
-        *reinterpret_cast<uint4*>(out + o) = packed;
-      }
-      __syncwarp();
-    }
-  }
-}
-
 // ---------------------------------------------------------------- f32
 
 constexpr int kF32Tile = 64, kF32K = 32, kF32Threads = 128;
@@ -732,9 +588,7 @@ int launch_f32(const float* a, Gate gate, const float* ln_scale, const float* ln
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------- the gate
-
-constexpr int kGateThreads = 512, kGateRowGroups = 4;
+// ------------------------------------------------- the gate (kernel E)
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Pack {
@@ -743,91 +597,264 @@ struct alignas(sizeof(T) * V) Pack {
 __device__ __forceinline__ void cast_to(float v, float& o) { o = v; }
 __device__ __forceinline__ void cast_to(float v, bf16& o) { o = __float2bfloat16(v); }
 
-// alpha (BT, C, 2) of frame blockIdx.x from y_s, y_t (BT, N, C), w_ts (2C, 2C)
-// as nn.Linear stores it and b_ts (2C) f32. Rows are walked in chunks of V
-// elements (C a multiple of V). Shared memory: kGateRowGroups x 2C partial
-// sums, then the 2C means.
-template <typename T, int V>
-__global__ void __launch_bounds__(kGateThreads) gate_alpha_kernel(
-    const T* __restrict__ ys, const T* __restrict__ yt, const T* __restrict__ w_ts,
-    const float* __restrict__ b_ts, T* __restrict__ alpha, int N, int C) {
-  extern __shared__ __align__(16) float gate_s[];
-  float* part_s = gate_s;                            // kGateRowGroups x 2C
-  float* mean_s = gate_s + kGateRowGroups * 2 * C;   // 2C: [mean y_s | mean y_t], rounded
-  using P = Pack<T, V>;
-  constexpr int kPerGroup = kGateThreads / kGateRowGroups;
-  const int tid = threadIdx.x, group = tid / kPerGroup, member = tid % kPerGroup;
-  const size_t frame = static_cast<size_t>(blockIdx.x) * N * C;
+constexpr int kMeanThreads = 256, kMeanGroups = kMeanThreads / 32;  // row groups a block
 
-  // row group g sums rows g, g + kGateRowGroups, ... of both branches
-  for (int which = 0; which < 2; ++which) {
-    const T* src = (which ? yt : ys) + frame;
-    for (int c = member * V; c < C; c += kPerGroup * V) {
-      float sum[V] = {};
+// means (BT, 2C) = [mean_n y_s | mean_n y_t] per frame in f32, rounded to T:
+// block (frame, branch, column block) takes 32 columns of V channels over
+// the N rows, row group g (a warp) the rows g, g + kMeanGroups, ...; the
+// groups' sums are pooled in shared memory in order. C a multiple of V.
+template <typename T, int V>
+__global__ void __launch_bounds__(kMeanThreads) gate_means_kernel(
+    const T* __restrict__ ys, const T* __restrict__ yt, T* __restrict__ means, int N, int C) {
+  __shared__ float part_s[kMeanGroups][32 * V];
+  using P = Pack<T, V>;
+  const int blocks_c = (C + 32 * V - 1) / (32 * V);
+  const int cb = blockIdx.x % blocks_c, which = blockIdx.x / blocks_c % 2;
+  const int frame = blockIdx.x / blocks_c / 2;
+  const int lane = threadIdx.x % 32, group = threadIdx.x / 32;
+  const int c = (cb * 32 + lane) * V;  // the thread's first channel
+  const T* src = (which ? yt : ys) + static_cast<size_t>(frame) * N * C;
+  float sum[V] = {};
+  if (c < C) {
 #pragma unroll 4
-      for (int n = group; n < N; n += kGateRowGroups) {
-        const P p = *reinterpret_cast<const P*>(src + static_cast<size_t>(n) * C + c);
+    for (int n = group; n < N; n += kMeanGroups) {
+      const P p = *reinterpret_cast<const P*>(src + static_cast<size_t>(n) * C + c);
 #pragma unroll
-        for (int e = 0; e < V; ++e) sum[e] += to_f32(p.v[e]);
-      }
-#pragma unroll
-      for (int e = 0; e < V; ++e) part_s[(group * 2 + which) * C + c + e] = sum[e];
+      for (int e = 0; e < V; ++e) sum[e] += to_f32(p.v[e]);
     }
   }
+#pragma unroll
+  for (int e = 0; e < V; ++e) part_s[group][lane * V + e] = sum[e];
   __syncthreads();
-  for (int j = tid; j < 2 * C; j += kGateThreads) {
+  for (int j = threadIdx.x; j < 32 * V; j += kMeanThreads) {
+    const int ch = cb * 32 * V + j;
+    if (ch >= C) break;
     float total = 0.f;
 #pragma unroll
-    for (int g = 0; g < kGateRowGroups; ++g) total += part_s[g * 2 * C + j];
+    for (int g = 0; g < kMeanGroups; ++g) total += part_s[g][j];
     T mean;
     cast_to(total / N, mean);
-    mean_s[j] = to_f32(mean);
-  }
-  __syncthreads();
-
-  // a warp per channel c: logits 2c (spatial) and 2c + 1 (temporal)
-  const int warp = tid / 32, lane = tid % 32;
-  for (int c = warp; c < C; c += kGateThreads / 32) {
-    const T* row = w_ts + static_cast<size_t>(2 * c) * 2 * C;
-    float ls = 0.f, lt = 0.f;
-    for (int k = lane * V; k < 2 * C; k += 32 * V) {
-      const P ws = *reinterpret_cast<const P*>(row + k);
-      const P wt = *reinterpret_cast<const P*>(row + 2 * C + k);
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        ls = fmaf(mean_s[k + e], to_f32(ws.v[e]), ls);
-        lt = fmaf(mean_s[k + e], to_f32(wt.v[e]), lt);
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      ls += __shfl_xor_sync(0xffffffffu, ls, off);
-      lt += __shfl_xor_sync(0xffffffffu, lt, off);
-    }
-    if (lane == 0) {
-      ls += b_ts[2 * c];
-      lt += b_ts[2 * c + 1];
-      const float top = fmaxf(ls, lt), es = expf(ls - top), et = expf(lt - top);
-      Pack<T, 2> pair;
-      cast_to(es / (es + et), pair.v[0]);
-      cast_to(et / (es + et), pair.v[1]);
-      *reinterpret_cast<Pack<T, 2>*>(alpha + (static_cast<size_t>(blockIdx.x) * C + c) * 2) = pair;
-    }
+    means[static_cast<size_t>(frame) * 2 * C + which * C + ch] = mean;
   }
 }
 
 template <typename T, int V>
-int launch_gate_alpha(const void* ys, const void* yt, const void* w_ts, const float* b_ts,
-                      void* alpha, int BT, int N, int C, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kGateRowGroups + 1) * 2 * C * sizeof(float);
-  auto kernel = gate_alpha_kernel<T, V>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+int launch_gate_means(const void* ys, const void* yt, void* means, int BT, int N, int C,
+                      cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(BT) * 2 * ((C + 32 * V - 1) / (32 * V));
+  gate_means_kernel<T, V><<<static_cast<unsigned>(blocks), kMeanThreads, 0, stream>>>(
+      static_cast<const T*>(ys), static_cast<const T*>(yt), static_cast<T*>(means), N, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the pair (ls, lt) of logits as its 2-way softmax (a_s, a_t)
+__device__ __forceinline__ void pair_softmax(float ls, float lt, float& as, float& at) {
+  const float top = fmaxf(ls, lt), es = expf(ls - top), et = expf(lt - top);
+  as = es / (es + et);
+  at = et / (es + et);
+}
+
+// bf16: a block of 4 warps takes kGtM frames x kGtN logits; warp w the 16
+// frames 16w .., as one m16 tile against four n8 tiles.
+constexpr int kGtThreads = 128, kGtM = 64, kGtN = 32, kGtK = 128, kGtStages = 4;
+constexpr int kGtPitch = kGtK + 8;  // 272-byte rows: the fragments' 32 loads hit 32 banks
+constexpr int kGtStage = (kGtM + kGtN) * kGtPitch;   // elements of a stage: A rows, then W rows
+constexpr int kGtBytes = kGtStages * kGtStage * 2;   // 104,448
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  const int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += a b for one m16n8k16 tile: bf16 operands, f32 accumulators. a: rows g
+// and g + 8 at k 2t, 2t + 1 (a[0], a[1]) and 2t + 8, + 9 (a[2], a[3]); b: k
+// 2t, 2t + 1 and 2t + 8, + 9 of column g; d: row g (d[0], d[1]) and g + 8
+// (d[2], d[3]) at columns 2t, 2t + 1; g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// alpha (BT, C, 2) = pair softmax of means (BT, K) x w^T + b, w (K, K) as
+// nn.Linear stores it (K = 2C; row 2c is channel c's spatial logit, 2c + 1
+// its temporal one), b (K) f32. K a multiple of 16, rows 16-byte aligned.
+__global__ void __launch_bounds__(kGtThreads) gate_alpha_bf16_kernel(
+    const bf16* __restrict__ means, const bf16* __restrict__ w, const float* __restrict__ b,
+    bf16* __restrict__ alpha, int BT, int K) {
+  extern __shared__ __align__(16) bf16 gt_s[];
+  const int m0 = blockIdx.y * kGtM, n0 = blockIdx.x * kGtN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int steps = (K + kGtK - 1) / kGtK;
+
+  // stage s: rows 0 .. kGtM - 1 are frames m0 .., the rest logits n0 .., each
+  // the 16 16-byte chunks of k-slice s (zeros past BT, K and the K logits)
+  auto load = [&](int s) {
+    const uint32_t stage = smem_u32(gt_s + (s % kGtStages) * kGtStage);
+    for (int i = tid; i < (kGtM + kGtN) * (kGtK / 8); i += kGtThreads) {
+      const int r = i / (kGtK / 8), k = s * kGtK + i % (kGtK / 8) * 8;
+      const bool a_row = r < kGtM;
+      const int row = a_row ? m0 + r : n0 + r - kGtM;
+      const bool ok = k < K && row < (a_row ? BT : K);
+      const bf16* src = (a_row ? means : w) + (ok ? static_cast<size_t>(row) * K + k : 0);
+      cp_async16(stage + (r * kGtPitch + i % (kGtK / 8) * 8) * 2, src, ok);
+    }
+  };
+  for (int s = 0; s < kGtStages - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
   }
-  kernel<<<BT, kGateThreads, smem, stream>>>(
-      static_cast<const T*>(ys), static_cast<const T*>(yt), static_cast<const T*>(w_ts), b_ts,
-      static_cast<T*>(alpha), N, C);
+  float acc[kGtN / 8][4] = {};
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kGtStages - 2>();  // stage s has landed (this thread's part) ...
+    __syncthreads();                 // ... everyone's, and stage s - 1 is done with
+    if (s + kGtStages - 1 < steps) load(s + kGtStages - 1);
+    cp_async_commit();
+    const bf16* st = gt_s + (s % kGtStages) * kGtStage;
+    const bf16* a_lo = st + (16 * warp + g) * kGtPitch + 2 * t;
+    const bf16* a_hi = a_lo + 8 * kGtPitch;
+#pragma unroll
+    for (int kk = 0; kk < kGtK; kk += 16) {
+      const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(a_lo + kk),
+                             *reinterpret_cast<const uint32_t*>(a_hi + kk),
+                             *reinterpret_cast<const uint32_t*>(a_lo + kk + 8),
+                             *reinterpret_cast<const uint32_t*>(a_hi + kk + 8)};
+#pragma unroll
+      for (int j = 0; j < kGtN / 8; ++j) {
+        const bf16* wr = st + (kGtM + 8 * j + g) * kGtPitch + 2 * t + kk;
+        mma_bf16(acc[j], a, *reinterpret_cast<const uint32_t*>(wr),
+                 *reinterpret_cast<const uint32_t*>(wr + 8));
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int C = K / 2;
+#pragma unroll
+  for (int j = 0; j < kGtN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;  // the pair's spatial logit; col + 1 its temporal
+    if (col >= K) continue;
+    const float bs = b[col], bt = b[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 16 * warp + g + 8 * h;
+      if (m >= BT) continue;
+      float as, at;
+      pair_softmax(acc[j][2 * h] + bs, acc[j][2 * h + 1] + bt, as, at);
+      *reinterpret_cast<__nv_bfloat162*>(alpha + (static_cast<size_t>(m) * C + col / 2) * 2) =
+          __floats2bfloat162_rn(as, at);
+    }
+  }
+}
+
+// f32: a warp takes logit pair c (rows 2c, 2c + 1 of w) for kGfFrames frames,
+// its lanes the k's 32 apart, one shuffle sum at the end.
+constexpr int kGfWarps = 8, kGfFrames = 8;
+
+__global__ void __launch_bounds__(kGfWarps * 32) gate_alpha_f32_kernel(
+    const float* __restrict__ means, const float* __restrict__ w, const float* __restrict__ b,
+    float* __restrict__ alpha, int BT, int C) {
+  const int lane = threadIdx.x % 32, c = blockIdx.x * kGfWarps + threadIdx.x / 32;
+  const int f0 = blockIdx.y * kGfFrames, K = 2 * C;
+  if (c >= C) return;
+  const float* ws = w + static_cast<size_t>(2 * c) * K;
+  float ls[kGfFrames] = {}, lt[kGfFrames] = {};
+  for (int k = lane; k < K; k += 32) {
+    const float a = ws[k], bt = ws[K + k];
+#pragma unroll
+    for (int f = 0; f < kGfFrames; ++f) {
+      if (f0 + f < BT) {
+        const float m = means[static_cast<size_t>(f0 + f) * K + k];
+        ls[f] = fmaf(m, a, ls[f]);
+        lt[f] = fmaf(m, bt, lt[f]);
+      }
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < kGfFrames; ++f) {
+    for (int off = 16; off > 0; off >>= 1) {
+      ls[f] += __shfl_xor_sync(0xffffffffu, ls[f], off);
+      lt[f] += __shfl_xor_sync(0xffffffffu, lt[f], off);
+    }
+  }
+  if (lane == 0) {
+    for (int f = 0; f < kGfFrames && f0 + f < BT; ++f) {
+      float* out = alpha + (static_cast<size_t>(f0 + f) * C + c) * 2;
+      pair_softmax(ls[f] + b[2 * c], lt[f] + b[2 * c + 1], out[0], out[1]);
+    }
+  }
+}
+
+int launch_gate_alpha(int is_bf16, const void* means, const void* w, const float* b, void* alpha,
+                      int BT, int C, cudaStream_t stream) {
+  if (is_bf16) {
+    if (const cudaError_t err = allow_smem<gate_alpha_bf16_kernel>(kGtBytes))
+      return static_cast<int>(err);
+    const dim3 grid((2 * C + kGtN - 1) / kGtN, (BT + kGtM - 1) / kGtM);
+    gate_alpha_bf16_kernel<<<grid, kGtThreads, kGtBytes, stream>>>(
+        static_cast<const bf16*>(means), static_cast<const bf16*>(w), b,
+        static_cast<bf16*>(alpha), BT, 2 * C);
+  } else {
+    const dim3 grid((C + kGfWarps - 1) / kGfWarps, (BT + kGfFrames - 1) / kGfFrames);
+    gate_alpha_f32_kernel<<<grid, kGfWarps * 32, 0, stream>>>(
+        static_cast<const float*>(means), static_cast<const float*>(w), b,
+        static_cast<float*>(alpha), BT, C);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kBlendThreads = 256, kBlendBlocksPerSm = 8;
+
+// y (rows, C) = rnd(rnd(y_t * a_t) + rnd(y_s * a_s)), a = alpha (BT, C, 2)
+// of row / N's frame: 16-byte chunks, chunks = rows * C / 8, walked by a
+// persistent grid.
+__global__ void __launch_bounds__(kBlendThreads) gate_blend_kernel(
+    const bf16* __restrict__ ys, const bf16* __restrict__ yt, const bf16* __restrict__ alpha,
+    bf16* __restrict__ y, int chunks, int N, int C) {
+  const int cols = C / 8;
+  for (int i = blockIdx.x * kBlendThreads + threadIdx.x; i < chunks;
+       i += gridDim.x * kBlendThreads) {
+    const int row = i / cols, c = (i - row * cols) * 8;
+    const uint4 s4 = __ldg(reinterpret_cast<const uint4*>(ys) + i);
+    const uint4 t4 = __ldg(reinterpret_cast<const uint4*>(yt) + i);
+    const uint4* gp =
+        reinterpret_cast<const uint4*>(alpha + (static_cast<size_t>(row / N) * C + c) * 2);
+    const uint4 pairs[2] = {__ldg(gp), __ldg(gp + 1)};  // 8 (spatial, temporal) pairs
+    const bf16* sv = reinterpret_cast<const bf16*>(&s4);
+    const bf16* tv = reinterpret_cast<const bf16*>(&t4);
+    const bf16* gv = reinterpret_cast<const bf16*>(pairs);
+    uint4 packed;
+    bf16* yv = reinterpret_cast<bf16*>(&packed);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float t = __bfloat162float(__float2bfloat16(__bfloat162float(tv[e]) *
+                                                        __bfloat162float(gv[2 * e + 1])));
+      const float s = __bfloat162float(__float2bfloat16(__bfloat162float(sv[e]) *
+                                                        __bfloat162float(gv[2 * e])));
+      yv[e] = __float2bfloat16(t + s);
+    }
+    reinterpret_cast<uint4*>(y)[i] = packed;
+  }
+}
+
+int launch_gate_blend(const void* ys, const void* yt, const void* alpha, void* y, int BT, int N,
+                      int C, cudaStream_t stream) {
+  const long long chunks = static_cast<long long>(BT) * N * (C / 8);
+  if (C % 8 || chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = persistent_ctas((chunks + kBlendThreads - 1) / kBlendThreads,
+                                   kBlendBlocksPerSm);
+  gate_blend_kernel<<<grid, kBlendThreads, 0, stream>>>(
+      static_cast<const bf16*>(ys), static_cast<const bf16*>(yt),
+      static_cast<const bf16*>(alpha), static_cast<bf16*>(y), static_cast<int>(chunks), N, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -841,10 +868,11 @@ extern "C" int maed_ln_rows(const void* x, const float* ln_scale, const float* l
 }
 
 // bf16 out (M, N) = epilogue(a @ w^T + bias): a (M, K), w (N, K), bias (N)
-// f32, residual (M, N) for epilogue 2; epilogue 0 is + bias, 1 + bias then
-// GELU, 2 + bias, rounded, then + residual. K and N multiples of 8, a and w
-// 16-byte aligned (a tensor map's rule), residual and out 4-byte aligned. A
-// map the encoder refuses is kTensorMapError (10000) + its CUresult.
+// f32, residual (M, N) for epilogues 2 and 3; epilogue 0 is + bias, 1 + bias
+// then GELU, 2 (C's fc2) and 3 (E's proj) + bias, rounded, then + residual.
+// K and N multiples of 8, a and w 16-byte aligned (a tensor map's rule),
+// residual and out 4-byte aligned. A map the encoder refuses is
+// kTensorMapError (10000) + its CUresult.
 extern "C" int maed_dense_bf16(int epilogue, const void* a, const void* w, const float* bias,
                                const void* residual, void* out, int M, int N, int K,
                                void* stream) {
@@ -853,6 +881,7 @@ extern "C" int maed_dense_bf16(int epilogue, const void* a, const void* w, const
     case 0: return launch_dense_bf16<BiasOnly>(a, w, bias, residual, out, M, N, K, s);
     case 1: return launch_dense_bf16<BiasGelu>(a, w, bias, residual, out, M, N, K, s);
     case 2: return launch_dense_bf16<BiasResidual>(a, w, bias, residual, out, M, N, K, s);
+    case 3: return launch_dense_bf16<ProjResidual>(a, w, bias, residual, out, M, N, K, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -879,33 +908,48 @@ extern "C" int maed_dense_f32(int epilogue, const float* a, const float* ln_scal
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The gate, launch 1 of the attention's tail. y_s, y_t (BT, N, C), w_ts
-// (2C, 2C) and alpha (BT, C, 2) in one dtype; b_ts (2C) f32. For bf16, C a
-// multiple of 8 and y_s, y_t, w_ts 16-byte aligned. (4 + 1) * 2C floats of
-// shared memory must fit the block (227 KB).
-extern "C" int maed_gate_alpha(int is_bf16, const void* y_s, const void* y_t, const void* w_ts,
-                               const float* b_ts, void* alpha, int BT, int N, int C,
-                               void* stream) {
+// E's branch means (BT, 2C) of y_s, y_t (BT, N, C), in their dtype (bf16:
+// C a multiple of 8 and 16-byte aligned rows).
+extern "C" int maed_gate_means(int is_bf16, const void* y_s, const void* y_t, void* means,
+                               int BT, int N, int C, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_gate_alpha<bf16, 8>(y_s, y_t, w_ts, b_ts, alpha, BT, N, C, s);
-  return launch_gate_alpha<float, 1>(y_s, y_t, w_ts, b_ts, alpha, BT, N, C, s);
+  if (is_bf16) return launch_gate_means<bf16, 8>(y_s, y_t, means, BT, N, C, s);
+  return launch_gate_means<float, 1>(y_s, y_t, means, BT, N, C, s);
 }
 
-// Launch 2 of the attention's tail: out = x + ((y_t * a_t + y_s * a_s) @ w_p^T
-// + b_p). y_s, y_t, x and out (BT * N, C), alpha (BT, C, 2) and w_p (C, C) in
-// one dtype; b_p (C) f32. For bf16 also alpha 16-byte aligned.
-extern "C" int maed_gate_proj(int is_bf16, const void* y_s, const void* y_t, const void* alpha,
-                              const void* w_p, const float* b_p, const void* x, void* out,
+// E's gate: alpha (BT, C, 2) from the means (BT, 2C), w_ts (2C, 2C) in one
+// dtype and b_ts (2C) f32 (bf16: C a multiple of 8, 16-byte aligned rows).
+extern "C" int maed_gate_alpha(int is_bf16, const void* means, const void* w_ts,
+                               const float* b_ts, void* alpha, int BT, int C, void* stream) {
+  return launch_gate_alpha(is_bf16, means, w_ts, b_ts, alpha, BT, C,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// E's blend, bf16: y (BT * N, C) from y_s, y_t (BT, N, C) and alpha (BT, C,
+// 2); C a multiple of 8, all 16-byte aligned, BT * N * C / 8 < 2^31.
+extern "C" int maed_gate_blend(const void* y_s, const void* y_t, const void* alpha, void* y,
+                               int BT, int N, int C, void* stream) {
+  return launch_gate_blend(y_s, y_t, alpha, y, BT, N, C, static_cast<cudaStream_t>(stream));
+}
+
+// The attention's tail, kernel E: out = x + ((y_t * a_t + y_s * a_s) @ w_p^T
+// + b_p) and alpha (BT, C, 2), from y_s, y_t, x and out (BT, N, C), w_ts
+// (2C, 2C) and w_p (C, C) in one dtype, b_ts (2C) and b_p (C) f32. means
+// (BT, 2C) in the dtype and, for bf16, y (BT * N, C) are scratch. bf16: the
+// means, the gate, the blend into y and the GEMM with the ProjResidual
+// epilogue; f32: the means, the gate and the scalar GEMM with the blend as
+// its A tile's prologue. Returns the first launch's error.
+extern "C" int maed_gate_proj(int is_bf16, const void* y_s, const void* y_t, const void* x,
+                              const void* w_ts, const float* b_ts, const void* w_p,
+                              const float* b_p, void* means, void* alpha, void* y, void* out,
                               int BT, int N, int C, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const int M = BT * N;
+  if (const int err = maed_gate_means(is_bf16, y_s, y_t, means, BT, N, C, stream)) return err;
+  if (const int err = launch_gate_alpha(is_bf16, means, w_ts, b_ts, alpha, BT, C, s)) return err;
   if (is_bf16) {
-    const dim3 grid((C + BN - 1) / BN, (M + BM - 1) / BM);
-    gate_proj_bf16_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const bf16*>(y_s), static_cast<const bf16*>(y_t),
-        static_cast<const bf16*>(alpha), N, static_cast<const bf16*>(w_p), b_p,
-        static_cast<const bf16*>(x), static_cast<bf16*>(out), M, C, C);
-    return static_cast<int>(cudaGetLastError());
+    if (const int err = launch_gate_blend(y_s, y_t, alpha, y, BT, N, C, s)) return err;
+    return launch_dense_bf16<ProjResidual>(y, w_p, b_p, x, out, M, C, C, s);
   }
   Gate gate;
   gate.a2 = static_cast<const float*>(y_t);

@@ -38,9 +38,12 @@ LAUNCHES: dict[str, int] = {
     "ln_mlp_fc1": 0,    # csrc/ln_mlp.cu, (LN +) fc1 + GELU launch
     "ln_mlp_fc2": 0,    # csrc/ln_mlp.cu, fc2 + residual launch
     "ln_dense": 0,      # csrc/ln_mlp.cu, (LN +) dense (the qkv projection)
-    "gate_alpha": 0,    # csrc/ln_mlp.cu, the attention's gate: branch means, softmax pairs
-    "gate_proj": 0,     # csrc/ln_mlp.cu, blend + proj + residual launch
-    "groupnorm": 0,     # csrc/groupnorm.cu
+    "gate_means": 0,    # csrc/ln_mlp.cu, the attention's tail (E): the branch means
+    "gate_alpha": 0,    # csrc/ln_mlp.cu, E: the gate product and its softmax pairs
+    "gate_blend": 0,    # csrc/ln_mlp.cu, E in bf16: the blend of the two branches
+    "gate_proj": 0,     # csrc/ln_mlp.cu, E: proj + residual (bf16: the dense GEMM's "proj")
+    "groupnorm": 0,     # csrc/groupnorm.cu, bf16: a cluster of CTAs a frame
+    "groupnorm_strided": 0,   # csrc/groupnorm.cu, f32 and other shapes: a block per group(s)
     "spatial_attention": 0,   # csrc/st_attention.cu, attention over tokens
     "temporal_attention": 0,  # csrc/st_attention.cu, attention over frames
     "attention_blocked": 0,   # csrc/st_attention.cu, online softmax over a clip's tokens
@@ -60,15 +63,20 @@ _SIGNATURES = {
     # epilogue, a, ln_scale, ln_bias, eps, w, bias, residual, out, M, N, K, stream
     "maed_dense_f32": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
                        _c_int, _c_int, _c_int, _c_ptr),
-    # is_bf16, y_s, y_t, w_ts, b_ts, alpha, BT, N, C, stream
-    "maed_gate_alpha": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int,
-                        _c_ptr),
-    # is_bf16, y_s, y_t, alpha, w_p, b_p, x, out, BT, N, C, stream
-    "maed_gate_proj": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,
-                       _c_int, _c_int, _c_ptr),
+    # is_bf16, y_s, y_t, means, BT, N, C, stream
+    "maed_gate_means": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr),
+    # is_bf16, means, w_ts, b_ts, alpha, BT, C, stream
+    "maed_gate_alpha": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr),
+    # y_s, y_t, alpha, y, BT, N, C, stream
+    "maed_gate_blend": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr),
+    # is_bf16, y_s, y_t, x, w_ts, b_ts, w_p, b_p, means, alpha, y, out, BT, N, C, stream
+    "maed_gate_proj": (_c_int, *(_c_ptr,) * 11, _c_int, _c_int, _c_int, _c_ptr),
     # is_bf16, x, residual, out, scale, bias, B, G, cpg, HW, eps, relu, stream
     "maed_groupnorm": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
                        _c_int, _c_int, _c_float, _c_int, _c_ptr),
+    # x, residual, out, scale, bias, B, G, C, HW, ranks, eps, relu, stream
+    "maed_groupnorm_cluster": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int,
+                               _c_int, _c_int, _c_float, _c_int, _c_ptr),
     # is_bf16, q, k, v, out, B, H, S, d, sb, sh, ss, ob, oh, os, scale, stream (both)
     "maed_spatial_attention": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
                                _c_int, _c_int, *(_c_i64,) * 6, _c_float, _c_ptr),

@@ -11,7 +11,8 @@ stem conv pads (2, 3), the stride-2 3x3 convs and the max-pool (0, 1); the
 pool pads with -inf). Convolutions stay on cuDNN through ``F.conv2d``, as the
 JAX package leaves them to XLA. Every GroupNorm goes through
 ``ops.groupnorm.fused_groupnorm`` (the CUDA kernel on the card), unless
-``plain=True`` asks for its plain version.
+``plain=True`` asks for its plain version; a bottleneck's norm3 takes the
+shortcut as its residual and the ReLU after it.
 """
 
 from __future__ import annotations
@@ -95,11 +96,18 @@ class GroupNormAct(nn.Module):
         self.num_groups, self.eps = num_groups, eps
         self.apply_act, self.dtype = apply_act, dtype
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False, residual=None,
+                relu=None) -> torch.Tensor:
+        """GroupNorm(x) (+ ``residual``, brought to x's dtype and layout),
+        then the ReLU if ``relu`` (default: ``apply_act``); each sum rounded
+        to the dtype, as the unfused relu(norm(x) + residual) rounds."""
         norm = groupnorm_reference if plain else fused_groupnorm
+        if residual is not None:
+            residual = residual.to(self.dtype).contiguous(memory_format=torch.channels_last)
+            residual = residual.permute(0, 2, 3, 1)
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        y = norm(x.permute(0, 2, 3, 1), self.weight, self.bias,
-                 self.num_groups, self.eps, self.apply_act)
+        y = norm(x.permute(0, 2, 3, 1), self.weight, self.bias, self.num_groups, self.eps,
+                 self.apply_act if relu is None else relu, residual)
         return y.permute(0, 3, 1, 2)
 
 
@@ -134,8 +142,8 @@ class Bottleneck(nn.Module):
         shortcut = x if self.downsample is None else self.downsample(x, plain)
         y = self.norm1(self.conv1(x), plain)
         y = self.norm2(self.conv2(y), plain)
-        y = self.norm3(self.conv3(y), plain)
-        return torch.relu(y + shortcut)
+        # relu(norm3(y) + shortcut), the sum and the ReLU in norm3's kernel
+        return self.norm3(self.conv3(y), plain, residual=shortcut, relu=True)
 
 
 class ResNetStage(nn.Module):

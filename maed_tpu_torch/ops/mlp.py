@@ -9,7 +9,14 @@ Counterpart of ``maed_tpu/ops/mlp.py``: ``fused_ln_mlp`` and
 split where the TPU kernels round: ``ln_rows`` (LN(x) rounded to the dtype)
 and then ``dense`` (the product with a bias, GELU or residual epilogue) once
 or twice; ``ln_rows_reference`` and ``dense_reference`` are those pieces'
-plain versions, and chained they equal the whole references bit for bit. The weights are taken as
+plain versions, and chained they equal the whole references bit for bit.
+The attention's tail is split likewise, in every dtype: ``gate_means`` (the
+branch means, rounded), ``gate_alpha`` (the gate product and its pair
+softmax), in bf16 ``gate_blend`` (the blended branches) and ``dense`` with
+the "proj" epilogue; ``gate_means_reference``, ``gate_alpha_reference``,
+``gate_blend_reference`` and ``dense_reference`` chained equal
+``gate_proj_reference`` bit for bit. ``fused_gate_proj`` launches its pieces
+from one C call. The weights are taken as
 ``nn.Linear`` stores them: w1 (H, C), w2 (C, H), w (O, C), w_ts (2C, 2C) and
 w_p (C, C), in x's dtype; the biases stay f32, as in the TPU kernels. The JAX
 package gates its MLP kernel on the weights fitting in VMEM
@@ -54,7 +61,8 @@ def ln_rows_reference(x, ln_scale, ln_bias, eps):
 
 # the epilogues of the dense GEMM: the code its C entry takes, and the count a
 # launch goes under (the kernel whose product it is)
-_EPILOGUES = {"bias": (0, "ln_dense"), "gelu": (1, "ln_mlp_fc1"), "residual": (2, "ln_mlp_fc2")}
+_EPILOGUES = {"bias": (0, "ln_dense"), "gelu": (1, "ln_mlp_fc1"), "residual": (2, "ln_mlp_fc2"),
+              "proj": (3, "gate_proj")}
 
 
 def _epilogue(epilogue):
@@ -66,14 +74,15 @@ def _epilogue(epilogue):
 def dense_reference(a, w, b, epilogue="bias", residual=None):
     """a @ w.T (w (N, K)) accumulated in promote(a.dtype, f32), + b there,
     then by ``epilogue``: "bias" rounds once to a's dtype; "gelu" takes the
-    exact-erf GELU there and rounds; "residual" rounds, then adds it to
-    ``residual`` in a's dtype."""
+    exact-erf GELU there and rounds; "residual" (C's fc2) and "proj" (E's
+    proj, the same function) round, then add it to ``residual`` in a's
+    dtype."""
     _epilogue(epilogue)
     st = torch.promote_types(a.dtype, torch.float32)
     y = _product(a, w, a.dtype) + b.to(st)
     if epilogue == "gelu":
         return _gelu_exact(y).to(a.dtype)
-    if epilogue == "residual":
+    if epilogue in ("residual", "proj"):
         return residual + y.to(a.dtype)
     return y.to(a.dtype)
 
@@ -117,6 +126,32 @@ def gate_proj_reference(y_s, y_t, x_res, w_ts, b_ts, w_p, b_p):
     y = y_t * alpha[..., 1] + y_s * alpha[..., 0]
     out = _product(y, w_p, dt) + b_p.to(st)
     return x_res + out.to(dt), alpha
+
+
+def gate_means_reference(y_s, y_t):
+    """E's first piece: (BT, 2C) = [mean y_s | mean y_t] over the N tokens
+    of y_s, y_t (BT, N, C), taken in promote(dtype, f32) and rounded to the
+    dtype, as the gate's product reads them."""
+    st = torch.promote_types(y_s.dtype, torch.float32)
+    return torch.cat([y_s.to(st).mean(dim=1), y_t.to(st).mean(dim=1)], dim=-1).to(y_s.dtype)
+
+
+def gate_alpha_reference(means, w_ts, b_ts):
+    """E's gate: alpha (BT, 1, C, 2) from the means (BT, 2C): means times
+    w_ts (2C, 2C) plus b_ts accumulated in promote(dtype, f32), read as C
+    (spatial, temporal) pairs, softmaxed per pair and rounded to the dtype."""
+    BT, K = means.shape
+    dt = means.dtype
+    st = torch.promote_types(dt, torch.float32)
+    logits = (_product(means, w_ts, dt) + b_ts.to(st)).reshape(BT, 1, K // 2, 2)
+    alpha = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return (alpha / alpha.sum(dim=-1, keepdim=True)).to(dt)
+
+
+def gate_blend_reference(y_s, y_t, alpha):
+    """E's blend: y_t * alpha[..., 1] + y_s * alpha[..., 0] in the dtype
+    (each product and the sum rounded), alpha (BT, 1, C, 2)."""
+    return y_t * alpha[..., 1] + y_s * alpha[..., 0]
 
 
 def _check_operands(name, x, expected, widths, aligned):
@@ -196,7 +231,8 @@ def ln_rows(x, ln_scale, ln_bias, eps=1e-6):
 def dense(a, w, b, epilogue="bias", residual=None):
     """:func:`dense_reference` as one CUDA launch (bf16 a, any leading
     shape, (..., K) -> (..., N)). It counts under the kernel whose product
-    the epilogue is: "bias" D, "gelu" C's fc1, "residual" C's fc2."""
+    the epilogue is: "bias" D, "gelu" C's fc1, "residual" C's fc2, "proj"
+    E's proj."""
     if a.device.type == "cpu":
         return dense_reference(a, w, b, epilogue, residual)
     _epilogue(epilogue)
@@ -206,9 +242,9 @@ def dense(a, w, b, epilogue="bias", residual=None):
     K, N = a.shape[-1], w.shape[0]
     expected = [(a, a.dtype, a.shape), (w, a.dtype, (N, K)), (b, torch.float32, (N,))]
     aligned = [a, w]
-    if epilogue == "residual":
+    if epilogue in ("residual", "proj"):
         if residual is None:
-            raise ValueError("dense: the residual epilogue needs a residual")
+            raise ValueError(f"dense: the {epilogue} epilogue needs a residual")
         expected.append((residual, a.dtype, a.shape[:-1] + (N,)))
         aligned.append(residual)
     _check_operands("dense", a, expected, widths=(K, N), aligned=aligned)
@@ -257,38 +293,104 @@ def fused_ln_dense(x, ln_scale, ln_bias, w, b, eps=1e-6):
     return out.reshape(x.shape[:-1] + (O,))
 
 
+def _check_gate(name, y_s, y_t, *others):
+    """Raise unless y_s and y_t are (BT, N, C) tensors the gate kernels
+    take, with ``others`` as (tensor, dtype, shape) beside them; returns
+    (BT, N, C)."""
+    if y_s.ndim != 3:
+        raise ValueError(f"{name}: y_s must be (BT, N, C), got {tuple(y_s.shape)}")
+    BT, N, C = y_s.shape
+    _check_operands(name, y_s, ((y_s, y_s.dtype, y_s.shape), (y_t, y_s.dtype, y_s.shape),
+                                *others),
+                    widths=(C,), aligned=[y_s, y_t] + [t for t, dt, _ in others if dt == y_s.dtype])
+    if BT == 0 or N == 0 or BT * N > 2 ** 31 - 1 or BT * N * C // 8 > 2 ** 31 - 1:
+        raise ValueError(f"{name}: {BT} frames of {N} tokens of {C} channels")
+    return BT, N, C
+
+
+def gate_means(y_s, y_t):
+    """:func:`gate_means_reference` as one CUDA launch (f32 or bf16)."""
+    if y_s.device.type == "cpu":
+        return gate_means_reference(y_s, y_t)
+    BT, N, C = _check_gate("gate_means", y_s, y_t)
+    means = torch.empty((BT, 2 * C), dtype=y_s.dtype, device=y_s.device)
+    lib = kernels.library()
+    with torch.cuda.device(y_s.device):
+        kernels.check(lib.maed_gate_means(
+            int(y_s.dtype == torch.bfloat16), y_s.data_ptr(), y_t.data_ptr(), means.data_ptr(),
+            BT, N, C, torch.cuda.current_stream().cuda_stream), "maed_gate_means")
+    kernels.LAUNCHES["gate_means"] += 1
+    return means
+
+
+def gate_alpha(means, w_ts, b_ts):
+    """:func:`gate_alpha_reference` as one CUDA launch (f32 or bf16 means
+    (BT, 2C)): in bf16 a tensor-core product with the pair softmax in its
+    epilogue."""
+    if means.device.type == "cpu":
+        return gate_alpha_reference(means, w_ts, b_ts)
+    if means.ndim != 2 or means.shape[1] % 2:
+        raise ValueError(f"gate_alpha: means must be (BT, 2C), got {tuple(means.shape)}")
+    BT, K = means.shape
+    _check_operands("gate_alpha", means, (
+        (means, means.dtype, means.shape), (w_ts, means.dtype, (K, K)),
+        (b_ts, torch.float32, (K,))), widths=(K // 2,), aligned=(means, w_ts))
+    if BT == 0:
+        raise ValueError("gate_alpha: no frames")
+    alpha = torch.empty((BT, 1, K // 2, 2), dtype=means.dtype, device=means.device)
+    lib = kernels.library()
+    with torch.cuda.device(means.device):
+        kernels.check(lib.maed_gate_alpha(
+            int(means.dtype == torch.bfloat16), means.data_ptr(), w_ts.data_ptr(),
+            b_ts.data_ptr(), alpha.data_ptr(), BT, K // 2,
+            torch.cuda.current_stream().cuda_stream), "maed_gate_alpha")
+    kernels.LAUNCHES["gate_alpha"] += 1
+    return alpha
+
+
+def gate_blend(y_s, y_t, alpha):
+    """:func:`gate_blend_reference` as one CUDA launch (bf16: in f32 the
+    GEMM blends its own A tile)."""
+    if y_s.device.type == "cpu":
+        return gate_blend_reference(y_s, y_t, alpha)
+    alpha_shape = (y_s.shape[0], 1, y_s.shape[-1], 2)
+    BT, N, C = _check_gate("gate_blend", y_s, y_t, (alpha, y_s.dtype, alpha_shape))
+    if y_s.dtype != torch.bfloat16:
+        raise ValueError("gate_blend: the kernel takes bf16 (in f32 the GEMM blends its A tile)")
+    y = torch.empty_like(y_s)
+    lib = kernels.library()
+    with torch.cuda.device(y_s.device):
+        kernels.check(lib.maed_gate_blend(
+            y_s.data_ptr(), y_t.data_ptr(), alpha.data_ptr(), y.data_ptr(), BT, N, C,
+            torch.cuda.current_stream().cuda_stream), "maed_gate_blend")
+    kernels.LAUNCHES["gate_blend"] += 1
+    return y
+
+
 def fused_gate_proj(y_s, y_t, x_res, w_ts, b_ts, w_p, b_p):
-    """:func:`gate_proj_reference` as two CUDA launches (f32 or bf16): the
-    gate alpha from the branch means, then blend, proj and residual in one
-    GEMM. y_s, y_t, x_res (BT, N, C)."""
+    """:func:`gate_proj_reference` on the card (f32 or bf16), one C call:
+    the branch means, the gate alpha, and in bf16 the blend and the TMA +
+    wgmma GEMM with the "proj" epilogue, in f32 the scalar GEMM that blends
+    its A tile. y_s, y_t, x_res (BT, N, C)."""
     if y_s.device.type == "cpu":
         return gate_proj_reference(y_s, y_t, x_res, w_ts, b_ts, w_p, b_p)
-    if y_s.ndim != 3:
-        raise ValueError(f"fused_gate_proj: y_s must be (BT, N, C), got {tuple(y_s.shape)}")
-    BT, N, C = y_s.shape
-    _check_operands("fused_gate_proj", y_s, (
-        (y_s, y_s.dtype, y_s.shape), (y_t, y_s.dtype, y_s.shape), (x_res, y_s.dtype, y_s.shape),
-        (w_ts, y_s.dtype, (2 * C, 2 * C)), (w_p, y_s.dtype, (C, C)),
-        (b_ts, torch.float32, (2 * C,)), (b_p, torch.float32, (C,))),
-        widths=(C,), aligned=(y_s, y_t, x_res, w_ts, w_p))
-    if BT == 0 or N == 0 or BT > 2 ** 31 - 1 or BT * N > 2 ** 31 - 1:
-        raise ValueError(f"fused_gate_proj: {BT} frames of {N} tokens")
-    if 5 * 2 * C * 4 > 227 * 1024:
-        raise ValueError(f"fused_gate_proj: the gate of {C} channels exceeds a block's "
-                         "shared memory (5 x 2C floats in 227 KB)")
-    is_bf16 = int(y_s.dtype == torch.bfloat16)
+    C = y_s.shape[-1]
+    BT, N, C = _check_gate("fused_gate_proj", y_s, y_t, (x_res, y_s.dtype, y_s.shape),
+                           (w_ts, y_s.dtype, (2 * C, 2 * C)), (w_p, y_s.dtype, (C, C)),
+                           (b_ts, torch.float32, (2 * C,)), (b_p, torch.float32, (C,)))
+    is_bf16 = y_s.dtype == torch.bfloat16
+    means = torch.empty((BT, 2 * C), dtype=y_s.dtype, device=y_s.device)
     alpha = torch.empty((BT, 1, C, 2), dtype=y_s.dtype, device=y_s.device)
+    y = torch.empty_like(y_s) if is_bf16 else None
     out = torch.empty_like(y_s)
     lib = kernels.library()
     with torch.cuda.device(y_s.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernels.check(lib.maed_gate_alpha(
-            is_bf16, y_s.data_ptr(), y_t.data_ptr(), w_ts.data_ptr(), b_ts.data_ptr(),
-            alpha.data_ptr(), BT, N, C, stream), "maed_gate_alpha")
-        kernels.LAUNCHES["gate_alpha"] += 1
         kernels.check(lib.maed_gate_proj(
-            is_bf16, y_s.data_ptr(), y_t.data_ptr(), alpha.data_ptr(), w_p.data_ptr(),
-            b_p.data_ptr(), x_res.data_ptr(), out.data_ptr(), BT, N, C, stream),
-            "maed_gate_proj")
-        kernels.LAUNCHES["gate_proj"] += 1
+            int(is_bf16), y_s.data_ptr(), y_t.data_ptr(), x_res.data_ptr(), w_ts.data_ptr(),
+            b_ts.data_ptr(), w_p.data_ptr(), b_p.data_ptr(), means.data_ptr(),
+            alpha.data_ptr(), None if y is None else y.data_ptr(), out.data_ptr(), BT, N, C,
+            torch.cuda.current_stream().cuda_stream), "maed_gate_proj")
+    for name in ("gate_means", "gate_alpha", "gate_blend", "gate_proj") if is_bf16 else \
+            ("gate_means", "gate_alpha", "gate_proj"):
+        kernels.LAUNCHES[name] += 1
     return out, alpha

@@ -14,6 +14,7 @@ import torch
 
 from maed_tpu_torch import kernels
 from maed_tpu_torch.core.evaluate import Evaluator
+from maed_tpu_torch.models import resnetv2 as TR
 from maed_tpu_torch.models.vit import ST_MODES, Block
 from maed_tpu_torch.ops import attention as TA
 from maed_tpu_torch.ops import groupnorm as TGN
@@ -184,30 +185,102 @@ def test_dense_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     assert kernels.LAUNCHES == launches
 
 
-@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
-                                               (torch.bfloat16, 3e-2, 2e-2)])
-@pytest.mark.parametrize("BT, N, C", [(4, 197, 768), (3, 37, 80), (5, 1, 8), (2, 130, 264)])
-def test_gate_proj_kernel(cuda, dtype, atol, rtol, BT, N, C):
-    """The attention's tail, two launches; a 128-row tile spans frames (N 37,
-    130, 197), C past a 32 step and a 128 tile (80, 264). alpha at 1e-6 (f32)
-    or one bf16 step of a probability (4e-3). The output in bf16 at 3e-2 abs
-    + 2e-2 rel: an alpha that rounds to the neighbouring bf16 value moves a
-    whole frame's blend by 2^-8 of it before the proj's sum of C terms."""
-    rng = np.random.RandomState(12)
-    args = [to_torch(a, dt).to(cuda) for a, dt in (
+# the launches of one fused_gate_proj, by dtype
+GATE_LAUNCHES = {torch.float32: ("gate_means", "gate_alpha", "gate_proj"),
+                 torch.bfloat16: ("gate_means", "gate_alpha", "gate_blend", "gate_proj")}
+
+
+def gate_inputs(rng, BT, N, C, dtype, device):
+    """y_s, y_t, x, w_ts, b_ts, w_p, b_p of the attention's tail."""
+    return [to_torch(a, dt).to(device) for a, dt in (
         (rng.randn(BT, N, C), dtype), (rng.randn(BT, N, C) + 0.3, dtype),
         (rng.randn(BT, N, C), dtype), (rng.randn(2 * C, 2 * C) / np.sqrt(2 * C), dtype),
         (rng.randn(2 * C) * 0.1, torch.float32), (rng.randn(C, C) / np.sqrt(C), dtype),
         (rng.randn(C) * 0.1, torch.float32))]
-    before = kernels.LAUNCHES["gate_alpha"], kernels.LAUNCHES["gate_proj"]
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
+                                               (torch.bfloat16, 3e-2, 2e-2)])
+@pytest.mark.parametrize("BT, N, C", [(4, 197, 768), (3, 37, 80), (5, 1, 8), (2, 130, 264),
+                                      (1, 197, 768), (128, 197, 768), (3, 197, 256),
+                                      (3, 50, 256), (65, 3, 16)])
+def test_gate_proj_kernel(cuda, dtype, atol, rtol, BT, N, C):
+    """The attention's tail, one C call of three (f32) or four (bf16)
+    launches; a 128-row GEMM tile spans frames (N 37, 50, 130, 197), C past
+    a 32 step and a 128 tile (80, 264), BT one frame, 65 and 128 (past one
+    and at two 64-frame tiles of the gate's product), the flagship shape.
+    alpha at 1e-6 (f32) or one bf16 step of a probability (4e-3). The output
+    in bf16 at 3e-2 abs + 2e-2 rel: an alpha that rounds to the neighbouring
+    bf16 value moves a whole frame's blend by 2^-8 of it before the proj's
+    sum of C terms."""
+    args = gate_inputs(np.random.RandomState(12), BT, N, C, dtype, cuda)
+    before = dict(kernels.LAUNCHES)
     got, alpha = TMLP.fused_gate_proj(*args)
     torch.cuda.synchronize()
-    assert (kernels.LAUNCHES["gate_alpha"], kernels.LAUNCHES["gate_proj"]) == \
-        (before[0] + 1, before[1] + 1)
+    assert kernels.LAUNCHES == dict(before, **{k: before[k] + 1 for k in GATE_LAUNCHES[dtype]})
     assert got.dtype == dtype and got.shape == (BT, N, C) and alpha.shape == (BT, 1, C, 2)
     want, want_alpha = TMLP.gate_proj_reference(*args)
     assert_close(alpha.float(), want_alpha.float(), 1e-6 if dtype == torch.float32 else 4e-3)
     assert_close(got.float(), want.float(), atol, rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BT, N, C", [(1, 197, 768), (3, 37, 80), (65, 197, 256),
+                                      (128, 197, 768)])
+def test_gate_pieces(cuda, dtype, BT, N, C):
+    """E's pieces one launch each against their plain versions: the means
+    within one step of the dtype (2^-8 relative in bf16: the f32 sums are
+    taken in another order), alpha from the same means at the limits of
+    test_gate_proj_kernel, the blend from the same alpha bit for bit (each
+    product and the sum rounded as the plain version rounds them), and the
+    GEMM's "proj" epilogue, counted under gate_proj, at C's fc2 limits."""
+    y_s, y_t, x, w_ts, b_ts, w_p, b_p = gate_inputs(np.random.RandomState(BT + N + C), BT, N, C,
+                                                    dtype, cuda)
+    means = TMLP.gate_means(y_s, y_t)
+    want = TMLP.gate_means_reference(y_s, y_t)
+    assert means.shape == (BT, 2 * C) and means.dtype == dtype
+    assert_close(means.float(), want.float(), 1e-6, 0.0 if dtype == torch.float32 else 2.0 ** -8)
+    alpha = TMLP.gate_alpha(want, w_ts, b_ts)
+    assert alpha.shape == (BT, 1, C, 2) and alpha.dtype == dtype
+    assert_close(alpha.float(), TMLP.gate_alpha_reference(want, w_ts, b_ts).float(),
+                 1e-6 if dtype == torch.float32 else 4e-3)
+    if dtype == torch.float32:
+        with pytest.raises(ValueError):  # in f32 the GEMM blends its own A tile
+            TMLP.gate_blend(y_s, y_t, alpha)
+        return
+    y = TMLP.gate_blend(y_s, y_t, alpha)
+    assert torch.equal(y, TMLP.gate_blend_reference(y_s, y_t, alpha))
+    before = kernels.LAUNCHES["gate_proj"]
+    got = TMLP.dense(y, w_p, b_p, "proj", x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gate_proj"] == before + 1
+    assert_close(got.float(), TMLP.dense_reference(y, w_p, b_p, "proj", x).float(),
+                 *DENSE_LIMITS["residual"])
+
+
+def test_gate_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    launches = dict(kernels.LAUNCHES)
+    bf = torch.bfloat16
+    y = torch.zeros(2, 5, 16, device=cuda, dtype=bf)
+    w_ts, b_ts = torch.zeros(32, 32, device=cuda, dtype=bf), torch.zeros(32, device=cuda)
+    with pytest.raises(ValueError):  # C = 12 is not a multiple of 8 in bf16
+        TMLP.gate_means(y[..., :12].contiguous(), y[..., :12].contiguous())
+    with pytest.raises(ValueError):  # means of an odd width
+        TMLP.gate_alpha(torch.zeros(2, 31, device=cuda, dtype=bf), w_ts, b_ts)
+    with pytest.raises(ValueError):  # a bf16 gate bias
+        TMLP.gate_alpha(torch.zeros(2, 32, device=cuda, dtype=bf), w_ts, b_ts.to(bf))
+    with pytest.raises(ValueError):  # alpha of another frame count
+        TMLP.gate_blend(y, y, torch.zeros(3, 1, 16, 2, device=cuda, dtype=bf))
+    with pytest.raises(ValueError):  # f32: the blend is the bf16 path's pre-pass
+        TMLP.gate_blend(y.float(), y.float(), torch.zeros(2, 1, 16, 2, device=cuda))
+    with pytest.raises(ValueError):  # the proj epilogue without a residual
+        TMLP.dense(y, torch.zeros(16, 16, device=cuda, dtype=bf), torch.zeros(16, device=cuda),
+                   "proj")
+    with pytest.raises(ValueError):  # C = 100 is not a multiple of 8 in bf16
+        TMLP.fused_gate_proj(*gate_inputs(np.random.RandomState(0), 2, 5, 100, bf, cuda))
+    with pytest.raises(ValueError):  # no tokens
+        TMLP.fused_gate_proj(*gate_inputs(np.random.RandomState(0), 2, 0, 16, bf, cuda))
+    assert kernels.LAUNCHES == launches
 
 
 def _channel_major(t):
@@ -231,15 +304,124 @@ def test_groupnorm_kernel(cuda, dtype, atol, rtol, shape, groups, relu, with_res
     neighbouring bf16 value."""
     rng = np.random.RandomState(9)
     C = shape[-1]
-    x = to_torch(rng.randn(*shape) * 2 + 0.5, dtype).to(cuda)
-    res = to_torch(rng.randn(*shape), dtype).to(cuda) if with_res else None
-    s, b = (to_torch(a, torch.float32).to(cuda) for a in (rng.rand(C) + 0.5, rng.randn(C) * 0.1))
-    before = kernels.LAUNCHES["groupnorm"]
+    x, res, s, b = groupnorm_inputs(rng, shape, dtype, with_res, cuda)
+    hw = int(np.prod(shape[1:-1]))
+    cluster = dtype == torch.bfloat16 and TGN.cluster_size(hw, C, groups) is not None
+    count = "groupnorm" if cluster else "groupnorm_strided"
+    before = dict(kernels.LAUNCHES)
     got = TGN.fused_groupnorm(x, s, b, groups, 1e-5, relu, res)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["groupnorm"] == before + 1
+    assert kernels.LAUNCHES == dict(before, **{count: before[count] + 1})
     assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
     want = TGN.groupnorm_reference(x, s, b, groups, 1e-5, relu, res)
+    assert_close(got.float(), want.float(), atol, rtol)
+
+
+def groupnorm_inputs(rng, shape, dtype, with_res, device):
+    """x, the residual (or None), scale and bias."""
+    C = shape[-1]
+    x = to_torch(rng.randn(*shape) * 2 + 0.5, dtype).to(device)
+    res = to_torch(rng.randn(*shape), dtype).to(device) if with_res else None
+    s, b = (to_torch(a, torch.float32).to(device) for a in (rng.rand(C) + 0.5, rng.randn(C) * 0.1))
+    return x, res, s, b
+
+
+# (shape, groups) of the cluster kernel's card test
+CLUSTER_SHAPES = [
+    ((2, 7, 9, 256), 32),    # 63 pixels: no cluster divides them
+    ((3, 5, 64), 32),        # 5 pixels: 4 CTAs take 2, 2, 1 and 0 (no cluster of 8)
+    ((2, 28, 28, 128), 32),  # the stage-2 norm2 shape at 2 frames
+    ((2, 4, 4, 2048), 32),   # 256 16-byte columns: a pass of the block is one pixel
+    ((2, 6, 6, 8), 8),       # one 16-byte column, one channel a group
+    ((2, 9, 9, 512), 8),     # 64 channels a group
+]
+
+
+@pytest.mark.parametrize("relu, with_res", [(False, False), (True, False), (True, True),
+                                            (False, True)])
+@pytest.mark.parametrize("ranks, shape, groups", [
+    (ranks, shape, groups) for shape, groups in CLUSTER_SHAPES for ranks in TGN.CLUSTERS
+    if TGN.cluster_fits(int(np.prod(shape[1:-1])), shape[-1], groups, ranks)])
+def test_groupnorm_cluster_kernel(cuda, ranks, shape, groups, relu, with_res):
+    """The bf16 cluster kernel at each cluster size that fits the shape,
+    pixels shared unevenly (or not at all) among the CTAs, at the limits of
+    test_groupnorm_kernel."""
+    hw = int(np.prod(shape[1:-1]))
+    x, res, s, b = groupnorm_inputs(np.random.RandomState(ranks + hw), shape, torch.bfloat16,
+                                    with_res, cuda)
+    before = kernels.LAUNCHES["groupnorm"]
+    got = TGN.cluster_groupnorm(x, s, b, groups, 1e-5, relu, res, ranks=ranks)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["groupnorm"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    want = TGN.groupnorm_reference(x, s, b, groups, 1e-5, relu, res)
+    assert_close(got.float(), want.float(), 2e-2, 1e-2)
+
+
+# the stem's GroupNorm sites at 224 px: (side, channels, ReLU, residual)
+STEM_GROUPNORMS = [(112, 64, True, False), (56, 64, True, False), (56, 256, False, False),
+                   (56, 256, True, True), (56, 128, True, False), (28, 128, True, False),
+                   (28, 512, False, False), (28, 512, True, True), (28, 256, True, False),
+                   (14, 256, True, False), (14, 1024, False, False), (14, 1024, True, True)]
+
+
+@pytest.mark.parametrize("site", STEM_GROUPNORMS)
+def test_groupnorm_at_the_stem_shapes(cuda, site):
+    """fused_groupnorm at every stem site, 3 frames, in bf16 (the cluster
+    kernel, at the cluster the site gets) and f32 (the strided kernel)."""
+    side, C, relu, with_res = site
+    assert TGN.cluster_size(side * side, C, 32) is not None
+    for dtype, count, atol, rtol in ((torch.bfloat16, "groupnorm", 2e-2, 1e-2),
+                                     (torch.float32, "groupnorm_strided", 1e-4, 0.0)):
+        x, res, s, b = groupnorm_inputs(np.random.RandomState(side + C), (3, side, side, C),
+                                        dtype, with_res, cuda)
+        before = kernels.LAUNCHES[count]
+        got = TGN.fused_groupnorm(x, s, b, 32, 1e-5, relu, res)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[count] == before + 1
+        assert_close(got.float(), TGN.groupnorm_reference(x, s, b, 32, 1e-5, relu, res).float(),
+                     atol, rtol)
+
+
+@pytest.mark.parametrize("shape, ranks, with_res", [
+    ((40, 56, 56, 256), 8, True),    # 8 CTAs of 196 KB: ~16 clusters resident, 2-3 frames each
+    ((100, 28, 28, 512), 8, False),  # 8 of 98 KB: several frames each
+    ((400, 28, 28, 128), 1, True),   # one CTA of 196 KB a frame: 3 frames a CTA
+    ((300, 13, 7, 1024), 4, True),   # 23 pixels a CTA, the last 22: ragged chunks
+])
+def test_groupnorm_cluster_kernel_loops_over_frames(cuda, shape, ranks, with_res):
+    """More frames than resident clusters: each persistent cluster takes
+    several, the next frame's chunks loading into the shared memory of the
+    chunks already applied."""
+    x, res, s, b = groupnorm_inputs(np.random.RandomState(shape[0]), shape, torch.bfloat16,
+                                    with_res, cuda)
+    got = TGN.cluster_groupnorm(x, s, b, 32, 1e-5, True, res, ranks=ranks)
+    want = TGN.groupnorm_reference(x, s, b, 32, 1e-5, True, res)
+    assert_close(got.float(), want.float(), 2e-2, 1e-2)
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
+                                               (torch.bfloat16, 5e-2, 2e-2)])
+def test_bottleneck_through_the_kernels(cuda, dtype, atol, rtol):
+    """A stem bottleneck with its downsample through the kernels against the
+    same block through the plain versions: four GroupNorm launches, norm3
+    with the shortcut as its residual and the ReLU. bf16 at 5e-2 abs + 2e-2
+    rel: each of the three norms before the sum may round one value to the
+    neighbouring bf16 step, which the convs carry on (outputs up to ~5)."""
+    torch.manual_seed(5)
+    block = TR.Bottleneck(64, 256, stride=2, has_downsample=True, dtype=dtype).to(cuda)
+    for p in block.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.2)
+    x = torch.randn(3, 64, 28, 28, device=cuda).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = block(x)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = block(x, plain=True)
+    assert launches == {"groupnorm" if dtype == torch.bfloat16 else "groupnorm_strided": 4}
+    assert got.shape == (3, 256, 14, 14) and got.dtype == dtype
     assert_close(got.float(), want.float(), atol, rtol)
 
 
@@ -415,7 +597,7 @@ BLOCK_LAUNCHES = {
     "temporal": {"layernorm": 1, "temporal_attention": 1},
     "coupling": {"ln_dense": 1, "attention_blocked": 1},
     "parallel": {"ln_dense": 1, "spatial_attention": 1, "temporal_attention": 1,
-                 "gate_alpha": 1, "gate_proj": 1},
+                 "gate_means": 1, "gate_alpha": 1, "gate_proj": 1},
     "series": {"ln_dense": 1, "spatial_attention": 1, "temporal_attention": 1},
 }
 
@@ -451,6 +633,8 @@ def test_block_of_every_mode_through_the_kernels(cuda, mode, dtype, atol, rtol):
             expect = dict(ln_dense=1, spatial_attention=1, ln_mlp_fc1=1, ln_mlp_fc2=1)
         if dtype == torch.bfloat16:
             expect["ln_rows"] = 1 + expect.get("ln_dense", 0)
+            if mode == "parallel":
+                expect["gate_blend"] = 1
         assert launches == expect
         assert got.shape == x.shape and got.dtype == dtype
         assert_close(got.float(), want.float(), atol, rtol)
@@ -537,6 +721,18 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # the residual in another layout
         TGN.fused_groupnorm(x, ones, zeros, 32, 1e-5, True,
                             _channel_major(torch.zeros_like(x)))
+    with pytest.raises(ValueError):  # the cluster kernel takes bf16 alone
+        TGN.cluster_groupnorm(x, ones, zeros, 32, 1e-5, True)
+    xb = x.bfloat16()
+    for ranks in (3, 32):  # a cluster of 1, 2, 4, 8 or 16 CTAs
+        with pytest.raises(ValueError):
+            TGN.cluster_groupnorm(xb, ones, zeros, 32, 1e-5, True, ranks=ranks)
+    with pytest.raises(ValueError):  # 96 channels: 12 16-byte columns
+        TGN.cluster_groupnorm(torch.zeros(2, 8, 8, 96, device=cuda, dtype=torch.bfloat16),
+                              ones.repeat(2)[:96], zeros.repeat(2)[:96], 32, 1e-5, True)
+    with pytest.raises(ValueError):  # a 3.2 MB frame: beyond 8 CTAs' shared memory
+        TGN.cluster_groupnorm(torch.zeros(1, 40, 40, 1024, device=cuda, dtype=torch.bfloat16),
+                              ones.repeat(16), zeros.repeat(16), 32, 1e-5, True)
     qkv = torch.zeros(4, 5, 3, 2, 16, device=cuda)
     with pytest.raises(ValueError):  # f16
         TST.spatial_attention(qkv.half(), 0.25)

@@ -217,8 +217,12 @@ def test_gate_proj_matches_the_pallas_kernel(interpret, BT, N, C):
     args = [a.astype(np.float32) for a in gate_proj_inputs(np.random.RandomState(13), BT, N, C)]
     with jax.default_matmul_precision("highest"):
         want, want_alpha = JMLP.fused_gate_proj(*(jnp.asarray(a) for a in args))
-    got, alpha = TMLP.fused_gate_proj(*torch_gate_proj_args(args, torch.float32))
+    targs = torch_gate_proj_args(args, torch.float32)
+    got, alpha = TMLP.fused_gate_proj(*targs)
     assert got.shape == (BT, N, C) and alpha.shape == (BT, 1, C, 2)
+    assert_close(got, want, 1e-5)
+    assert_close(alpha, want_alpha, 1e-5)
+    got, alpha = gate_proj_by_pieces(*targs)  # the pieces the kernels compute
     assert_close(got, want, 1e-5)
     assert_close(alpha, want_alpha, 1e-5)
 
@@ -229,13 +233,68 @@ def test_gate_proj_reference_matches_jax_f64(BT, N, C):
     with jax.enable_x64(True):
         want, want_alpha = JMLP.gate_proj_reference(*(jnp.asarray(a) for a in args))
         want, want_alpha = np.asarray(want), np.asarray(want_alpha)
-    got, alpha = TMLP.gate_proj_reference(*torch_gate_proj_args(args, torch.float64))
+    targs = torch_gate_proj_args(args, torch.float64)
+    got, alpha = TMLP.gate_proj_reference(*targs)
     assert got.dtype == torch.float64 and alpha.dtype == torch.float64
+    assert_close(got, want, 1e-9)
+    assert_close(alpha, want_alpha, 1e-9)
+    got, alpha = gate_proj_by_pieces(*targs)
     assert_close(got, want, 1e-9)
     assert_close(alpha, want_alpha, 1e-9)
 
 
+def gate_proj_by_pieces(y_s, y_t, x, w_ts, b_ts, w_p, b_p):
+    """E's plain pieces chained as the bf16 kernels run them: the branch
+    means, the gate, the blend, the proj with the residual."""
+    alpha = TMLP.gate_alpha(TMLP.gate_means(y_s, y_t), w_ts, b_ts)
+    y = TMLP.gate_blend(y_s, y_t, alpha)
+    return TMLP.dense(y, w_p, b_p, "proj", x), alpha
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BT, N, C", GATE_SHAPES)
+def test_gate_proj_pieces_equal_the_reference(dtype, BT, N, C):
+    """The pieces' plain versions (what the wrappers run for a CPU tensor)
+    chained equal gate_proj_reference bit for bit: they round where it
+    does."""
+    args = torch_gate_proj_args(gate_proj_inputs(np.random.RandomState(15), BT, N, C), dtype)
+    got, alpha = gate_proj_by_pieces(*args)
+    want, want_alpha = TMLP.gate_proj_reference(*args)
+    assert got.dtype == dtype and alpha.shape == (BT, 1, C, 2)
+    assert torch.equal(got, want) and torch.equal(alpha, want_alpha)
+    means = TMLP.gate_means_reference(args[0], args[1])
+    assert means.shape == (BT, 2 * C) and means.dtype == dtype
+    assert torch.equal(TMLP.gate_alpha_reference(means, args[3], args[4]), want_alpha)
+
+
 # ------------------------------------------------------------- GroupNorm (I)
+
+# the stem's GroupNorm shapes at 224 px (side, channels) and the cluster each
+# takes in the bf16 kernel
+STEM_CLUSTERS = [((112, 64), 8), ((56, 64), 2), ((56, 256), 8), ((56, 128), 4),
+                 ((28, 128), 2), ((28, 512), 4), ((28, 256), 2), ((14, 256), 2),
+                 ((14, 1024), 2)]
+
+
+@pytest.mark.parametrize("site, ranks", STEM_CLUSTERS)
+def test_groupnorm_cluster_size_at_the_stem_shapes(site, ranks):
+    """The cluster kernel takes every stem site: the fewest CTAs, at least
+    2, whose shares of the frame fit in shared memory."""
+    side, C = site
+    hw = side * side
+    assert TGN.cluster_size(hw, C, 32) == ranks
+    assert TGN.cluster_fits(hw, C, 32, ranks)
+    assert TGN.cluster_smem(32, C, ranks, -(-hw // ranks)) <= 232448
+    assert not any(TGN.cluster_fits(hw, C, 32, r) for r in TGN.CLUSTERS if 2 <= r < ranks)
+
+
+@pytest.mark.parametrize("hw, C, groups", [(6400, 256, 32), (1600, 1024, 32), (49, 96, 32),
+                                           (49, 64, 128), (49, 4096, 32), (49, 60, 30)])
+def test_groupnorm_cluster_size_declines(hw, C, groups):
+    """Frames the cluster kernel does not take go to the strided kernel: a
+    3.2 MB frame (beyond 8 CTAs), 12 or 512 16-byte columns, 128 groups,
+    widths not a multiple of 8."""
+    assert TGN.cluster_size(hw, C, groups) is None
 
 GN_SHAPES = [((2, 9, 9, 64), 32),    # 2 channels a group, odd side
              ((3, 5, 7, 32), 32),    # 1 channel a group

@@ -127,6 +127,36 @@ def test_bottleneck_matches_jax_f64():
     assert_close(got, want, ATOL64)
 
 
+def unfused_bottleneck(block, x):
+    """relu(norm3(y) + shortcut) as separate ops: the JAX model's order, and
+    the port's before the sum and the ReLU went into norm3's kernel."""
+    shortcut = x if block.downsample is None else block.downsample(x)
+    y = block.norm1(block.conv1(x))
+    y = block.norm2(block.conv2(y))
+    return torch.relu(block.norm3(block.conv3(y)) + shortcut)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_bottleneck_residual_fused_into_norm3_is_exact(dtype, depth):
+    """A Bottleneck (depth 1) and a 2-block ResNetStage, whose norm3 takes
+    the shortcut as its residual and the ReLU after it, equal the unfused
+    relu(norm3(y) + shortcut) bit for bit: both round norm3's output and
+    then the sum to the dtype."""
+    torch.manual_seed(depth)
+    stage = TR.ResNetStage(64, 128, depth, 2, dtype=dtype).to(
+        torch.float64 if dtype == torch.float64 else torch.float32)
+    for p in stage.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.3)
+    x = torch.randn(2, 64, 11, 11, dtype=torch.float64).to(dtype)
+    want = x
+    for block in stage.blocks:
+        want = unfused_bottleneck(block, want)
+    got = stage.blocks[0](x) if depth == 1 else stage(x)
+    assert got.dtype == dtype and got.shape == (2, 128, 6, 6)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("seqlen", [1, 2])
 def test_block_matches_jax_f64(seqlen):
     """A parallel-attention block; seqlen 1 takes the temporal shortcut."""

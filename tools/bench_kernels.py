@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Time the flagship's bf16 kernels C, D, E, F/J and K, each checkout in turn.
+"""Time the flagship's bf16 kernels C, D, E, F/J, I and K, each checkout in turn.
 
     python3 tools/bench_kernels.py [tree ...]
 
 For each tree (a checkout of this repository; default: this one), in the
 order given, in one process each: build its kernels, print ptxas' register
-and spill lines of the TMA kernels and of the dense GEMM, then time on the
-card, with CUDA events over the same inputs, through the public entry points
-that every tree since the port began has:
+and spill lines of the TMA kernels, the dense GEMM, the gate and GroupNorm
+kernels, then time on the card, with CUDA events over the same inputs,
+through the public entry points that every tree since the port began has:
 
 - C: ``fused_ln_mlp`` at (25216, 768), hidden 3072; D: ``fused_ln_dense``
-  at the qkv width 2304; E: ``fused_gate_proj`` at (128, 197, 768);
+  at the qkv width 2304; E: ``fused_gate_proj`` at (128, 197, 768), also
+  on the device (its calls queued behind a sleep on the card, so that the
+  events time the kernels and not the host's launches);
 - where the tree has them, C's and D's pieces: the LN pre-pass ``ln_rows``
-  (its calls queued behind a sleep on the card, so that the events time the
-  kernel and not the host's launches) and each GEMM launch alone, ``dense``
-  as fc1, fc2 and the qkv product;
+  (on the device) and each GEMM launch alone, ``dense`` as fc1, fc2 and the
+  qkv product; E's pieces on the device: ``gate_means``, ``gate_alpha``,
+  ``gate_blend`` and ``dense`` as "proj", beside cuBLAS on the same proj
+  product;
+- I: ``fused_groupnorm`` on the device at the stem's 12 kinds of site (the
+  nine shapes, three of them also with the residual and ReLU of a
+  bottleneck's norm3), 128 frames channels-last, beside ``F.group_norm`` on
+  the same frames where the site has no residual and no ReLU; where the tree
+  has ``cluster_groupnorm``, each site again at every cluster size that fits;
 - F/J: ``spatial_attention_btc`` on a (128, 197, 3, 12, 64) projection,
   against ``scaled_dot_product_attention`` on its (B, h, S, d) views;
 - K: ``fused_attention`` on the coupling views (8, 12, 3152, 64) of the same
@@ -39,7 +47,7 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
 import torch.nn.functional as F
 from maed_tpu_torch import kernels
-from maed_tpu_torch.ops import attention, mlp, st_attention
+from maed_tpu_torch.ops import attention, groupnorm, mlp, st_attention
 
 t0 = time.perf_counter()
 lib = kernels.build()
@@ -47,7 +55,8 @@ build_s = time.perf_counter() - t0
 log = lib.with_suffix(".log").read_text().splitlines()
 for i, line in enumerate(log):
     entry = re.search(r"entry function '(\w+)'", line)
-    if entry and re.search(r"tma_kernel|dense_bf16|gemm_bf16|gate_proj_bf16|ln_rows", entry.group(1)):
+    if entry and re.search(r"tma_kernel|dense_bf16|gemm_bf16|gate_|ln_rows|groupnorm",
+                           entry.group(1)):
         print(f"  ptxas {entry.group(1)}:", " | ".join(x.strip() for x in log[i + 2:i + 4]))
 
 def ms(fn, iters=20):
@@ -106,7 +115,46 @@ ys, yt, xr = (T(rng.randn(128, 197, C), bf) for _ in range(3))
 wts, bts = T(rng.randn(2 * C, 2 * C) / np.sqrt(2 * C), bf), T(rng.randn(2 * C) * 0.1)
 wp, bp = T(rng.randn(C, C) / np.sqrt(C), bf), T(rng.randn(C) * 0.1)
 out["gate_proj_ms"] = ms(lambda: mlp.fused_gate_proj(ys, yt, xr, wts, bts, wp, bp))
+out["gate_proj_device_ms"] = device_ms(lambda: mlp.fused_gate_proj(ys, yt, xr, wts, bts, wp, bp))
+if hasattr(mlp, "gate_means"):  # the trees that split E into its pieces
+    means = mlp.gate_means(ys, yt)
+    alpha = mlp.gate_alpha(means, wts, bts)
+    yb = mlp.gate_blend(ys, yt, alpha)
+    out["gate_means_device_ms"] = device_ms(lambda: mlp.gate_means(ys, yt))
+    out["gate_alpha_device_ms"] = device_ms(lambda: mlp.gate_alpha(means, wts, bts))
+    out["gate_blend_device_ms"] = device_ms(lambda: mlp.gate_blend(ys, yt, alpha))
+    out["gate_gemm_device_ms"] = device_ms(lambda: mlp.dense(yb, wp, bp, "proj", xr))
+    out["gate_gemm_library_ms"] = device_ms(lambda: torch.matmul(yb, wp.t()))
+    del means, alpha, yb
 del x, ys, yt, xr
+
+# I: the stem's sites, 128 frames (side, channels, ReLU, residual)
+sites = ((112, 64, True, False), (56, 64, True, False), (56, 256, False, False),
+         (56, 256, True, True), (56, 128, True, False), (28, 128, True, False),
+         (28, 512, False, False), (28, 512, True, True), (28, 256, True, False),
+         (14, 256, True, False), (14, 1024, False, False), (14, 1024, True, True))
+gen = torch.Generator(device=dev).manual_seed(0)
+gn, sweep = {}, {}
+for side, ch, relu, with_res in sites:
+    name = f"{side}x{side}x{ch}" + (" +res" if with_res else "") + (" +relu" if relu else "")
+    xg = (torch.randn(128, side, side, ch, device=dev, generator=gen) * 2 + 0.5).to(bf)
+    rg = torch.randn(128, side, side, ch, device=dev, generator=gen).to(bf) if with_res else None
+    gs = torch.rand(ch, device=dev, generator=gen) + 0.5
+    gb = torch.randn(ch, device=dev, generator=gen) * 0.1
+    gn[name] = device_ms(lambda: groupnorm.fused_groupnorm(xg, gs, gb, 32, 1e-5, relu, rg))
+    if not relu and not with_res:
+        xn, gsb, gbb = xg.permute(0, 3, 1, 2), gs.to(bf), gb.to(bf)
+        gn[name + " F.group_norm"] = device_ms(lambda: F.group_norm(xn, 32, gsb, gbb, 1e-5))
+    if hasattr(groupnorm, "cluster_groupnorm"):
+        sweep[name] = {}
+        for ranks in groupnorm.CLUSTERS:
+            if groupnorm.cluster_fits(side * side, ch, 32, ranks):
+                sweep[name][ranks] = device_ms(lambda: groupnorm.cluster_groupnorm(
+                    xg, gs, gb, 32, 1e-5, relu, rg, ranks=ranks))
+    del xg, rg
+out["groupnorm_device_ms"] = gn
+if sweep:
+    out["groupnorm_cluster_sweep_device_ms"] = sweep
 qkv = T(rng.randn(128, 197, 3, 12, 64), bf)
 q4, k4, v4 = (a.transpose(1, 2) for a in qkv.unbind(2))
 att = 64 ** -0.5

@@ -24,17 +24,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (pins one card before torch starts)
 import torch  # noqa: E402
 
-# kind of kernel, by a piece of its name; first match wins. C's and D's GEMM
-# launches are told apart by their epilogue tag: BiasOnly is D, BiasGelu and
-# BiasResidual C, once E's GateBlend launch has been taken out. Their shared
-# LN pre-pass has a row of its own (C's launches of it are as many as D's on
-# every path that runs D: 12 a forward, half of them C's).
+# kind of kernel, by a piece of its name; first match wins. C's, D's and E's
+# GEMM launches are told apart by their epilogue tag: BiasOnly is D,
+# ProjResidual (bf16) and the f32 GEMM's GateBlend prologue E, BiasGelu and
+# BiasResidual C. E's means, gate and blend kernels go with its GEMM (and an
+# older tree's gate_alpha_kernel and wmma gate_proj_bf16_kernel). The LN
+# pre-pass of C and D has a row of its own (C's launches of it are as many as
+# D's on every path that runs D: 12 a forward, half of them C's).
 KINDS = (
     ("ln pre-pass (kernels C, D)", ("ln_rows_kernel",)),
     ("ln_dense (kernel D)", ("biasonly",)),
-    ("gate_proj (kernel E)", ("gateblend", "gate_alpha_kernel", "gate_proj_bf16_kernel")),
+    ("gate_proj (kernel E)", ("projresidual", "gateblend", "gate_means_kernel", "gate_alpha_",
+                              "gate_blend_kernel", "gate_proj_bf16_kernel")),
     ("ln_mlp (kernel C)", ("biasgelu", "biasresidual")),
-    ("groupnorm (kernel I)", ("groupnorm_kernel",)),
+    ("groupnorm (kernel I)", ("groupnorm_cluster_kernel", "groupnorm_kernel")),
     ("blocked attention (kernel K)", ("blocked_attention",)),
     ("spatial attention (kernels F, J)", ("spatial_attention",)),
     ("temporal attention (kernels G, H)", ("temporal_attention",)),
@@ -47,6 +50,8 @@ KINDS = (
     ("copy / cat / index", ("copy", "cat", "index", "gather", "scatter", "transpose")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
+# kinds whose kernels are listed one by one, beside the top kernels
+LISTED = ("gate_proj (kernel E)", "groupnorm (kernel I)", "elementwise")
 
 
 def kind_of(name: str) -> str:
@@ -111,6 +116,11 @@ def main() -> int:
     print("top kernels (device ms per request, launches per request):")
     for ms, count, name in rows[:25]:
         print(f"  {ms:9.3f} ms  x{count:<4d} {name[:110]}")
+    for kind in LISTED:
+        print(f"{kind}, every kernel (device ms per request, launches per request):")
+        for ms, count, name in rows:
+            if kind_of(name) == kind:
+                print(f"  {ms:9.3f} ms  x{count:<4d} {name[:160]}")
     if args.trace:
         os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
         prof.export_chrome_trace(args.trace)
