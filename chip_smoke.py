@@ -11,8 +11,9 @@
    where one PyTorch call computes the same function, that call (for LN +
    MLP, LN + qkv and the attention's gated tail, which no one call
    computes, their products through cuBLAS as ``gemm_library_ms``). The
-   tail's bf16 pieces (means, gate, blend, proj) and GroupNorm at each of
-   the stem's 12 kinds of site are timed on the device one by one.
+   tail's bf16 pieces (means, gate, blend, proj), GroupNorm at each of the
+   stem's 12 kinds of site, the temporal attention in both layouts and the
+   skinning are also timed on the device, their launches queued.
 3. Drives the eval forward the way a user would: ``build_eval_model`` for
    the released stage-2 MAED (6 blocks, 12 heads, KTD hidden 1024) in bf16
    with seeded random weights and the synthetic 6890-vertex SMPL body, then
@@ -218,6 +219,10 @@ def phase_kernels(device):
         "skinning f32", lambda: skinning.skinning(*args),
         lambda: skinning.skinning_reference(*args), 1e-5, 0.0, moved=args,
         flops=B * NUM_VERTS * (24 * 12 * 2 + 24), kind="f32", iters=50)
+    # on the device (its launches queued behind a sleep: events time the
+    # wrapper's host work at this size), ms above by events
+    record["skinning"]["device_ms"] = time_ms(lambda: skinning.skinning(*args), 50, queued=True)
+    print(f"    on the device: kernel {record['skinning']['device_ms']:.4f} ms")
 
     # B: layernorm, bf16 (the serving dtype) and f32.
     x = rng.randn(M, C) * 2 + 0.5
@@ -362,12 +367,31 @@ def phase_kernels(device):
         record["temporal"] = rec
         compare(f"temporal (h, BT, N, d) {dt}", lambda: st_attention.temporal_attention(qkv, SEQLEN, att),
                 lambda: st_attention.temporal_reference(qkv, SEQLEN, att), atol, rtol)
+        # both layouts and the library call on the device, the launches
+        # queued behind a sleep, beside the events' ms above
+        dev = dict(device_ms=time_ms(
+            lambda: st_attention.temporal_attention_fused(qkv, SEQLEN, att), 20, queued=True),
+            device_ms_head_leading=time_ms(
+                lambda: st_attention.temporal_attention(qkv, SEQLEN, att), 20, queued=True),
+            library_device_ms=time_ms(
+                lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=att), 20, queued=True))
+        rec.update(dev)
+        print("    on the device: " + ", ".join(f"{k} {v:.4f}" for k, v in dev.items()))
         # st_mode temporal hands the kernel the projection of one mean token a frame
         qkv1 = T(qkv_np.mean(axis=1, keepdims=True) * np.sqrt(N), dt)
         compare(f"temporal (BT, 1, C), one token a frame {dt}",
                 lambda: st_attention.temporal_attention_fused(qkv1, SEQLEN, att),
                 lambda: st_attention.temporal_reference_btc(qkv1, SEQLEN, att), atol, rtol)
-    del qkv, qkv1, q4, k4, v4, q5, k5, v5
+        # 32 frames (two 16-row tiles) at a head dim of 24 (padded to 32 in bf16)
+        qkv32 = T(rng.randn(64, 5, 3, 3, 24), dt)
+        for label, kern, plain in (
+                ("(BT, N, C)", st_attention.temporal_attention_fused,
+                 st_attention.temporal_reference_btc),
+                ("(h, BT, N, d)", st_attention.temporal_attention,
+                 st_attention.temporal_reference)):
+            compare(f"temporal {label}, T 32, d 24 {dt}", lambda: kern(qkv32, 32, 24 ** -0.5),
+                    lambda: plain(qkv32, 32, 24 ** -0.5), atol, rtol)
+    del qkv, qkv1, qkv32, q4, k4, v4, q5, k5, v5
 
     # K: blocked attention over the T * N tokens of a clip (st_mode coupling),
     # through fused_attention's dispatch. q, k, v are in-place views of the

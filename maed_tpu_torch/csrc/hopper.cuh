@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the bf16 TMA + wgmma kernels of
 // st_attention.cu (spatial and blocked attention) and ln_mlp.cu (the dense
-// GEMM of kernels C, D and E), and by groupnorm.cu's cluster kernel (bulk
-// copies, mbarriers, cluster barriers and distributed shared memory).
+// GEMM of kernels C, D and E), by groupnorm.cu's cluster kernel (bulk
+// copies, mbarriers, cluster barriers and distributed shared memory), and the
+// mma.sync / ldmatrix / cp.async tools of E's gate and the temporal attention.
 //
 // Those kernels are warp-specialised: a CTA of three warpgroups, the first of
 // which only issues TMA loads (one thread, its registers given back with
@@ -267,6 +268,48 @@ struct Wgmma<256> {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The warp-level tools of the small products (E's gate, the temporal
+// attention): 16-byte cp.async copies, ldmatrix and mma.sync m16n8k16.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  const int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += a b for one m16n8k16 tile: bf16 operands, f32 accumulators. a: rows g
+// and g + 8 at k 2t, 2t + 1 (a[0], a[1]) and 2t + 8, + 9 (a[2], a[3]); b: k
+// 2t, 2t + 1 and 2t + 8, + 9 of column g; d: row g (d[0], d[1]) and g + 8
+// (d[2], d[3]) at columns 2t, 2t + 1; g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices from shared memory, lanes 8i .. 8i + 7 giving the
+// row addresses of matrix i (16 bytes each); lane l gets row l / 4, columns
+// 2(l % 4) and + 1 of each (with .trans: column l / 4, rows 2(l % 4) and + 1)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 // one box of a 2D tensor map at (c0, c1) (innermost first) into shared memory

@@ -661,30 +661,6 @@ constexpr int kGtPitch = kGtK + 8;  // 272-byte rows: the fragments' 32 loads hi
 constexpr int kGtStage = (kGtM + kGtN) * kGtPitch;   // elements of a stage: A rows, then W rows
 constexpr int kGtBytes = kGtStages * kGtStage * 2;   // 104,448
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
-  const int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// d += a b for one m16n8k16 tile: bf16 operands, f32 accumulators. a: rows g
-// and g + 8 at k 2t, 2t + 1 (a[0], a[1]) and 2t + 8, + 9 (a[2], a[3]); b: k
-// 2t, 2t + 1 and 2t + 8, + 9 of column g; d: row g (d[0], d[1]) and g + 8
-// (d[2], d[3]) at columns 2t, 2t + 1; g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // alpha (BT, C, 2) = pair softmax of means (BT, K) x w^T + b, w (K, K) as
 // nn.Linear stores it (K = 2C; row 2c is channel c's spatial logit, 2c + 1
 // its temporal one), b (K) f32. K a multiple of 16, rows 16-byte aligned.

@@ -14,7 +14,8 @@
 //       `_attention_oneshot`, public entry `fused_attention`, S <= 1024)
 //     maed_tpu/ops/st_attention.py::_spatial_kernel (pallas_call in
 //       `_spatial_pallas`, public entry `spatial_attention`)
-//   maed_temporal_attention (temporal_attention_kernel)
+//   maed_temporal_attention (temporal_attention_mma_kernel in bf16,
+//   temporal_attention_f32_kernel in f32)
 //     maed_tpu/ops/st_attention.py::_temporal_kernel (pallas_call in
 //       `_temporal_pallas`, public entry `temporal_attention`)
 //     maed_tpu/ops/st_attention.py::_temporal_v2_kernel (pallas_call in
@@ -65,13 +66,33 @@
 // floats a row), then the values pass through the same tile buffer and a lane
 // accumulates output columns lane, lane + 32, ... of its 4 rows.
 //
-// Temporal: one warp per (clip, token, head). Its T x d q, k and v rows lie
-// N * 3C elements apart in the qkv tensor (128-byte rows in bf16 at d 64, read
-// as 16-byte chunks); they go to the warp's shared memory as f32, the T x T
-// scores are formed there, softmaxed row by row, and multiplied into v. The
-// TPU kernels' stacking of 8 tokens into one masked (8T, 8T) product, the
-// head-pair lane masks and the `lo` operand exist for the MXU and are not
-// carried over.
+// Temporal, bf16 (temporal_attention_mma_kernel): bound by bytes. At the
+// flagship shape it reads the 116 MB qkv and writes 39 MB, 0.046 ms at 3.35
+// TB/s; its products are 1.2 GFLOP, about 1 us on the tensor cores. A work
+// item is (clip, token, a group of up to 4 heads): 3 x T rows of d elements a
+// head (at the flagship a token's heads lie side by side in a frame, 1.5 KB
+// of q, of k and of v). Persistent CTAs of one warp a head copy the next
+// item's rows with cp.async (16 bytes a thread; every row padded by 16 bytes
+// so that ldmatrix's 8 rows hit 8 bank groups; zeros past T, d and H) into
+// one of two stages while the warps attend on the item in the other, all in
+// bf16. A warp forms S = q k^T as one m16 tile (two for T > 16) on mma.sync
+// m16n8k16, takes the softmax in the accumulators (a quad of lanes holds a
+// row: max and sum by two shuffles, keys past T at -inf), feeds p, rounded
+// to bf16, from those registers as the A operand of p v (v through
+// ldmatrix.trans), and stores the bf16 output through its own q rows as
+// 16-byte vectors. cp.async rather than TMA: a head's rows are 16-byte
+// granular at any stride and the padding is per row. mma.sync rather than
+// wgmma: wgmma's tiles have 64 rows and a head has 16 (or 32) frames, so
+// filling them would stack 4 tokens into one block-diagonal tile, 4x the
+// products for a kernel that the bytes bound. That stacking (NB tokens in
+// one masked (NB T, NB T) product) is what the TPU kernels did to fill the
+// 128 x 128 MXU, with the head-pair lane masks and the `lo` operand to keep
+// their loads lane-aligned; none of it is carried over.
+//
+// Temporal, f32 (the reference protocol's dtype; temporal_attention_f32_kernel):
+// one warp per (clip, token, head), its q, k and v rows as f32 in the warp's
+// shared memory, the T x T scores formed there, softmaxed row by row and
+// multiplied into v on the CUDA cores.
 //
 // Rounding points as the Pallas bodies: f32 scores from x-dtype operands, times
 // scale, f32 softmax (exp(s - max) / sum), p rounded to v's dtype, f32
@@ -91,13 +112,10 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
 
 // 16 bytes of T
 template <typename T>
@@ -1175,6 +1193,8 @@ int launch_blocked_f32(const void* q, const void* k, const void* v, void* out, i
 
 // ---------------------------------------------------------------- temporal
 
+// f32 (the reference protocol's dtype): one warp per (clip g, token n, head
+// h), h fastest, its T x d q, k and v rows as f32 in the warp's shared memory.
 constexpr int kTpWarps = 4;
 
 // floats of shared memory one warp needs: q and k at d + 1 a row, v at d, p at T + 1
@@ -1182,13 +1202,12 @@ __host__ __device__ constexpr int temporal_warp_floats(int T, int d) {
   return 2 * T * (d + 1) + T * d + T * (T + 1);
 }
 
-// One warp per (clip g, token n, head h), h fastest. Frame t of that triple is
-// row q + (g * T + t) * s_frame + n * s_token + h * s_head (k and v alike),
-// and its output row out + (g * T + t) * o_frame + n * o_token + h * o_head.
-template <typename T>
-__global__ void __launch_bounds__(kTpWarps * 32) temporal_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int G, int frames, int N, int H, int d, long long s_frame,
+// Frame t of the triple (g, n, h) is row q + (g * T + t) * s_frame + n * s_token
+// + h * s_head (k and v alike), and its output row out + (g * T + t) * o_frame
+// + n * o_token + h * o_head.
+__global__ void __launch_bounds__(kTpWarps * 32) temporal_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, int G, int frames, int N, int H, int d, long long s_frame,
     long long s_token, long long s_head, long long o_frame, long long o_token,
     long long o_head, float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -1203,21 +1222,21 @@ __global__ void __launch_bounds__(kTpWarps * 32) temporal_attention_kernel(
   float* p_s = v_s + frames * d;                               // frames x (frames + 1)
 
   const long long in0 = static_cast<long long>(g) * frames * s_frame + n * s_token + h * s_head;
-  {  // every lane takes 16-byte chunks of q, k and v: frames * d / kN of each
-    constexpr int kN = Chunk<T>::kN;
+  {  // every lane takes 16-byte chunks of q, k and v: frames * d / 4 of each
+    constexpr int kN = Chunk<float>::kN;
     const int per_row = d / kN;
 #pragma unroll 2
     for (int idx = lane; idx < frames * per_row; idx += 32) {
       const int t = idx / per_row, c = (idx % per_row) * kN;
       const long long at = in0 + t * s_frame + c;
-      const Chunk<T> cq = *reinterpret_cast<const Chunk<T>*>(q + at);
-      const Chunk<T> ck = *reinterpret_cast<const Chunk<T>*>(k + at);
-      const Chunk<T> cv = *reinterpret_cast<const Chunk<T>*>(v + at);
+      const Chunk<float> cq = *reinterpret_cast<const Chunk<float>*>(q + at);
+      const Chunk<float> ck = *reinterpret_cast<const Chunk<float>*>(k + at);
+      const Chunk<float> cv = *reinterpret_cast<const Chunk<float>*>(v + at);
 #pragma unroll
       for (int e = 0; e < kN; ++e) {
-        q_s[t * (d + 1) + c + e] = to_f32(cq.v[e]);
-        k_s[t * (d + 1) + c + e] = to_f32(ck.v[e]);
-        v_s[t * d + c + e] = to_f32(cv.v[e]);
+        q_s[t * (d + 1) + c + e] = cq.v[e];
+        k_s[t * (d + 1) + c + e] = ck.v[e];
+        v_s[t * d + c + e] = cv.v[e];
       }
     }
   }
@@ -1243,11 +1262,11 @@ __global__ void __launch_bounds__(kTpWarps * 32) temporal_attention_kernel(
       pr[j] = e;
       sum += e;
     }
-    for (int j = 0; j < frames; ++j) pr[j] = to_f32(from_f32<T>(pr[j] / sum));
+    for (int j = 0; j < frames; ++j) pr[j] = pr[j] / sum;
   }
   __syncwarp();
 
-  T* out0 = out + static_cast<long long>(g) * frames * o_frame + n * o_token + h * o_head;
+  float* out0 = out + static_cast<long long>(g) * frames * o_frame + n * o_token + h * o_head;
   for (int i = 0; i < frames; ++i) {
     float acc[kColsPerLane] = {};
     for (int j = 0; j < frames; ++j) {
@@ -1261,18 +1280,17 @@ __global__ void __launch_bounds__(kTpWarps * 32) temporal_attention_kernel(
 #pragma unroll
     for (int jj = 0; jj < kColsPerLane; ++jj) {
       const int c = lane + 32 * jj;
-      if (c < d) out0[i * o_frame + c] = from_f32<T>(acc[jj]);
+      if (c < d) out0[i * o_frame + c] = acc[jj];
     }
   }
 }
 
-template <typename T>
-int launch_temporal(const void* q, const void* k, const void* v, void* out, int G, int frames,
-                    int N, int H, int d, long long s_frame, long long s_token, long long s_head,
-                    long long o_frame, long long o_token, long long o_head, float scale,
-                    cudaStream_t stream) {
+int launch_temporal_f32(const void* q, const void* k, const void* v, void* out, int G, int frames,
+                        int N, int H, int d, long long s_frame, long long s_token,
+                        long long s_head, long long o_frame, long long o_token, long long o_head,
+                        float scale, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kTpWarps) * temporal_warp_floats(frames, d) * sizeof(float);
-  auto kernel = temporal_attention_kernel<T>;
+  auto kernel = temporal_attention_f32_kernel;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1281,10 +1299,229 @@ int launch_temporal(const void* q, const void* k, const void* v, void* out, int 
   const long long warps = static_cast<long long>(G) * N * H;
   const unsigned blocks = static_cast<unsigned>((warps + kTpWarps - 1) / kTpWarps);
   kernel<<<blocks, kTpWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), G, frames, N, H, d, s_frame, s_token, s_head, o_frame, o_token,
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), G, frames, N, H, d, s_frame, s_token, s_head, o_frame, o_token,
       o_head, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16: a work item is (clip g, token n, a group of hg <= kTmHeads heads);
+// warp w of the CTA takes head h0 + w on the tensor cores. DP is d rounded up
+// to 16, 32, 64 or 128 and TP is T rounded up to 16 or 32: the padding is
+// zeros in shared memory.
+constexpr int kTmHeads = 4;
+
+struct TemporalArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  int G, T, N, H, d, hg;
+  long long s_frame, s_token, s_head, o_frame, o_token, o_head;
+  float scale;
+};
+
+template <int DP, int TP>
+struct TemporalTile {
+  static constexpr int kPitch = DP + 8;       // a row and 16 bytes: 8 rows hit 8 bank groups
+  static constexpr int kHead = TP * kPitch;   // one head's q (or k, or v) in a stage
+  static constexpr int kMaxBytes = 2 * 3 * kTmHeads * kHead * 2;  // two stages of 4 heads
+};
+
+// one warp: softmax(q k^T * scale) v of one head's TP x DP tiles in shared
+// memory (q rows of a 16-row tile, once its scores are formed, stage that
+// tile's bf16 output), written to out0 + t * o_frame, t < T
+template <int DP, int TP>
+__device__ __forceinline__ void temporal_head(bf16* qs, const bf16* ks, const bf16* vs,
+                                              bf16* out0, const TemporalArgs& a, int lane) {
+  constexpr int kPitch = TemporalTile<DP, TP>::kPitch;
+  const int g4 = lane / 4, t4 = lane % 4;
+  const int keys = a.T;
+  for (int m0 = 0; m0 < a.T; m0 += 16) {
+    // S = q k^T: one m16 tile against TP / 8 key tiles, DP / 16 steps
+    float s[TP / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      uint32_t qa[4];
+      ldmatrix_x4(qa, smem_u32(qs + (m0 + lane % 16) * kPitch + kk + lane / 16 * 8));
+#pragma unroll
+      for (int n0 = 0; n0 < TP; n0 += 16) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, smem_u32(ks + (n0 + lane % 8 + lane / 16 * 8) * kPitch + kk +
+                                 lane / 8 % 2 * 8));
+        mma_bf16(s[n0 / 8], qa, kb[0], kb[1]);
+        mma_bf16(s[n0 / 8 + 1], qa, kb[2], kb[3]);
+      }
+    }
+    // the softmax in the accumulators: a quad of lanes holds rows g4 and g4 + 8
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < TP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = j * 8 + 2 * t4 + e % 2 < keys ? s[j][e] * a.scale : -INFINITY;
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < TP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - mx[e / 2]);
+        sum[e / 2] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    }
+    // p rounded to bf16, in registers as the A operand of p v
+    uint32_t p[TP / 16][4];
+#pragma unroll
+    for (int j = 0; j < TP / 16; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // rows g4 (r even) and g4 + 8 of keys 16j .., 16j + 8 ..
+        p[j][r] = pack_bf16(s[2 * j + r / 2][2 * (r % 2)] / sum[r % 2],
+                            s[2 * j + r / 2][2 * (r % 2) + 1] / sum[r % 2]);
+      }
+    }
+    // O = p v: v through ldmatrix.trans, DP / 8 column tiles
+    float o[DP / 8][4] = {};
+#pragma unroll
+    for (int j = 0; j < TP / 16; ++j) {
+#pragma unroll
+      for (int c0 = 0; c0 < DP; c0 += 16) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, smem_u32(vs + (16 * j + lane % 8 + lane / 8 % 2 * 8) * kPitch +
+                                       c0 + lane / 16 * 8));
+        mma_bf16(o[c0 / 8], p[j], vb[0], vb[1]);
+        mma_bf16(o[c0 / 8 + 1], p[j], vb[2], vb[3]);
+      }
+    }
+    // the output rounded once, staged in this tile's q rows, stored in 16 bytes
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < DP / 8; ++c) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        *reinterpret_cast<uint32_t*>(qs + (m0 + g4 + 8 * r) * kPitch + 8 * c + 2 * t4) =
+            pack_bf16(o[c][2 * r], o[c][2 * r + 1]);
+      }
+    }
+    __syncwarp();
+    const int chunks = a.d / 8;
+    for (int i = lane; i < 16 * chunks; i += 32) {
+      const int t = m0 + i / chunks, c = i % chunks * 8;
+      if (t < a.T) {
+        *reinterpret_cast<uint4*>(out0 + t * a.o_frame + c) =
+            *reinterpret_cast<const uint4*>(qs + t * kPitch + c);
+      }
+    }
+  }
+}
+
+// Persistent CTAs of hg warps walk over the work items; each loads item i + 1
+// (cp.async, 16 bytes a thread, zeros past T, d and H) into one of two
+// stages while its warps attend on item i from the other.
+template <int DP, int TP>
+__global__ void __launch_bounds__(kTmHeads * 32) temporal_attention_mma_kernel(
+    const TemporalArgs a) {
+  using Tile = TemporalTile<DP, TP>;
+  constexpr int kChunks = DP / 8;
+  extern __shared__ __align__(16) bf16 tm_s[];
+  const int hg = a.hg, groups = (a.H + hg - 1) / hg, warp = threadIdx.x / 32;
+  const int stage = 3 * hg * Tile::kHead;  // elements: q, k, v of hg heads
+  const long long items = static_cast<long long>(a.G) * a.N * groups;
+
+  // rows (operand, head j, frame t) of item `it` into stage `st`
+  auto load = [&](long long it, int st) {
+    const int h0 = it % groups * hg, n = it / groups % a.N;
+    const long long g = it / groups / a.N;
+    const long long base = g * a.T * a.s_frame + n * a.s_token + h0 * a.s_head;
+    const uint32_t dst = smem_u32(tm_s + st * stage);
+    const int per_op = hg * TP * kChunks;
+    for (int i = threadIdx.x; i < 3 * per_op; i += blockDim.x) {
+      const int op = i / per_op, r = i - op * per_op;
+      const int j = r / (TP * kChunks), t = r / kChunks % TP, c = r % kChunks * 8;
+      const bool ok = t < a.T && c < a.d && h0 + j < a.H;
+      const bf16* src = op == 0 ? a.q : op == 1 ? a.k : a.v;
+      cp_async16(dst + ((op * hg + j) * Tile::kHead + t * Tile::kPitch + c) * 2,
+                 ok ? src + base + t * a.s_frame + j * a.s_head + c : src, ok);
+    }
+  };
+
+  long long it = blockIdx.x;
+  if (it < items) load(it, 0);
+  cp_async_commit();
+  for (int st = 0; it < items; it += gridDim.x, st ^= 1) {
+    if (it + gridDim.x < items) load(it + gridDim.x, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of item it have landed ...
+    __syncthreads();     // ... and everyone's
+    const int h = it % groups * hg + warp, n = it / groups % a.N;
+    const long long g = it / groups / a.N;
+    if (h < a.H) {
+      bf16* qs = tm_s + st * stage + warp * Tile::kHead;
+      temporal_head<DP, TP>(qs, qs + hg * Tile::kHead, qs + 2 * hg * Tile::kHead,
+                            a.out + g * a.T * a.o_frame + n * a.o_token + h * a.o_head, a,
+                            threadIdx.x % 32);
+    }
+    __syncthreads();  // the stage is free for item it + 2 * gridDim.x
+  }
+  cp_async_wait<0>();
+}
+
+template <int DP, int TP>
+int launch_temporal_mma(const TemporalArgs& a, cudaStream_t stream) {
+  const auto kernel = temporal_attention_mma_kernel<DP, TP>;
+  using Tile = TemporalTile<DP, TP>;
+  if (const cudaError_t err = allow_smem<temporal_attention_mma_kernel<DP, TP>>(Tile::kMaxBytes))
+    return static_cast<int>(err);
+  const int threads = a.hg * 32, smem = 2 * 3 * a.hg * Tile::kHead * 2;
+  // resident CTAs an SM at each head group, asked once per device
+  constexpr int kDevices = 64;
+  static int per_sm[kDevices][kTmHeads + 1] = {};
+  int device = 0;
+  if (const cudaError_t err = cudaGetDevice(&device)) return static_cast<int>(err);
+  if (device >= kDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int& resident = per_sm[device][a.hg];
+  if (resident == 0) {
+    if (const cudaError_t err =
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, smem))
+      return static_cast<int>(err);
+    if (resident == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const long long items =
+      static_cast<long long>(a.G) * a.N * ((a.H + a.hg - 1) / a.hg);
+  kernel<<<persistent_ctas(items, resident), threads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_temporal_bf16(TemporalArgs a, cudaStream_t stream) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (a.G < 1 || a.N < 1 || a.H < 1 || a.T < 1 || a.T > 32 || a.d < 8 || a.d > 128 ||
+      a.d % 8 || !aligned(a.q) || !aligned(a.k) || !aligned(a.v) || !aligned(a.out) ||
+      a.s_frame % 8 || a.s_token % 8 || a.s_head % 8 || a.o_frame % 8 || a.o_token % 8 ||
+      a.o_head % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 4 heads a work item, fewer where that leaves fewer than two items an SM
+  // (st_mode temporal: one token a frame)
+  const int sms = persistent_ctas(1ll << 40);
+  a.hg = a.H < kTmHeads ? a.H : kTmHeads;
+  while (a.hg > 1 && static_cast<long long>(a.G) * a.N * ((a.H + a.hg - 1) / a.hg) < 2ll * sms)
+    a.hg = (a.hg + 1) / 2;
+  const int dp = a.d <= 16 ? 16 : a.d <= 32 ? 32 : a.d <= 64 ? 64 : 128;
+  return by_head_dim(dp, [&](auto dim) {
+    constexpr int DP = decltype(dim)::value;
+    return a.T <= 16 ? launch_temporal_mma<DP, 16>(a, stream)
+                     : launch_temporal_mma<DP, 32>(a, stream);
+  });
 }
 
 // What the TMA kernels ask beyond the wrappers' checks: q, k, v 16-byte aligned
@@ -1340,15 +1577,21 @@ extern "C" int maed_blocked_attention(int is_bf16, const void* q, const void* k,
 }
 
 // As above for G clips of T frames (T at most 32) of N tokens of H heads.
+// bf16: temporal_attention_mma_kernel, which also asks 16-byte aligned output
+// rows (pointer and strides), else cudaErrorInvalidValue; f32:
+// temporal_attention_f32_kernel.
 extern "C" int maed_temporal_attention(int is_bf16, const void* q, const void* k, const void* v,
                                        void* out, int G, int T, int N, int H, int d,
                                        long long s_frame, long long s_token, long long s_head,
                                        long long o_frame, long long o_token, long long o_head,
                                        float scale, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_temporal<bf16>(q, k, v, out, G, T, N, H, d, s_frame, s_token, s_head, o_frame,
-                                 o_token, o_head, scale, s);
-  return launch_temporal<float>(q, k, v, out, G, T, N, H, d, s_frame, s_token, s_head, o_frame,
-                                o_token, o_head, scale, s);
+  if (is_bf16) {
+    const TemporalArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<bf16*>(out), G, T, N, H, d, 0,
+                         s_frame, s_token, s_head, o_frame, o_token, o_head, scale};
+    return launch_temporal_bf16(a, s);
+  }
+  return launch_temporal_f32(q, k, v, out, G, T, N, H, d, s_frame, s_token, s_head, o_frame,
+                             o_token, o_head, scale, s);
 }

@@ -29,7 +29,7 @@ from maed_tpu_torch import kernels
 
 MAX_HEAD_DIM = 128   # the kernels keep 4 output columns per lane
 MAX_TOKENS = 1024    # spatial: a row's scores in shared memory (f32), 4 key chunks (bf16)
-MAX_FRAMES = 32      # temporal: one warp holds a (token, head)'s q, k, v
+MAX_FRAMES = 32      # temporal: two 16-frame tiles (bf16), a warp's shared memory (f32)
 MMA_HEAD_DIMS = (16, 32, 64, 128)  # spatial in bf16: the tensor-core kernel's head dims
 
 

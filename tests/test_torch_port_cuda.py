@@ -40,11 +40,13 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
-def test_skinning_kernel(cuda):
+@pytest.mark.parametrize("V", [1000, 1111, 6890])
+@pytest.mark.parametrize("B", [1, 3, 17, 128])
+def test_skinning_kernel(cuda, B, V):
     """f32 at atol 1e-5 (m): the kernel and the einsums sum the 24 joints in
-    different orders."""
+    different orders. No V is a multiple of the 384-vertex tile (1111 is
+    odd); at B 128 and V 6890 the launch cuts runs of 6 frames, the last of 2."""
     rng = np.random.RandomState(4)
-    B, V = 3, 1000  # V is not a multiple of the 128-vertex block
     W = rng.rand(V, 24)
     W /= W.sum(axis=1, keepdims=True)
     A = rng.randn(B, 24, 4, 4) * 0.3
@@ -468,11 +470,23 @@ def test_spatial_attention_kernel(cuda, dtype, atol, rtol, BT, N, h, d):
 
 @pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-5, 0.0),
                                                (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("sliced", [False, True])
 @pytest.mark.parametrize("BT, T, N, h, d", [(32, 16, 197, 12, 64), (6, 3, 5, 2, 16),
-                                            (4, 2, 7, 3, 128), (32, 32, 3, 1, 8)])
-def test_temporal_attention_kernel(cuda, dtype, atol, rtol, BT, T, N, h, d):
-    """Both output layouts; T 3 and warps that do not fill the last block."""
+                                            (4, 2, 7, 3, 128), (32, 32, 3, 1, 8),
+                                            (5, 1, 7, 5, 64), (30, 15, 200, 6, 24),
+                                            (34, 17, 60, 5, 128), (64, 32, 5, 3, 24),
+                                            (16, 16, 1, 12, 64)])
+def test_temporal_attention_kernel(cuda, dtype, atol, rtol, sliced, BT, T, N, h, d):
+    """Both output layouts. T 1, 2, 3, 15, 16 (one 16-frame tile), 17, 32 (two);
+    d 8, 16, 24 (padded to 16 and 32 in bf16), 64, 128; one token a frame.
+    The bf16 kernel takes 4 heads a work item, or 2 or 1 where that leaves
+    fewer than two items an SM: h 12 in groups of 4, 6 in 4 + 2, 5 in 2 + 2
+    + 1 (T 17), and the small shapes one head an item.
+    ``sliced``: q, k, v in a view of a larger projection (every other head of
+    tokens 1 ..), so that no stride is the natural one."""
     qkv = qkv_input(11, BT, N, h, d, dtype, cuda)
+    if sliced:
+        qkv = qkv_input(11, BT, N + 1, 2 * h, d, dtype, cuda)[:, 1:, :, ::2]
     scale = d ** -0.5
     before = kernels.LAUNCHES["temporal_attention"]
     btc = TST.temporal_attention_fused(qkv, T, scale)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time the flagship's bf16 kernels C, D, E, F/J, I and K, each checkout in turn.
+"""Time the flagship's kernels, bf16 C to K and f32 A, each checkout in turn.
 
     python3 tools/bench_kernels.py [tree ...]
 
 For each tree (a checkout of this repository; default: this one), in the
 order given, in one process each: build its kernels, print ptxas' register
-and spill lines of the TMA kernels, the dense GEMM, the gate and GroupNorm
-kernels, then time on the card, with CUDA events over the same inputs,
+and spill lines of the TMA kernels, the dense GEMM, the gate, GroupNorm,
+temporal attention and skinning kernels, then time on the card, with CUDA
+events over the same inputs,
 through the public entry points that every tree since the port began has:
 
 - C: ``fused_ln_mlp`` at (25216, 768), hidden 3072; D: ``fused_ln_dense``
@@ -26,7 +27,12 @@ through the public entry points that every tree since the port began has:
 - F/J: ``spatial_attention_btc`` on a (128, 197, 3, 12, 64) projection,
   against ``scaled_dot_product_attention`` on its (B, h, S, d) views;
 - K: ``fused_attention`` on the coupling views (8, 12, 3152, 64) of the same
-  projection, written in place into (128, 197, 768), against the library.
+  projection, written in place into (128, 197, 768), against the library;
+- G/H on the device: ``temporal_attention_fused`` ((128, 197, 768)) and
+  ``temporal_attention`` ((12, 128, 197, 64)) at 16 frames on the same
+  projection, against ``scaled_dot_product_attention`` on its
+  (8, 197, 12, 16, 64) views;
+- A on the device: ``skinning`` at (128, 6890) f32, chip_smoke.py's inputs.
 
 Each time is the median of 7 repetitions of 20 calls (F/J: 50). Give two
 trees as ``a b b a`` to compare them within one call; the card and its power
@@ -47,7 +53,7 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
 import torch.nn.functional as F
 from maed_tpu_torch import kernels
-from maed_tpu_torch.ops import attention, groupnorm, mlp, st_attention
+from maed_tpu_torch.ops import attention, groupnorm, mlp, skinning, st_attention
 
 t0 = time.perf_counter()
 lib = kernels.build()
@@ -55,8 +61,8 @@ build_s = time.perf_counter() - t0
 log = lib.with_suffix(".log").read_text().splitlines()
 for i, line in enumerate(log):
     entry = re.search(r"entry function '(\w+)'", line)
-    if entry and re.search(r"tma_kernel|dense_bf16|gemm_bf16|gate_|ln_rows|groupnorm",
-                           entry.group(1)):
+    if entry and re.search(r"tma_kernel|dense_bf16|gemm_bf16|gate_|ln_rows|groupnorm|temporal|"
+                           r"skinning", entry.group(1)):
         print(f"  ptxas {entry.group(1)}:", " | ".join(x.strip() for x in log[i + 2:i + 4]))
 
 def ms(fn, iters=20):
@@ -165,6 +171,24 @@ y = torch.empty(128, 197, 768, dtype=bf, device=dev)
 yv = y.view(8, 3152, 12, 64).transpose(1, 2)
 out["blocked_ms"] = ms(lambda: attention.fused_attention(qv, kv, vv, att, out=yv))
 out["blocked_library_ms"] = ms(lambda: F.scaled_dot_product_attention(qv, kv, vv, scale=att))
+del qv, kv, vv, y, yv
+q5, k5, v5 = (a.reshape(8, 16, 197, 12, 64).permute(0, 2, 3, 1, 4) for a in qkv.unbind(2))
+out["temporal_device_ms"] = device_ms(lambda: st_attention.temporal_attention_fused(qkv, 16, att))
+out["temporal_head_leading_device_ms"] = device_ms(
+    lambda: st_attention.temporal_attention(qkv, 16, att))
+out["temporal_library_device_ms"] = device_ms(
+    lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=att))
+del qkv, q4, k4, v4, q5, k5, v5
+# A as chip_smoke.py draws it: rigid transforms, weights normalized per vertex
+rng = np.random.RandomState(0)
+v_posed = T(rng.randn(128, 6890, 3) * 0.3)
+W = rng.rand(6890, 24) ** 4
+W = T(W / W.sum(axis=1, keepdims=True))
+rot, _ = np.linalg.qr(rng.randn(128 * 24, 3, 3))
+A = np.zeros((128 * 24, 4, 4))
+A[:, :3, :3], A[:, :3, 3], A[:, 3, 3] = rot, rng.randn(128 * 24, 3) * 0.3, 1.0
+A = T(A.reshape(128, 24, 4, 4))
+out["skinning_device_ms"] = device_ms(lambda: skinning.skinning(v_posed, W, A))
 print("BENCH " + json.dumps(out))
 """
 

@@ -42,7 +42,7 @@ KINDS = (
     ("spatial attention (kernels F, J)", ("spatial_attention",)),
     ("temporal attention (kernels G, H)", ("temporal_attention",)),
     ("layernorm (kernel B)", ("layernorm_kernel",)),
-    ("skinning (kernel A)", ("skinning_kernel",)),
+    ("skinning (kernel A)", ("skinning",)),
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "xmma", "winograd", "fprop")),
     ("gemm (cuBLAS)", ("gemm", "cutlass", "cublas", "nvjet", "sm90_", "ampere_")),
     ("softmax", ("softmax",)),
