@@ -23,6 +23,18 @@
    which must agree, and holds the bf16 answers to the f32 ones: through
    the kernels they may lie at most BF16_RATIO times as far from them as
    through the plain versions.
+5. Then the eval protocol over a coupling model, and one request of each
+   other attention mode.
+6. Trains: ``build_train_model`` for the same model with f32 master weights,
+   ``make_train_step`` over the stage-2 composition (3 2D clips and 4 3D
+   clips of 16 frames, 7 images, uint8, with self-consistent synthetic
+   targets), 5 steps in f32 and 5 in bf16 from one generator seed. A step's
+   launches must be those of a video and an image forward (the backward
+   launches nothing); the f32 step through the kernels must agree with the
+   same step through their plain versions (and, for the whole gradient, be
+   as close to the same step in f64), and the bf16 gradient must lie at
+   most BF16_RATIO times as far from the f32 one through the kernels as
+   through the plain versions.
 
 Any failed check raises. On success the last two lines are the kernels'
 record and {"ok": true, "device": {...}}. Needs a CUDA card (and exits
@@ -68,15 +80,24 @@ BLOCK_KERNELS = {
 }
 
 
-def per_forward(mode: str, depth: int = 6) -> dict:
-    """Launches of every kernel in one bf16 forward of ``mode`` at ``depth`` blocks."""
+def per_forward(mode: str, depth: int = 6, dtype: torch.dtype = torch.bfloat16,
+                seqlen: int = SEQLEN) -> dict:
+    """Launches of every kernel in one forward of ``mode`` at ``depth`` blocks
+    in ``dtype`` over clips of ``seqlen`` frames. In f32 the GroupNorms go to
+    the strided kernel, and C's, D's and E's GEMMs normalize or blend their
+    own A tiles (no LN pre-pass, no blend launch); clips of one frame take
+    the temporal branch's shortcut."""
     from maed_tpu_torch import kernels
 
     counts = dict.fromkeys(kernels.LAUNCHES, 0)
-    counts.update(groupnorm=52, layernorm=1, skinning=1, ln_rows=depth, ln_mlp_fc1=depth,
-                  ln_mlp_fc2=depth)
+    counts.update(layernorm=1, skinning=1, ln_rows=depth, ln_mlp_fc1=depth, ln_mlp_fc2=depth)
+    counts["groupnorm" if dtype == torch.bfloat16 else "groupnorm_strided"] = 52
     for name in BLOCK_KERNELS[mode]:
         counts[name] += depth
+    if dtype != torch.bfloat16:
+        counts.update(ln_rows=0, gate_blend=0)
+    if seqlen == 1:
+        counts["temporal_attention"] = 0
     return counts
 
 
@@ -116,6 +137,25 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # so an absolute bound cannot hold across seeds; the ratio does. Readings
 # over weight seeds 0-4 came to at most 1.03 (verts) and 1.24 (kp_3d): PERF.md.
 BF16_RATIO = 1.5
+# the stage-2 train step's composition (configs/config_stage2.yaml,
+# tools/bench_train.py): 2D clips, 3D clips and images a step; steps a dtype
+TRAIN_2D, TRAIN_3D, TRAIN_IMAGES, TRAIN_STEPS = 3, 4, 7, 5
+# f32, the step through the kernels against the same step through their plain
+# versions from the same weights and generator: the total loss within this
+# relative difference, the gradient within this relative L2 distance. The
+# kernels and cuBLAS/cuDNN sum in other orders, in f32 with TF32 off. The
+# bf16 gradient is held by BF16_RATIO to the f32 plain one.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
+# The hybrid stem's gradient at these random weights is conditioned so that
+# f32 fixes it only to ~1.5%, on either path: the plain f32 step's whole
+# gradient lies 2.3e-3 from the same step in f64, the kernels' 2.3e-3 too,
+# and the two f32 gradients 1.9e-3 apart, all of it in the stem (its
+# GroupNorms' backward magnifies the ~1e-5 by which the two forwards' stem
+# activations differ; PERF.md §6). So TRAIN_GRAD_RTOL holds the gradient
+# of every parameter outside the stem, and the whole gradient is held to the
+# f64 step's: through the kernels at most F32_GRAD_RATIO times as far from
+# it as through the plain versions.
+F32_GRAD_RATIO = 1.1
 
 
 def card_identity() -> str:
@@ -792,6 +832,227 @@ def phase_modes(device, clip, jreg):
         f32_agreement(device, mode, clip[:2], jreg)
 
 
+def consistent_targets(rng, smpl, n, frames, device):
+    """Self-consistent targets for n clips of ``frames`` frames (as
+    tools/bench_train.py makes them): smooth pose tracks between random
+    anchor poses, a shape a clip, a unit camera; theta (n, frames, 85), the
+    body's 49 joints with confidence 1 (n, frames, 49, 4) and their
+    weak-perspective projection (n, frames, 49, 3), so that zero loss is
+    reachable."""
+    from maed_tpu_torch.ops.geometry import weak_perspective_projection
+    from maed_tpu_torch.ops.smpl import smpl_forward
+
+    anchors = rng.randn(n, 4, 72).astype(np.float32) * 0.4
+    t = np.linspace(0, 3, frames)
+    i0 = np.minimum(t.astype(int), 2)
+    w = (0.5 - 0.5 * np.cos(np.pi * (t - i0)))[None, :, None].astype(np.float32)
+    pose = (1 - w) * anchors[:, i0] + w * anchors[:, i0 + 1]
+    shape = np.repeat(rng.randn(n, 1, 10).astype(np.float32) * 0.3, frames, axis=1)
+    cam = np.tile(np.array([1.0, 0.0, 0.0], np.float32), (n, frames, 1))
+    pose_d, shape_d, cam_d = (torch.from_numpy(a).to(device) for a in (pose, shape, cam))
+    with torch.no_grad():
+        joints = smpl_forward(smpl, shape_d.reshape(-1, 10),
+                              pose_axis_angle=pose_d.reshape(-1, 72))["joints"]
+        joints = joints.reshape(n, frames, 49, 3)
+        kp2d = weak_perspective_projection(joints, cam_d)
+    conf = torch.ones((n, frames, 49, 1), device=device)
+    return {"theta": torch.cat([cam_d, pose_d, shape_d], dim=-1),
+            "kp_3d": torch.cat([joints, conf], dim=-1), "kp_2d": torch.cat([kp2d, conf], dim=-1)}
+
+
+def make_train_batch(smpl, device):
+    """One stage-2 step's batches: TRAIN_2D + TRAIN_3D uint8 clips of SEQLEN
+    frames (the 2D clips first) and TRAIN_IMAGES uint8 images at IMG^2,
+    with targets from :func:`consistent_targets`."""
+    rng = np.random.RandomState(3)
+    n_vid = TRAIN_2D + TRAIN_3D
+    frames = rng.randint(0, 256, (n_vid * SEQLEN + TRAIN_IMAGES, IMG, IMG, 3), dtype=np.uint8)
+    frames = torch.from_numpy(frames).to(device)
+    tgt2 = consistent_targets(rng, smpl, TRAIN_2D, SEQLEN, device)
+    tgt3 = consistent_targets(rng, smpl, TRAIN_3D, SEQLEN, device)
+    tgti = consistent_targets(rng, smpl, TRAIN_IMAGES, 1, device)
+    vid = {"images": frames[:n_vid * SEQLEN].reshape(n_vid, SEQLEN, IMG, IMG, 3),
+           "target_2d": {"kp_2d": tgt2["kp_2d"]},
+           "target_3d": {"kp_2d": tgt3["kp_2d"], "kp_3d": tgt3["kp_3d"], "theta": tgt3["theta"],
+                         "w_smpl": torch.ones((TRAIN_3D, SEQLEN), device=device)}}
+    img = {"image": frames[n_vid * SEQLEN:], "kp_2d": tgti["kp_2d"][:, 0],
+           "kp_3d": tgti["kp_3d"][:, 0], "theta": tgti["theta"][:, 0],
+           "w_smpl": torch.ones((TRAIN_IMAGES,), device=device)}
+    return vid, img
+
+
+class TrainRecipe:
+    """tools/bench_train.py's optimizer settings: Adam at 5e-5, no weight
+    decay, two warmup epochs at a tenth of the rate, a milestone at 30."""
+    OPTIM, LR, WD, MOMENTUM = "adam", 5e-5, 0.0, 0.9
+    WARMUP_EPOCH, WARMUP_FACTOR, MILESTONES = 2, 0.1, [30]
+
+
+def train_steps(model, smpl, batch, steps, plain=False, seed=7):
+    """``steps`` stage-2 steps of ``model`` from a new optimizer and a
+    generator seeded with ``seed``. Returns the metrics of each step, the
+    first step's whole gradient (one f32 vector), its kernel launches, the
+    host-clock ms of each step (CUDA-synchronised) and the peak device
+    memory over the steps."""
+    from maed_tpu_torch import kernels
+    from maed_tpu_torch.core.loss import LossWeights
+    from maed_tpu_torch.parallel.train_step import (debug_nan_params, make_optimizer,
+                                                    make_train_step)
+
+    device = next(model.parameters()).device
+    optimizer = make_optimizer(TrainRecipe, 500, model.parameters())
+    step = make_train_step(model, optimizer, smpl, LossWeights(),
+                           torch.Generator(device=device).manual_seed(seed), plain=plain)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    metrics, times, grad, launches = [], [], None, None
+    for i in range(steps):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics.append(step(*batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = dict(kernels.LAUNCHES)
+            bad = debug_nan_params(model)
+            if bad:
+                raise AssertionError(f"non-finite gradients in {bad[:5]} ({len(bad)} parameters)")
+            grad = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    peak = torch.cuda.max_memory_allocated(device)
+    return metrics, grad, launches, times, peak
+
+
+def f64_plain_grad(start, smpl, batch, device):
+    """The first step's whole gradient (f64) through the plain versions of
+    the model in f64 from the f32 weights ``start``, on the same batch and
+    generator seed as :func:`train_steps`."""
+    from maed_tpu_torch.core.builder import build_train_model
+
+    def f64(t):
+        return t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+
+    model, _ = build_train_model(dtype=torch.float64, device=device, seed=0,
+                                 allow_synthetic_smpl=True)
+    model.double().load_state_dict({k: f64(v) for k, v in start.items()})
+    vid, img = batch
+    vid = {"images": vid["images"], "target_2d": {k: f64(v) for k, v in vid["target_2d"].items()},
+           "target_3d": {k: f64(v) for k, v in vid["target_3d"].items()}}
+    img = {k: f64(v) for k, v in img.items()}
+    metrics, grad, *_ = train_steps(model, type(smpl)(*map(f64, smpl)), (vid, img), 1,
+                                    plain=True)
+    del model
+    torch.cuda.empty_cache()
+    return metrics[0]["loss"].item(), grad
+
+
+def check_f32_train(record, loss_k, loss_p, grad, plain_grad, stem, loss_64, grad_64):
+    """The f32 step's limits (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL outside the
+    stem, F32_GRAD_RATIO against the f64 step); adds the distances to
+    ``record``."""
+    def dist(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    rest = dist(grad[~stem], plain_grad[~stem])
+    kern, plain = dist(grad, grad_64), dist(plain_grad, grad_64)
+    record.update(grad_rel_l2_outside_stem=rest, grad_rel_l2_stem=dist(grad[stem], plain_grad[stem]),
+                  grad_rel_l2_kernels_vs_f64=kern, grad_rel_l2_plain_vs_f64=plain)
+    print(f"  f32 gradient, kernels vs plain: outside the stem {rest:.3e} (bound "
+          f"{TRAIN_GRAD_RTOL}), the stem {record['grad_rel_l2_stem']:.3e}; against the f64 step "
+          f"(loss {loss_64:.6f}): kernels {kern:.3e}, plain {plain:.3e}, ratio {kern / plain:.3f} "
+          f"(bound {F32_GRAD_RATIO})")
+    if not abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p):
+        raise AssertionError(f"train f32: loss {loss_k} through the kernels, {loss_p} through "
+                             f"the plain versions, beyond rel {TRAIN_LOSS_RTOL}")
+    if not rest <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train f32: gradient outside the stem rel L2 {rest:.3e} beyond "
+                             f"{TRAIN_GRAD_RTOL}")
+    if not kern <= F32_GRAD_RATIO * plain:
+        raise AssertionError(f"train f32: the kernels' gradient lies {kern:.3e} from the f64 "
+                             f"step's, beyond {F32_GRAD_RATIO} x the plain versions' {plain:.3e}")
+
+
+def phase_train(device):
+    """The stage-2 train step at full width, f32 and bf16; prints the
+    record of each and returns the bf16 step's launches."""
+    from maed_tpu_torch.core.builder import build_train_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_identity()
+    n_vid = TRAIN_2D + TRAIN_3D
+    records, grads, launches_train = {}, {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        label = "f32" if dtype == torch.float32 else "bf16"
+        t0 = time.perf_counter()
+        model, smpl = build_train_model(dtype=dtype, device=device, seed=0,
+                                        allow_synthetic_smpl=True)
+        batch = make_train_batch(smpl, device)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        print(f"train {label}: built in {time.perf_counter() - t0:.1f} s, "
+              f"{n_vid}x{SEQLEN} + {TRAIN_IMAGES} frames a step at {IMG}^2, uint8")
+        metrics, grad, launches, times, peak = train_steps(model, smpl, batch, TRAIN_STEPS)
+        for m in metrics:
+            if not all(torch.isfinite(v) for v in m.values()):
+                raise AssertionError(f"train {label}: non-finite loss terms {m}")
+        expect = per_forward("parallel", dtype=dtype)
+        image = per_forward("parallel", dtype=dtype, seqlen=1)
+        for name in expect:
+            if launches[name] != expect[name] + image[name]:
+                raise AssertionError(
+                    f"train {label}: {name} launched {launches[name]} times in a step, want "
+                    f"{expect[name]} (video forward) + {image[name]} (image forward)")
+        for name in ("groupnorm" if dtype == torch.bfloat16 else "groupnorm_strided", "skinning",
+                     "layernorm", "ln_mlp_fc1", "ln_mlp_fc2", "ln_dense", "spatial_attention",
+                     "temporal_attention", "gate_means", "gate_alpha", "gate_proj"):
+            if not launches[name]:
+                raise AssertionError(f"train {label}: {name} was not launched")
+        ms = float(np.median(times[1:]))
+        losses = [m["loss"].item() for m in metrics]
+        print(f"  {card}: {ms:.1f} ms a step (median of steps 2-{TRAIN_STEPS}; each "
+              + ", ".join(f"{t:.1f}" for t in times) + f"), peak memory {peak / 2 ** 30:.2f} GiB, "
+              f"loss step 1 {losses[0]:.4f}, step {TRAIN_STEPS} {losses[-1]:.4f}")
+        print(f"  launches in step 1: {launches}")
+        # the same first step through the plain versions, from the same weights and generator
+        model.load_state_dict(start)
+        plain_metrics, plain_grad, plain_launches, plain_times, plain_peak = train_steps(
+            model, smpl, batch, 1, plain=True)
+        if any(plain_launches.values()):
+            raise AssertionError(f"train {label}: the plain step launched {plain_launches}")
+        loss_k, loss_p = losses[0], plain_metrics[0]["loss"].item()
+        grad_dist = ((grad - plain_grad).norm() / plain_grad.norm()).item()
+        print(f"  step 1 through the plain versions: {plain_times[0]:.1f} ms, peak memory "
+              f"{plain_peak / 2 ** 30:.2f} GiB, loss {loss_p:.6f} (kernels {loss_k:.6f}, rel "
+              f"{abs(loss_k - loss_p) / abs(loss_p):.3e}); gradient rel L2 {grad_dist:.3e}")
+        grads[label] = (grad, plain_grad)
+        records[label] = dict(ms_per_step=ms, step_ms=times, peak_memory_bytes=peak,
+                              loss_first=losses[0], loss_last=losses[-1],
+                              plain_step_ms=plain_times[0], plain_peak_memory_bytes=plain_peak,
+                              grad_rel_l2_kernels_vs_plain=grad_dist)
+        if dtype == torch.float32:
+            stem = torch.cat([torch.full((p.numel(),), "patch_embed.backbone." in name,
+                                         device=device)
+                              for name, p in model.named_parameters()])
+            del model, metrics, plain_metrics
+            torch.cuda.empty_cache()
+            check_f32_train(records["f32"], loss_k, loss_p, grad, plain_grad, stem,
+                            *f64_plain_grad(start, smpl, batch, device))
+        else:
+            launches_train = launches
+            del model, metrics, plain_metrics
+        del start, grad, plain_grad
+        torch.cuda.empty_cache()
+    f32_plain = grads["f32"][1]
+    kern, plain = ((g - f32_plain).norm().item() for g in grads["bf16"])
+    print(f"  bf16 gradient vs f32 plain: through the kernels {kern:.4e}, through the plain "
+          f"versions {plain:.4e}, ratio {kern / plain:.3f} (bound {BF16_RATIO})")
+    if not kern <= BF16_RATIO * plain:
+        raise AssertionError(f"train bf16: the kernels' gradient is {kern:.4e} from the f32 one, "
+                             f"beyond {BF16_RATIO} x {plain:.4e}")
+    records["bf16"].update(grad_dist_to_f32_plain=kern, plain_grad_dist_to_f32_plain=plain)
+    print(json.dumps({"train": {"card": card, **records}}))
+    return launches_train
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
@@ -821,47 +1082,55 @@ def main() -> int:
     del outs, plains
     eval_launches = phase_eval(device)
     phase_modes(device, clips[0], jreg)
+    train_launches = phase_train(device)
 
     src, jax_ops = "maed_tpu_torch/", "maed_tpu/ops/"
     kernels_line = [
         dict(name="skinning", route="cuda", source=src + "csrc/skinning.cu",
              replaces=jax_ops + "smpl_pallas.py:30",
-             launches=launches["skinning"], **record["skinning"]),
+             launches=launches["skinning"],
+             launches_train=train_launches["skinning"], **record["skinning"]),
         dict(name="fast_layernorm", route="triton", source=src + "ops/layernorm.py",
              replaces=jax_ops + "layernorm.py:60",
-             launches=launches["layernorm"], **record["layernorm"]),
+             launches=launches["layernorm"],
+             launches_train=train_launches["layernorm"], **record["layernorm"]),
         dict(name="fused_ln_mlp", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:99",
              launches=launches["ln_mlp_fc1"], launches_fc2=launches["ln_mlp_fc2"],
-             **record["ln_mlp"]),
+             launches_train=train_launches["ln_mlp_fc1"], **record["ln_mlp"]),
         dict(name="fused_ln_dense", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:157",
-             launches=launches["ln_dense"], **record["ln_dense"]),
+             launches=launches["ln_dense"],
+             launches_train=train_launches["ln_dense"], **record["ln_dense"]),
         # the bf16 pre-pass of C and D: LN(x) rounded, once a row
         dict(name="ln_rows", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=f"{jax_ops}mlp.py:99, {jax_ops}mlp.py:157",
-             launches=launches["ln_rows"], **record["ln_rows"]),
+             launches=launches["ln_rows"],
+             launches_train=train_launches["ln_rows"], **record["ln_rows"]),
         # the tail's four bf16 launches: the means, the gate, the blend, the proj GEMM
         dict(name="fused_gate_proj", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:272",
              launches=launches["gate_proj"], launches_means=launches["gate_means"],
              launches_alpha=launches["gate_alpha"], launches_blend=launches["gate_blend"],
-             **record["gate_proj"]),
+             launches_train=train_launches["gate_proj"], **record["gate_proj"]),
         # the cluster kernel in bf16; the strided one takes f32 and larger frames
         dict(name="fused_groupnorm", route="cuda", source=src + "csrc/groupnorm.cu",
              replaces=jax_ops + "groupnorm.py:83",
              launches=launches["groupnorm"], launches_strided=launches["groupnorm_strided"],
-             **record["groupnorm"]),
+             launches_train=train_launches["groupnorm"], **record["groupnorm"]),
         dict(name="spatial_attention", route="cuda", source=src + "csrc/st_attention.cu",
              replaces=f"{jax_ops}attention.py:47, {jax_ops}st_attention.py:96",
-             launches=launches["spatial_attention"], **record["spatial"]),
+             launches=launches["spatial_attention"],
+             launches_train=train_launches["spatial_attention"], **record["spatial"]),
         dict(name="temporal_attention", route="cuda", source=src + "csrc/st_attention.cu",
              replaces=f"{jax_ops}st_attention.py:132, {jax_ops}st_attention.py:229",
-             launches=launches["temporal_attention"], **record["temporal"]),
+             launches=launches["temporal_attention"],
+             launches_train=train_launches["temporal_attention"], **record["temporal"]),
         # the one kernel whose launches are those of the eval protocol's run
         dict(name="fused_attention_blocked", route="cuda", source=src + "csrc/st_attention.cu",
              replaces=jax_ops + "attention.py:74",
-             launches=eval_launches["attention_blocked"], **record["attention_blocked"]),
+             launches=eval_launches["attention_blocked"],
+             launches_train=train_launches["attention_blocked"], **record["attention_blocked"]),
     ]
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,13 @@
-"""Build the inference-ready MAED: the entry point of the port's eval forward.
+"""Build the MAED: the entry points of the port's eval forward and of its
+training.
 
 Port of ``maed_tpu/core/builder.py::build_eval_model``. It takes keyword
 arguments instead of a yaml config (pyyaml is not promised where the port
 runs), and seeded random weights when no state_dict is given. As in the JAX
 builder, weight standardization is folded into the stem's weights, so the
-model runs the ``standardize_ws=False`` path.
+model runs the ``standardize_ws=False`` path. :func:`build_train_model`
+builds the model that ``parallel.train_step`` trains: f32 master weights,
+cast at use, and the standardization in the forward.
 """
 
 from __future__ import annotations
@@ -91,6 +94,35 @@ def cast_weights_(model: MAED, dtype: torch.dtype) -> None:
     for p in model.parameters():
         if id(p) not in keep:
             p.data = p.data.to(dtype)
+
+
+def build_train_model(*, num_blocks: int = 6, num_heads: int = 12,
+                      hidden_dim: int = 1024, img_size: int = 224,
+                      st_mode: str = "parallel", dtype: torch.dtype = torch.float32,
+                      device: torch.device | str = "cuda", seed: int = 0,
+                      state_dict: dict | None = None, allow_synthetic_smpl: bool = False,
+                      smpl_dir: str = "data/smpl_data") -> tuple[MAED, SMPLModel]:
+    """(model, smpl) for ``parallel.train_step.make_train_step``, the model in
+    training mode.
+
+    The model is the released stage-2 recipe's (KTD dropout 0.5, no other
+    dropout). ``dtype`` is the compute dtype, f32 (the recipe's) or bf16;
+    the parameters stay f32 master weights whatever it is, and the forward
+    casts them at use. The stem standardizes its weights in the forward
+    (``standardize_ws=True``), which is what training differentiates, so
+    nothing is folded. Weights and body as in :func:`build_eval_model`.
+    """
+    with torch.device("meta"):
+        model = MAED(num_blocks=num_blocks, num_heads=num_heads, hidden_dim=hidden_dim,
+                     img_size=img_size, standardize_ws=True, st_mode=st_mode, dtype=dtype)
+    model = model.to_empty(device=device)
+    if state_dict is None:
+        init_weights_(model, seed)
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    model.train()
+    smpl = find_smpl_model(smpl_dir, allow_synthetic=allow_synthetic_smpl, device=device)
+    return model, smpl
 
 
 def build_eval_model(*, num_blocks: int = 6, num_heads: int = 12,

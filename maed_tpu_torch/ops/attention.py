@@ -20,13 +20,17 @@ Counterpart of ``maed_tpu/ops/attention.py``, with its dispatch:
 
 q, k, v share their strides and are read in place: contiguous tensors, or
 three views of one qkv projection; the output may be a view too (see
-:func:`attention_blocked`).
+:func:`attention_blocked`), except under grad. Both entry points have a
+gradient: autograd through the plain version of the kernel they launch, on
+the saved q, k and v (``ops.recompute``). The JAX package's attention has no
+custom VJP, so its gradient is that of the same plain function.
 """
 
 from __future__ import annotations
 
 import torch
 
+from maed_tpu_torch.ops.recompute import differentiable, needs_grad
 from maed_tpu_torch.ops.st_attention import MAX_TOKENS, _attend, launch_bhsd
 
 
@@ -74,22 +78,47 @@ def _deliver(result, out):
     return out
 
 
+def _launch(name, q, k, v, scale, out=None, blocked=False):
+    """One kernel launch into ``out`` (a new tensor if None); returns it."""
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    launch_bhsd(name, q, k, v, out, scale, blocked=blocked)
+    return out
+
+
+def _blocked(q, k, v, scale):
+    return _launch("attention_blocked", q, k, v, scale, blocked=True)
+
+
+def _oneshot(q, k, v, scale):
+    return _launch("fused_attention", q, k, v, scale)
+
+
+def _call(name, kernel, reference, q, k, v, scale, out):
+    """kernel(q, k, v, scale) with its gradient; with ``out``, which
+    autograd cannot track, the kernel or the plain version writes there."""
+    if out is None:
+        return differentiable(kernel, reference, q, k, v, scale)
+    if needs_grad(q, k, v):
+        raise ValueError(f"{name}: out= is a view written in place, which autograd cannot "
+                         "track; under grad call it without out")
+    if q.device.type == "cpu":
+        return _deliver(reference(q, k, v, scale), out)
+    return _launch(name, q, k, v, scale, out, blocked=kernel is _blocked)
+
+
 def attention_blocked(q, k, v, scale=None, out=None):
     """:func:`attention_blocked_reference` as one CUDA launch, for any S.
 
     ``out``, if given, is a (B, h, S, d) view (head dim contiguous) that the
     kernel writes in place of a new tensor: the coupling mode hands a view
-    of its (BT, N, h * d) result, so nothing is transposed afterwards.
+    of its (BT, N, h * d) result, so nothing is transposed afterwards. Under
+    grad it raises if given one.
     """
     _check_bhsd("attention_blocked", q)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return _deliver(attention_blocked_reference(q, k, v, scale), out)
-    if out is None:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    launch_bhsd("attention_blocked", q, k, v, out, scale, blocked=True)
-    return out
+    return _call("attention_blocked", _blocked, attention_blocked_reference, q, k, v, scale, out)
 
 
 def fused_attention(q, k, v, scale=None, out=None):
@@ -103,9 +132,4 @@ def fused_attention(q, k, v, scale=None, out=None):
         scale = d ** -0.5
     if S > MAX_TOKENS:
         return attention_blocked(q, k, v, scale, out)
-    if q.device.type == "cpu":
-        return _deliver(_xla_attention(q, k, v, scale), out)
-    if out is None:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    launch_bhsd("fused_attention", q, k, v, out, scale)
-    return out
+    return _call("fused_attention", _oneshot, _xla_attention, q, k, v, scale, out)

@@ -17,7 +17,9 @@ memory of 8 CTAs, a thread-block cluster a frame (:func:`cluster_groupnorm`,
 count ``groupnorm``): every element is read from device memory once and the
 moments are shared across the cluster. Otherwise (f32, other widths, larger
 frames) a block per group or few groups of a frame (count
-``groupnorm_strided``).
+``groupnorm_strided``). :func:`fused_groupnorm` has a gradient: autograd
+through :func:`groupnorm_reference` on the saved inputs (``ops.recompute``),
+as the JAX package's custom VJP recomputes its plain version.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import math
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.ops.recompute import differentiable
 
 
 def groupnorm_reference(x, scale, bias, num_groups, eps, relu, residual=None):
@@ -170,8 +173,11 @@ def fused_groupnorm(x, scale, bias, num_groups, eps, relu, residual=None):
     and bias f32): in bf16 a cluster of CTAs a frame where
     :func:`cluster_size` allows, else a block per (frame, group); one read
     and one write of x."""
-    if x.device.type == "cpu":
-        return groupnorm_reference(x, scale, bias, num_groups, eps, relu, residual)
+    return differentiable(_groupnorm_kernel, groupnorm_reference, x, scale, bias, num_groups,
+                          eps, relu, residual)
+
+
+def _groupnorm_kernel(x, scale, bias, num_groups, eps, relu, residual):
     B, hw, C = _check("fused_groupnorm", x, scale, bias, num_groups, residual)
     if x.dtype == torch.bfloat16 and _aligned(x, residual):
         ranks = cluster_size(hw, C, num_groups)

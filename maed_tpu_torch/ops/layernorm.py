@@ -24,6 +24,7 @@ import os
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.ops.recompute import differentiable
 
 
 def layernorm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -67,9 +68,12 @@ def _triton_kernel():
 def fast_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """:func:`layernorm_reference` as one Triton kernel (x f32 or bf16,
-    scale and bias f32); any leading shape."""
-    if x.device.type == "cpu":
-        return layernorm_reference(x, scale, bias, eps)
+    scale and bias f32); any leading shape. Its gradient is autograd through
+    :func:`layernorm_reference` (``ops.recompute``)."""
+    return differentiable(_layernorm_kernel, layernorm_reference, x, scale, bias, eps)
+
+
+def _layernorm_kernel(x, scale, bias, eps):
     if x.device.type != "cuda":
         raise ValueError(f"fast_layernorm: no kernel for device {x.device}")
     C = x.shape[-1]

@@ -22,6 +22,11 @@ w_p (C, C), in x's dtype; the biases stay f32, as in the TPU kernels. The JAX
 package gates its MLP kernel on the weights fitting in VMEM
 (``vit.py:473-479``); the CUDA kernels have no such limit and take f32 and
 bf16 alike.
+
+The three fused entry points have a gradient: autograd through their plain
+versions on the saved inputs (``ops.recompute``), as the JAX package's
+custom VJPs recompute theirs; ``fused_gate_proj``'s gate weights go out
+detached.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.ops.recompute import differentiable
 
 
 def _gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -257,8 +263,11 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6):
     """:func:`ln_mlp_reference` on the card (x f32 or bf16; any leading
     shape): in bf16 :func:`ln_rows`, then the GEMM with the GELU and the
     residual epilogue; in f32 two launches, the first normalizing its rows."""
-    if x.device.type == "cpu":
-        return ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    return differentiable(_ln_mlp_kernel, ln_mlp_reference, x, ln_scale, ln_bias, w1, b1, w2,
+                          b2, eps)
+
+
+def _ln_mlp_kernel(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
     C = x.shape[-1]
     H = w1.shape[0]
     _check_operands("fused_ln_mlp", x, (
@@ -277,8 +286,10 @@ def fused_ln_dense(x, ln_scale, ln_bias, w, b, eps=1e-6):
     """:func:`ln_dense_reference` on the card (x f32 or bf16): in bf16
     :func:`ln_rows`, then the GEMM with the bias epilogue; in f32 one launch
     that normalizes its rows; any leading shape, (..., C) -> (..., O)."""
-    if x.device.type == "cpu":
-        return ln_dense_reference(x, ln_scale, ln_bias, w, b, eps)
+    return differentiable(_ln_dense_kernel, ln_dense_reference, x, ln_scale, ln_bias, w, b, eps)
+
+
+def _ln_dense_kernel(x, ln_scale, ln_bias, w, b, eps):
     C = x.shape[-1]
     O = w.shape[0]
     _check_operands("fused_ln_dense", x, (
@@ -371,9 +382,13 @@ def fused_gate_proj(y_s, y_t, x_res, w_ts, b_ts, w_p, b_p):
     """:func:`gate_proj_reference` on the card (f32 or bf16), one C call:
     the branch means, the gate alpha, and in bf16 the blend and the TMA +
     wgmma GEMM with the "proj" epilogue, in f32 the scalar GEMM that blends
-    its A tile. y_s, y_t, x_res (BT, N, C)."""
-    if y_s.device.type == "cpu":
-        return gate_proj_reference(y_s, y_t, x_res, w_ts, b_ts, w_p, b_p)
+    its A tile. y_s, y_t, x_res (BT, N, C). Only the first output, the
+    block state, has a gradient; alpha goes out detached."""
+    return differentiable(_gate_proj_kernel, gate_proj_reference, y_s, y_t, x_res, w_ts, b_ts,
+                          w_p, b_p, n_diff=1)
+
+
+def _gate_proj_kernel(y_s, y_t, x_res, w_ts, b_ts, w_p, b_p):
     C = y_s.shape[-1]
     BT, N, C = _check_gate("fused_gate_proj", y_s, y_t, (x_res, y_s.dtype, y_s.shape),
                            (w_ts, y_s.dtype, (2 * C, 2 * C)), (w_p, y_s.dtype, (C, C)),

@@ -5,7 +5,9 @@ Counterpart of ``maed_tpu/ops/smpl_pallas.py`` (the Pallas ``skinning``),
 which SMPL's ``lbs`` calls. :func:`skinning` launches the CUDA kernel for a
 CUDA tensor and takes :func:`skinning_reference` only for a CPU tensor. The
 kernel is f32 only: the per-vertex error budget (0.5 mm on a ~1.7 m body) is
-below what bf16 can hold.
+below what bf16 can hold. Its gradient is autograd through
+:func:`skinning_reference` (``ops.recompute``), the einsums the JAX package's
+custom VJP differentiates.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.ops.recompute import differentiable
 
 NUM_JOINTS = 24
 
@@ -31,8 +34,10 @@ def skinning_reference(v_posed: torch.Tensor, lbs_weights: torch.Tensor,
 def skinning(v_posed: torch.Tensor, lbs_weights: torch.Tensor,
              A: torch.Tensor) -> torch.Tensor:
     """:func:`skinning_reference` as one CUDA kernel (f32, J = 24)."""
-    if v_posed.device.type == "cpu":
-        return skinning_reference(v_posed, lbs_weights, A)
+    return differentiable(_skinning_kernel, skinning_reference, v_posed, lbs_weights, A)
+
+
+def _skinning_kernel(v_posed, lbs_weights, A):
     if v_posed.device.type != "cuda":
         raise ValueError(f"skinning: no kernel for device {v_posed.device}")
     B, V, _ = v_posed.shape

@@ -18,14 +18,19 @@ up to 128; in bf16 it runs on the tensor cores alone, with a head dim of 16,
 32, 64 or 128, and raises for another. ``*_reference*`` are the plain versions with the kernels' rounding
 points: scores of x-dtype operands accumulated in promote(dtype, f32), times
 scale, softmax there, p rounded to v's dtype, the p v product accumulated in
-promote(dtype, f32).
+promote(dtype, f32). The four entry points have a gradient: autograd through
+the plain versions on the saved projection (``ops.recompute``), as the JAX
+package's custom VJPs recompute theirs.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.ops.recompute import differentiable
 
 MAX_HEAD_DIM = 128   # the kernels keep 4 output columns per lane
 MAX_TOKENS = 1024    # spatial: a row's scores in shared memory (f32), 4 key chunks (bf16)
@@ -33,11 +38,15 @@ MAX_FRAMES = 32      # temporal: two 16-frame tiles (bf16), a warp's shared memo
 MMA_HEAD_DIMS = (16, 32, 64, 128)  # spatial in bf16: the tensor-core kernel's head dims
 
 
-def _attend(q, k, v, scale, scores: str, mix: str) -> torch.Tensor:
-    """softmax(q k * scale) v by the two einsums, rounded as the kernels round."""
+def _attend(q, k, v, scale, scores: str, mix: str, drop=None) -> torch.Tensor:
+    """softmax(q k * scale) v by the two einsums, rounded as the kernels round;
+    ``drop``, if given, applies to the rounded probabilities (the attention
+    dropout of a training model, which no kernel takes)."""
     st = torch.promote_types(q.dtype, torch.float32)
     logits = torch.einsum(scores, q.to(st), k.to(st)) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    if drop is not None:
+        probs = drop(probs)
     return torch.einsum(mix, probs.to(st), v.to(st)).to(v.dtype)
 
 
@@ -53,11 +62,12 @@ def spatial_reference(qkv, scale):
     return _attend(q, k, v, scale, "bqhd,bkhd->bhqk", "bhqk,bkhd->hbqd")
 
 
-def spatial_reference_btc(qkv, scale):
-    """qkv (BT, N, 3, h, d) -> (BT, N, h*d)."""
+def spatial_reference_btc(qkv, scale, drop=None):
+    """qkv (BT, N, 3, h, d) -> (BT, N, h*d); ``drop`` as in :func:`_attend`."""
     q, k, v = _split(qkv)
     BT, N, h, d = q.shape
-    return _attend(q, k, v, scale, "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd").reshape(BT, N, h * d)
+    return _attend(q, k, v, scale, "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd",
+                   drop).reshape(BT, N, h * d)
 
 
 def _clips(qkv, seqlen):
@@ -76,11 +86,12 @@ def temporal_reference(qkv, seqlen, scale):
     return out.reshape(h, BT, N, d)
 
 
-def temporal_reference_btc(qkv, seqlen, scale):
-    """qkv (BT, N, 3, h, d) -> (BT, N, h*d); attention over T per (n, h)."""
+def temporal_reference_btc(qkv, seqlen, scale, drop=None):
+    """qkv (BT, N, 3, h, d) -> (BT, N, h*d); attention over T per (n, h);
+    ``drop`` as in :func:`_attend`."""
     BT, N, _, h, d = qkv.shape
     q, k, v = _clips(qkv, seqlen)
-    out = _attend(q, k, v, scale, "bqnhd,bknhd->bnhqk", "bnhqk,bknhd->bqnhd")
+    out = _attend(q, k, v, scale, "bqnhd,bknhd->bnhqk", "bnhqk,bknhd->bqnhd", drop)
     return out.reshape(BT, N, h * d)
 
 
@@ -142,9 +153,7 @@ def launch_bhsd(name: str, q, k, v, out, scale, blocked: bool = False) -> None:
     kernels.LAUNCHES[count] += 1
 
 
-def _spatial(name, qkv, scale, reference, btc: bool):
-    if qkv.device.type == "cpu":
-        return reference(qkv, scale)
+def _spatial(name, qkv, scale, btc: bool):
     q, k, v = (a.transpose(1, 2) for a in _split(qkv))  # (BT, h, N, d) views
     BT, h, N, d = q.shape
     if btc:
@@ -157,19 +166,21 @@ def _spatial(name, qkv, scale, reference, btc: bool):
     return out
 
 
+_spatial_heads = functools.partial(_spatial, "spatial_attention", btc=False)
+_spatial_btc = functools.partial(_spatial, "spatial_attention_btc", btc=True)
+
+
 def spatial_attention(qkv, scale):
     """:func:`spatial_reference` as one CUDA launch: (h, BT, N, d)."""
-    return _spatial("spatial_attention", qkv, scale, spatial_reference, btc=False)
+    return differentiable(_spatial_heads, spatial_reference, qkv, scale)
 
 
 def spatial_attention_btc(qkv, scale):
     """:func:`spatial_reference_btc` as one CUDA launch: (BT, N, h*d)."""
-    return _spatial("spatial_attention_btc", qkv, scale, spatial_reference_btc, btc=True)
+    return differentiable(_spatial_btc, spatial_reference_btc, qkv, scale)
 
 
-def _temporal(name, qkv, seqlen, scale, reference, btc: bool):
-    if qkv.device.type == "cpu":
-        return reference(qkv, seqlen, scale)
+def _temporal(name, qkv, seqlen, scale, btc: bool):
     q, k, v = _split(qkv)
     is_bf16 = check_operands(name, q, k, v)
     BT, N, h, d = q.shape
@@ -194,12 +205,15 @@ def _temporal(name, qkv, seqlen, scale, reference, btc: bool):
     return out
 
 
+_temporal_heads = functools.partial(_temporal, "temporal_attention", btc=False)
+_temporal_btc = functools.partial(_temporal, "temporal_attention_fused", btc=True)
+
+
 def temporal_attention(qkv, seqlen, scale):
     """:func:`temporal_reference` as one CUDA launch: (h, BT, N, d)."""
-    return _temporal("temporal_attention", qkv, seqlen, scale, temporal_reference, btc=False)
+    return differentiable(_temporal_heads, temporal_reference, qkv, seqlen, scale)
 
 
 def temporal_attention_fused(qkv, seqlen, scale):
     """:func:`temporal_reference_btc` as one CUDA launch: (BT, N, h*d)."""
-    return _temporal("temporal_attention_fused", qkv, seqlen, scale, temporal_reference_btc,
-                     btc=True)
+    return differentiable(_temporal_btc, temporal_reference_btc, qkv, seqlen, scale)

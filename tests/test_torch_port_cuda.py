@@ -790,3 +790,120 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     args = torch_mlp_args(mlp_inputs(np.random.RandomState(7), (16, 100), 64), torch.bfloat16)
     with pytest.raises(ValueError):
         TMLP.fused_ln_mlp(*(a.to(cuda) for a in args))
+
+
+# --- the kernels' autograd Functions on the card -------------------------------
+
+def _leaf(rng, shape, dtype, device, scale=1.0):
+    return (to_torch(rng.randn(*shape) * scale, dtype).to(device)).requires_grad_(True)
+
+
+def _function_case(name, shape, dtype, device):
+    """(function, plain version, arguments) of one entry point at ``shape``;
+    the floating tensors among the arguments require a gradient."""
+    rng = np.random.RandomState(12)
+    f32 = torch.float32
+
+    def leaf(s, dt=dtype, scale=1.0):
+        return _leaf(rng, s, dt, device, scale)
+
+    if name == "fast_layernorm":
+        M, C = shape
+        return TLN.fast_layernorm, TLN.layernorm_reference, (
+            leaf((M, C), scale=2.0), leaf((C,), f32), leaf((C,), f32), 1e-6)
+    if name == "fused_ln_dense":
+        M, C, O = shape
+        return TMLP.fused_ln_dense, TMLP.ln_dense_reference, (
+            leaf((M, C)), leaf((C,), f32), leaf((C,), f32), leaf((O, C), scale=C ** -0.5),
+            leaf((O,), f32, 0.1), 1e-6)
+    if name == "fused_ln_mlp":
+        M, C, H = shape
+        return TMLP.fused_ln_mlp, TMLP.ln_mlp_reference, (
+            leaf((M, C)), leaf((C,), f32), leaf((C,), f32), leaf((H, C), scale=C ** -0.5),
+            leaf((H,), f32, 0.1), leaf((C, H), scale=H ** -0.5), leaf((C,), f32, 0.1), 1e-6)
+    if name == "fused_gate_proj":
+        BT, N, C = shape
+        return (lambda *a: TMLP.fused_gate_proj(*a)[0]),\
+            (lambda *a: TMLP.gate_proj_reference(*a)[0]), (
+            leaf(shape), leaf(shape), leaf(shape), leaf((2 * C, 2 * C), scale=(2 * C) ** -0.5),
+            leaf((2 * C,), f32, 0.1), leaf((C, C), scale=C ** -0.5), leaf((C,), f32, 0.1))
+    if name == "spatial_attention_btc":
+        return TST.spatial_attention_btc, TST.spatial_reference_btc, (
+            leaf(shape), shape[-1] ** -0.5)
+    if name == "temporal_attention_fused":
+        T, shape = shape[0], shape[1:]
+        return TST.temporal_attention_fused, TST.temporal_reference_btc, (
+            leaf(shape), T, shape[-1] ** -0.5)
+    if name == "fused_groupnorm":
+        C = shape[-1]
+        return TGN.fused_groupnorm, TGN.groupnorm_reference, (
+            leaf(shape, scale=2.0), leaf((C,), f32), leaf((C,), f32, 0.1), 32, 1e-5, True,
+            leaf(shape))
+    if name == "skinning":
+        B, V = shape
+        W = rng.rand(V, 24)
+        W /= W.sum(axis=1, keepdims=True)
+        return TK.skinning, TK.skinning_reference, (
+            leaf((B, V, 3), f32, 0.3), to_torch(W, f32).to(device), leaf((B, 24, 4, 4), f32, 0.3))
+    if name in ("fused_attention", "attention_blocked"):
+        reference = TA._xla_attention if name == "fused_attention" \
+            else TA.attention_blocked_reference
+        return TA.fused_attention, reference, (
+            leaf(shape, scale=0.5), leaf(shape, scale=0.5), leaf(shape), shape[-1] ** -0.5)
+    raise KeyError(name)
+
+
+# (flagship shape, odd shape) of each entry point
+FUNCTION_SHAPES = {
+    "fast_layernorm": ((25216, 768), (37, 100)),
+    "fused_ln_dense": ((25216, 768, 2304), (100, 80, 176)),
+    "fused_ln_mlp": ((25216, 768, 3072), (100, 80, 176)),
+    "fused_gate_proj": ((128, 197, 768), (3, 37, 80)),
+    "spatial_attention_btc": ((128, 197, 3, 12, 64), (3, 37, 3, 2, 16)),
+    "temporal_attention_fused": ((16, 128, 197, 3, 12, 64), (3, 6, 5, 3, 2, 16)),
+    "fused_groupnorm": ((128, 56, 56, 256), (3, 5, 7, 64)),
+    "skinning": ((128, 6890), (3, 1111)),
+    "fused_attention": ((128, 12, 197, 64), (2, 2, 37, 16)),
+    "attention_blocked": ((8, 12, 3152, 64), (2, 2, 1025, 32)),
+}
+# each gradient against the plain version's autograd.grad at this share of
+# its largest magnitude: both are autograd through the same plain function
+# on the same inputs, so they differ only where a library reduction sums in
+# another order
+FUNCTION_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("odd", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(FUNCTION_SHAPES))
+def test_function_backward_on_the_card(cuda, name, dtype, odd):
+    """Under grad the entry point launches what it launches without grad
+    (its kernels alone, once each), its backward launches nothing, and its
+    gradients are those of autograd through its plain version."""
+    if name == "skinning" and dtype == torch.bfloat16:
+        pytest.skip("the skinning kernel is f32 only: SMPL runs in f32 in a bf16 model")
+    fn, plain, args = _function_case(name, FUNCTION_SHAPES[name][odd], dtype, cuda)
+    with torch.no_grad():
+        before = dict(kernels.LAUNCHES)
+        fn(*args)
+        torch.cuda.synchronize()
+        no_grad = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert sum(no_grad.values()) > 0
+    before = dict(kernels.LAUNCHES)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == no_grad
+    assert type(out.grad_fn).__name__ == "_RecomputeBackward"
+    inputs = [a for a in args if isinstance(a, torch.Tensor) and a.requires_grad]
+    g_out = torch.randn(out.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    g_out = g_out.to(out.dtype)
+    after_forward = dict(kernels.LAUNCHES)
+    got = torch.autograd.grad(out, inputs, g_out)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == after_forward
+    want = torch.autograd.grad(plain(*args), inputs, g_out)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g).all(), i
+        assert_close(g.float(), w.float(), FUNCTION_GRAD_TOL[dtype] * w.abs().max().item(),
+                     what=f"{name} gradient {i}")
