@@ -35,6 +35,16 @@
    as close to the same step in f64), and the bf16 gradient must lie at
    most BF16_RATIO times as far from the f32 one through the kernels as
    through the plain versions.
+7. Runs the CLIs (``phase_trainer``) at full width on
+   configs/config_stage2.yaml in f32 over synthetic DBs of the JPEG frames
+   in tests/torch_port_data: ``python -m maed_tpu_torch.train`` for 2 epochs
+   of 4 iterations with validation and checkpoints each epoch; the same
+   command with TRAIN.RESUME auto stopped by SIGTERM in epoch 2 and
+   relaunched, whose losses and last checkpoint must match the first run's;
+   ``python -m maed_tpu_torch.eval`` on model_best.pth.tar, whose metrics
+   must match the validation that chose it; the native decoder against the
+   pixels cv2 decoded from the frames; the 3D loader's rate alone with 0 and
+   8 workers.
 
 Any failed check raises. On success the last two lines are the kernels'
 record and {"ok": true, "device": {...}}. Needs a CUDA card (and exits
@@ -1052,6 +1062,297 @@ def phase_train(device):
     print(json.dumps({"train": {"card": card, **records}}))
     return launches_train
 
+# phase_trainer: the CLIs at full width on the stage-2 config, a short run
+TRAINER_ITERS, TRAINER_EPOCHS = 4, 2
+FIXTURE_DIR = ROOT / "tests" / "torch_port_data"
+# the JAX package's bound for two JPEG decoders, after the crop and the
+# normalize (tests/test_data.py::test_native_jpeg_decode_crop_matches_cv2_path)
+DECODE_BOUND = 0.06
+# the resumed run against the uninterrupted one: each step's losses, and
+# every parameter and optimizer moment (relative L2 of the whole)
+RESUME_LOSS_RTOL, RESUME_PARAM_RTOL = 1e-5, 1e-4
+METRIC_ATOL_MM = 0.05  # the eval CLI's metrics against the validation's (PERF.md section 2)
+LOADER_BATCHES = 16
+
+
+def synthetic_video_db(rng, frames, videos, length, with_3d=True):
+    """A DB in the layout of the data pipeline over ``frames`` (JPEG paths,
+    taken in turn): ``videos`` videos of ``length`` frames, a crop box
+    drifting about each frame's middle, random keypoints, poses and shapes."""
+    n = videos * length
+    db = {"vid_name": np.repeat([f"v{i:02d}" for i in range(videos)], length),
+          "img_name": np.array([frames[i % len(frames)] for i in range(n)]),
+          "frame_id": np.tile(np.arange(length), videos),
+          "bbox": np.concatenate([rng.uniform([200, 150], [280, 210], (n, 2)),
+                                  rng.uniform(140, 200, (n, 1)).repeat(2, axis=1)], axis=1),
+          "joints2D": np.concatenate([rng.uniform([140, 80], [340, 280], (n, 49, 2)),
+                                      np.ones((n, 49, 1))], axis=2).astype(np.float32)}
+    if with_3d:
+        db["joints3D"] = np.concatenate([rng.randn(n, 49, 3) * 0.3, np.ones((n, 49, 1))],
+                                        axis=2).astype(np.float32)
+        db["pose"] = (rng.randn(n, 72) * 0.2).astype(np.float32)
+        db["shape"] = (rng.randn(n, 10) * 0.5).astype(np.float32)
+    return db
+
+
+def write_trainer_dbs(workdir: Path, seed: int = 11):
+    """The stage-2 config's four DBs over the fixture frames, as plain
+    pickles under ``<workdir>/data/database``: 2D and 3D clips (12 and 72
+    chunks of 128 frames: the 3D loader's rate is timed over LOADER_BATCHES
+    batches after a first), 64 images, and 2 validation videos of one
+    128-frame window each."""
+    import pickle
+
+    rng = np.random.RandomState(seed)
+    frames = [str(p) for p in sorted(FIXTURE_DIR.glob("frame_*.jpg"))]
+    image = synthetic_video_db(rng, frames, 1, 64)
+    dbs = {"syn2d_train": synthetic_video_db(rng, frames, 4, 192, with_3d=False),
+           "syn3d_train": synthetic_video_db(rng, frames, 24, 192),
+           "synimg_train": {k: v for k, v in image.items() if k not in ("vid_name", "frame_id")},
+           "3dpw_val": synthetic_video_db(rng, frames, 2, POOL)}
+    (workdir / "data" / "database").mkdir(parents=True)
+    for name, db in dbs.items():
+        with open(workdir / "data" / "database" / f"{name}_db.pt", "wb") as f:
+            pickle.dump(db, f)
+
+
+def trainer_overrides(out: str):
+    return ["DEVICE", "cuda", "OUTPUT_DIR", out, "SEED_VALUE", "7", "NUM_WORKERS", "8",
+            "TRAIN.DATASETS_2D", "[syn2d]", "TRAIN.DATASETS_3D", "[syn3d]",
+            "TRAIN.DATASETS_IMG", "[synimg]", "TRAIN.DATASET_EVAL", "3dpw",
+            "TRAIN.NUM_ITERS_PER_EPOCH", str(TRAINER_ITERS), "TRAIN.END_EPOCH", str(TRAINER_EPOCHS),
+            "SAVE_FREQ", "1", "DEBUG_FREQ", "1",
+            # deterministic cuDNN algorithms, for the resumed run to equal the first
+            "CUDNN.BENCHMARK", "false", "CUDNN.DETERMINISTIC", "true"]
+
+
+def run_cli(workdir: Path, module: str, args, log: Path, stop_on: str | None = None,
+            timeout: float = 600):
+    """``python -m <module> --cfg configs/config_stage2.yaml
+    --allow_synthetic_smpl <args>`` in ``workdir``, its output to ``log``.
+    With ``stop_on``, SIGTERM is sent when a line containing it appears.
+    Returns the exit code; the process is always ended."""
+    import signal
+
+    cmd = [sys.executable, "-m", module, "--cfg", str(ROOT / "configs" / "config_stage2.yaml"),
+           "--allow_synthetic_smpl", *args]
+    env = dict(os.environ, PYTHONUNBUFFERED="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            for line in proc.stdout:
+                out.write(line)
+                if stop_on is not None and stop_on in line:
+                    proc.send_signal(signal.SIGTERM)
+                    stop_on = None
+                if time.perf_counter() - t0 > timeout:
+                    raise TimeoutError(f"{module} ran over {timeout} s; see {log}")
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"  {module} {' '.join(args[-4:])}: exit {rc} in {time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"{module} exited {rc}:\n" + log.read_text()[-4000:])
+    return rc
+
+
+def run_records(out_dir: Path):
+    """The train_metrics.jsonl records of every run dir under ``out_dir``,
+    oldest first."""
+    recs = []
+    for run in sorted(out_dir.iterdir()):
+        with open(run / "train_metrics.jsonl") as f:
+            recs += [json.loads(line) for line in f]
+    return recs
+
+
+def state_distance(a: dict, b: dict):
+    """(relative L2 over every tensor of two checkpoints' model and
+    optimizer state, whether all are bit-equal)."""
+    pairs = [(a["state_dict"][k], b["state_dict"][k]) for k in a["state_dict"]]
+    for i, st in a["optimizer"]["state"].items():
+        pairs += [(v, b["optimizer"]["state"][i][k]) for k, v in st.items()]
+    diff = sum(((x.double() - y.double()) ** 2).sum().item() for x, y in pairs)
+    norm = sum((y.double() ** 2).sum().item() for _, y in pairs)
+    return (diff / norm) ** 0.5, all(torch.equal(x, y) for x, y in pairs)
+
+
+def check_decoder(device):
+    """The native library's decoder on this machine against the pixels cv2
+    decoded from the fixture frames (tests/torch_port_data, made by
+    tests/test_torch_port_data.py::make_fixture_frames: blurred seeded noise
+    written by cv2 as JPEG at quality 95): the fused decode + crop +
+    normalize within DECODE_BOUND of the same crop of cv2's pixels."""
+    from maed_tpu_torch import native
+    from maed_tpu_torch.data.transforms import FusedCropNormalize
+
+    stored = np.load(FIXTURE_DIR / "decoded.npz")
+    blobs = [(FIXTURE_DIR / f"frame_{k}.jpg").read_bytes() for k in range(len(stored["sha256"]))]
+    t0 = time.perf_counter()
+    crop = FusedCropNormalize(112, 112)({"clip": blobs, "bbox": stored["bbox"]}, None)["clip"]
+    ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(crop - stored["crop"].astype(np.float32)).max())
+    raw = np.stack([native.decode(b)[::6, ::6] for b in blobs]).astype(np.int32) - stored["sub"]
+    record = dict(decoder=native.decoder(), crop_max_abs_err=err, bound=DECODE_BOUND,
+                  raw_max_abs_lsb=int(np.abs(raw).max()), raw_mean_abs_lsb=float(np.abs(raw).mean()),
+                  decode_crop_ms=ms)
+    print(f"  decoder {record['decoder']}: decode + crop of {len(blobs)} frames within {err:.4f} "
+          f"of cv2's (bound {DECODE_BOUND}); raw pixels max {record['raw_max_abs_lsb']} LSB, mean "
+          f"{record['raw_mean_abs_lsb']:.3f}; {ms:.1f} ms")
+    if not err < DECODE_BOUND:
+        raise AssertionError(f"decoder {record['decoder']}: {err} from cv2's crop, beyond "
+                             f"{DECODE_BOUND}")
+    return record
+
+
+LOADER_RATE = """
+import json, os, sys, time
+import torch
+torch.zeros(1, device="cuda")  # a live CUDA context, as in the trainer: workers from a forkserver
+from maed_tpu_torch.core.config import update_cfg
+from maed_tpu_torch.data.loaders import get_data_loaders
+cfg = update_cfg(sys.argv[1])
+cfg.merge_from_list(sys.argv[3:])
+loader = get_data_loaders(cfg, verbose=False)["train_3d"]
+it = loader.iter_from(0)
+next(it)
+t0, clips = time.perf_counter(), 0
+for _ in range(int(sys.argv[2])):
+    clips += next(it)["images"].shape[0]
+print(json.dumps(dict(used=loader.num_workers, clips_per_s=clips / (time.perf_counter() - t0))))
+it.close()
+"""
+
+
+def loader_rate(workdir: Path, workers: int):
+    """Clips a second of the 3D train loader alone (decode, crop, jitter,
+    erase, flip, stack) with ``workers`` worker processes (capped at the
+    cores less one, as get_data_loaders does), over LOADER_BATCHES batches
+    after the first, in a process of its own with a CUDA context, as the
+    trainer's."""
+    args = [str(ROOT / "configs" / "config_stage2.yaml"), str(LOADER_BATCHES),
+            *trainer_overrides("unused"), "NUM_WORKERS", str(workers)]
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    out = subprocess.run([sys.executable, "-c", LOADER_RATE, *args], cwd=workdir, env=env,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"the loader's rate run failed:\n{out.stderr[-3000:]}")
+    return dict(workers=workers, **json.loads(out.stdout.strip().splitlines()[-1]))
+
+
+def phase_trainer(device):
+    """The port's CLIs at full width on configs/config_stage2.yaml (the
+    released stage-2 MAED in f32, 3 + 4 clips of 16 frames and 7 images a
+    step) over synthetic DBs of the fixture frames: one uninterrupted run of
+    TRAINER_EPOCHS epochs of TRAINER_ITERS iterations; the same command
+    (with TRAIN.RESUME auto) stopped by SIGTERM in epoch 2 and relaunched,
+    whose last checkpoint and losses must equal the first run's; the eval
+    CLI on model_best.pth.tar against its validation; the decoder against
+    cv2's pixels; the 3D loader's rate alone. Prints one JSON record."""
+    import shutil
+    import tempfile
+
+    from maed_tpu_torch.utils.checkpoint import load_checkpoint
+
+    card = card_identity()
+    torch.cuda.empty_cache()
+    record = {"card": card, "decode": check_decoder(device)}
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    try:
+        write_trainer_dbs(workdir)
+        out1, out2 = workdir / "run1", workdir / "run2"
+        run_cli(workdir, "maed_tpu_torch.train", trainer_overrides(str(out1)), workdir / "run1.log")
+        resume = trainer_overrides(str(out2)) + ["TRAIN.RESUME", "auto"]
+        run_cli(workdir, "maed_tpu_torch.train", resume, workdir / "run2a.log",
+                stop_on=f"[Train] epoch 2/{TRAINER_EPOCHS} it 1/{TRAINER_ITERS}")
+        run_cli(workdir, "maed_tpu_torch.train", resume, workdir / "run2b.log")
+
+        # the uninterrupted run: times, memory, validation, checkpoint writes
+        recs1 = run_records(out1)
+        steps1 = [r for r in recs1 if "loss" in r]
+        timed = [r for r in recs1 if "step_s" in r]
+        per_epoch, data_ms = {}, {}
+        for r in timed:
+            per_epoch.setdefault(r["epoch"], []).append((r["data_s"] + r["step_s"]) * 1e3)
+            data_ms.setdefault(r["epoch"], []).append(r["data_s"] * 1e3)
+        iter_ms = [float(np.median(v[1:TRAINER_ITERS])) for _, v in sorted(per_epoch.items())]
+        later = [r for r in timed if r["iter"] >= 1]
+        data_share = sum(r["data_s"] for r in later) / sum(r["data_s"] + r["step_s"] for r in later)
+        evals = [r for r in recs1 if "eval" in r]
+        writes = [dict(name=r["checkpoint"], s=r["write_s"], mb=r["bytes"] / 1e6)
+                  for r in recs1 if "checkpoint" in r]
+        (run1,) = list(out1.iterdir())
+        best = float((run1 / "best.txt").read_text())
+        record.update(
+            ms_per_iteration=iter_ms, each_iteration_ms=per_epoch, each_data_ms=data_ms,
+            data_wait_share=data_share,
+            peak_memory_bytes=max(r["peak_bytes"] or 0 for r in timed),
+            validation_s_per_window_batch=[r["eval_s"] / r["window_batches"] for r in evals],
+            checkpoint_writes=writes, losses=[r["loss"] for r in steps1])
+        print(f"  run 1: ms an iteration (median of iterations 2-{TRAINER_ITERS} of each epoch, "
+              f"host clock) {iter_ms}, data wait {data_share:.3f}, peak "
+              f"{record['peak_memory_bytes'] / 2 ** 30:.2f} GiB; validation "
+              f"{record['validation_s_per_window_batch']} s a window batch; writes "
+              + ", ".join(f"{w['name']} {w['mb']:.0f} MB {w['s']:.2f} s" for w in writes))
+        if len(steps1) != TRAINER_ITERS * TRAINER_EPOCHS or not all(
+                np.isfinite(r["loss"]) for r in steps1):
+            raise AssertionError(f"run 1 recorded {len(steps1)} steps: {steps1}")
+
+        # the resumed run against it
+        (first, *_), recs2 = sorted(out2.iterdir()), run_records(out2)
+        pre = load_checkpoint(str(first / "preempt.pth.tar"))
+        steps2 = [r for r in recs2 if "loss" in r]
+        if [(r["epoch"], r["iter"]) for r in steps2] != [(r["epoch"], r["iter"]) for r in steps1]:
+            raise AssertionError(f"the resumed run's steps {[(r['epoch'], r['iter']) for r in steps2]}")
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(steps2, steps1))
+        name = f"epoch_{TRAINER_EPOCHS - 1}.pth.tar"
+        (run2_last,) = [d for d in out2.iterdir() if (d / name).is_file()]
+        rel, exact = state_distance(load_checkpoint(str(run2_last / name)),
+                                    load_checkpoint(str(run1 / name)))
+        record["resume"] = dict(stopped_at=dict(epoch=pre["epoch"], iter=pre["epoch_iter"]),
+                                loss_max_rel=loss_rel, state_rel_l2=rel, bit_equal=exact)
+        print(f"  run 2: SIGTERM in epoch {pre['epoch'] + 1}, preempt.pth.tar after iteration "
+              f"{pre['epoch_iter']}; resumed: losses max rel {loss_rel:.3e} (bound "
+              f"{RESUME_LOSS_RTOL}), {name} rel L2 {rel:.3e} (bound {RESUME_PARAM_RTOL}), "
+              f"bit for bit: {exact}")
+        if not 0 < pre["epoch_iter"] < TRAINER_ITERS or pre["epoch"] != 1:
+            raise AssertionError(f"the SIGTERM landed at epoch {pre['epoch']} iteration "
+                                 f"{pre['epoch_iter']}, not inside epoch 2")
+        if not (loss_rel <= RESUME_LOSS_RTOL and rel <= RESUME_PARAM_RTOL):
+            raise AssertionError("the resumed run left the uninterrupted one")
+
+        # the eval CLI on model_best against the validation that chose it
+        eval_log = workdir / "eval.log"
+        run_cli(workdir, "maed_tpu_torch.eval",
+                ["--checkpoint", str(run1 / "model_best.pth.tar"), "--eval_ds", "3dpw",
+                 "--eval_set", "val", "--output_path", str(workdir / "eval_out")]
+                + trainer_overrides(str(workdir / "unused")), eval_log)
+        line = [ln for ln in eval_log.read_text().splitlines() if ln.startswith("MPJPE:")][-1]
+        got = {k.strip().lower(): float(v) for k, v in
+               (part.split(":") for part in line.rstrip(",").split(","))}
+        (chosen,) = [r["eval"] for r in evals if r["eval"]["pa-mpjpe"] == best]
+        worst = max(abs(got[k] - v) for k, v in chosen.items())
+        record["eval_cli"] = dict(metrics=got, validation=chosen, max_abs_mm=worst)
+        print(f"  eval CLI on model_best: {got}; against its validation max {worst:.4f} mm "
+              f"(bound {METRIC_ATOL_MM})")
+        if not worst <= METRIC_ATOL_MM or not (workdir / "eval_out" / "inference.pkl").is_file():
+            raise AssertionError("the eval CLI disagrees with the validation or wrote no "
+                                 "inference.pkl")
+
+        record["loader"] = [loader_rate(workdir, w) for w in (0, 8)]
+        print("  3D loader alone: " + ", ".join(
+            f"{r['clips_per_s']:.1f} clips/s with {r['used']} workers" for r in record["loader"]))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"trainer": record}))
+    return record
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1083,6 +1384,7 @@ def main() -> int:
     eval_launches = phase_eval(device)
     phase_modes(device, clips[0], jreg)
     train_launches = phase_train(device)
+    phase_trainer(device)
 
     src, jax_ops = "maed_tpu_torch/", "maed_tpu/ops/"
     kernels_line = [

@@ -7,14 +7,18 @@ module layout mirrors it so each counterpart sits at the same relative path:
             (``layernorm``: Triton; ``mlp``, ``groupnorm``, ``st_attention``,
             ``attention`` and ``skinning``: CUDA C++)
   models/   ResNetV2 hybrid stem, ViT/STE encoder, KTD decoder, MAED
-  utils/    SMPL model files, weight-standardization folding, JAX weights
-  core/     ``builder.build_eval_model``, the eval entry point
+  utils/    SMPL model files, checkpoints, JAX weights, logging
+  core/     config, builder (the entry points), loss, Evaluator, Trainer
+  data/     datasets, augmentations, loaders
+  native/   the C++ data path (JPEG decode, crop, normalize), built with g++
   csrc/     CUDA C++ sources, built with nvcc at first use
   kernels/  the build of ``csrc`` and its ctypes bindings, launch counts
+  train.py, eval.py   the CLIs (``python -m maed_tpu_torch.train`` / ``.eval``)
 
-The package imports torch and numpy only: never jax, flax or anything of
-``maed_tpu``, and never triton at import time (Triton is imported inside the
-function that launches its kernel).
+The package imports torch and numpy only: never jax, flax, pyyaml, cv2, PIL
+or anything of ``maed_tpu`` (joblib only where it is installed), and never
+triton at import time (Triton is imported inside the function that launches
+its kernel).
 """
 
 __version__ = "0.1.0"

@@ -2,12 +2,15 @@
 training.
 
 Port of ``maed_tpu/core/builder.py::build_eval_model``. It takes keyword
-arguments instead of a yaml config (pyyaml is not promised where the port
-runs), and seeded random weights when no state_dict is given. As in the JAX
-builder, weight standardization is folded into the stem's weights, so the
-model runs the ``standardize_ws=False`` path. :func:`build_train_model`
-builds the model that ``parallel.train_step`` trains: f32 master weights,
-cast at use, and the standardization in the forward.
+arguments (:func:`model_config` makes them from a config), and seeded
+random weights when no state_dict is given. As in the JAX builder, weight
+standardization is folded into the stem's weights, so the model runs the
+``standardize_ws=False`` path. :func:`build_train_model` builds the model
+that ``parallel.train_step`` trains: f32 master weights, cast at use, and
+the standardization in the forward. :func:`load_weights` reads the weights
+of a ``.pth.tar``: the port's own checkpoints and the reference-layout file
+``python -m maed_tpu.utils.torch_convert`` exports from a JAX run (orbax
+directories are not read: that converter is the way across).
 """
 
 from __future__ import annotations
@@ -21,8 +24,54 @@ from maed_tpu_torch.models.maed import MAED
 from maed_tpu_torch.models.resnetv2 import GroupNormAct, StdConv
 from maed_tpu_torch.models.vit import FastLayerNorm, Mlp, StAttention
 from maed_tpu_torch.ops.smpl import SMPLModel
-from maed_tpu_torch.utils.checkpoint import fold_weight_standardization
+from maed_tpu_torch.utils.checkpoint import (fold_weight_standardization, load_checkpoint,
+                                             state_dict_of)
 from maed_tpu_torch.utils.smpl_io import find_smpl_model
+
+
+def model_config(cfg) -> dict:
+    """The model keyword arguments of :func:`build_train_model` and
+    :func:`build_eval_model` from a config's MODEL and DATASET sections.
+    Only the stage-2 model (encoder 'ste', decoder 'ktd') is ported."""
+    enc, dec, d = cfg.MODEL.ENCODER, cfg.MODEL.DECODER, cfg.DATASET
+    if enc.BACKBONE.lower() != "ste" or dec.BACKBONE.lower() != "ktd":
+        raise NotImplementedError(
+            f"encoder {enc.BACKBONE!r} + decoder {dec.BACKBONE!r}: the port builds the stage-2 "
+            "MAED (ste + ktd) only; stage 1 is ROADMAP.md queue 1, item 5")
+    if d.WIDTH != d.HEIGHT:
+        raise ValueError(f"DATASET.WIDTH {d.WIDTH} != HEIGHT {d.HEIGHT}: the model takes square crops")
+    return dict(num_blocks=enc.NUM_BLOCKS, num_heads=enc.NUM_HEADS, hidden_dim=dec.HIDDEN_DIM,
+                img_size=d.WIDTH, st_mode=enc.SPA_TEMP_MODE)
+
+
+def load_weights(path: str) -> dict:
+    """The reference-named state_dict of a ``.pth(.tar)`` checkpoint."""
+    if not path.endswith((".pth", ".pth.tar", ".pt", ".tar")):
+        raise ValueError(f"{path}: the port reads .pth.tar checkpoints; convert an orbax "
+                         "directory with `python -m maed_tpu.utils.torch_convert`")
+    return state_dict_of(load_checkpoint(path))
+
+
+def device_of(cfg) -> torch.device:
+    """The device a config runs on: the CPU for DEVICE 'cpu', else the card
+    (the schema's default 'tpu' and the reference's 'cuda' alike), which
+    must be present: a run meant for the card never carries on on the CPU."""
+    if str(cfg.DEVICE).lower() == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"DEVICE {cfg.DEVICE!r} needs a CUDA device and none is visible; "
+                           "set DEVICE cpu to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def configure_backends(cfg) -> None:
+    """cuDNN's flags from the config's CUDNN section, as the reference sets
+    them, and TF32 off: the model's f32 is f32 arithmetic."""
+    torch.backends.cudnn.benchmark = bool(cfg.CUDNN.BENCHMARK)
+    torch.backends.cudnn.deterministic = bool(cfg.CUDNN.DETERMINISTIC)
+    torch.backends.cudnn.enabled = bool(cfg.CUDNN.ENABLED)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def init_weights_(model: MAED, seed: int) -> None:

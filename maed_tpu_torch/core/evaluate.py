@@ -21,7 +21,9 @@ slicing and the fetches overlap the card's work.
 
 from __future__ import annotations
 
+import os
 import os.path as osp
+import pickle
 import sys
 import time
 from collections import defaultdict
@@ -36,6 +38,7 @@ from maed_tpu_torch.ops.smpl import SMPLModel, smpl_forward
 
 DATA_DIR = "data/smpl_data"  # where the external regressors are looked for
 GT_VERTS_CHUNK = 5000        # poses a GT-vertex rebuild takes at once
+SAVE_FIELDS = ("pred_theta", "pred_verts", "paths", "bboxes")  # what inference.pkl holds
 
 
 def load_eval_regressor(dataset_name: str, data_dir: Optional[str] = None,
@@ -263,7 +266,9 @@ class Evaluator:
                             pose_axis_angle=theta[:, 3:75])["vertices"]
 
     @torch.inference_mode()
-    def evaluate(self) -> tuple[Dict[str, float], int]:
+    def evaluate(self, save_path: str = "") -> tuple[Dict[str, float], int]:
+        """The five metrics (mm) over the accumulated poses, and their count;
+        with ``save_path``, :meth:`save_result` writes the predictions there."""
         if "target_j3d" not in self.accumulators:
             raise RuntimeError(
                 "no ground truth accumulated: the input had no confident "
@@ -296,6 +301,8 @@ class Evaluator:
             "accel": md["accel"].mean().item() * m2mm,
             "accel_err": md["accel_err"].mean().item() * m2mm,
         }
+        if save_path:
+            self.save_result(save_path)
         return eval_dict, num_pred
 
     def sync_metrics(self, eval_dict, num_pred):
@@ -312,13 +319,13 @@ class Evaluator:
         print(desc + " ".join(f"{k.upper()}: {v:.4f}," for k, v in eval_dict.items()))
 
     def run(self, forward, dataloader, seqlen=16, interp=1, dataset_name="3dpw",
-            J_regressor=None, verbose=True, batch_size=None,
+            J_regressor=None, save_path="", verbose=True, batch_size=None,
             allow_missing_regressor=False, data_dir=None):
         self.inference(forward, dataloader, seqlen=seqlen, interp=interp,
                        dataset_name=dataset_name, J_regressor=J_regressor,
                        batch_size=batch_size, verbose=verbose,
                        allow_missing_regressor=allow_missing_regressor, data_dir=data_dir)
-        eval_dict, num_pred = self.evaluate()
+        eval_dict, num_pred = self.evaluate(save_path)
         eval_dict, num_pred = self.sync_metrics(eval_dict, num_pred)
         if verbose:
             self.log(eval_dict, num_pred)
@@ -337,5 +344,18 @@ class Evaluator:
         return gates
 
     def save_result(self, save_path):
-        raise NotImplementedError(
-            "writing inference.pkl (joblib) is not ported yet: see ROADMAP.md")
+        """Write ``<save_path>/inference.pkl``: the predicted theta and
+        vertices, and the frames' paths and bboxes where the data had them,
+        one row a pose. Written by joblib where it is installed (as the JAX
+        package does), else as a plain pickle, which joblib.load also reads."""
+        os.makedirs(save_path, exist_ok=True)
+        acc = {k: np.concatenate(v, axis=0) for k, v in self.accumulators.items()
+               if k in SAVE_FIELDS}
+        path = osp.join(save_path, "inference.pkl")
+        try:
+            import joblib
+        except ImportError:
+            with open(path, "wb") as f:
+                pickle.dump(acc, f, protocol=pickle.HIGHEST_PROTOCOL)
+        else:
+            joblib.dump(acc, path)

@@ -1,0 +1,71 @@
+"""Evaluation CLI of the port:
+
+    python -m maed_tpu_torch.eval --cfg <yaml> --checkpoint <ckpt.pth.tar> \
+        --eval_ds 3dpw --eval_set test [--output_path <dir>] \
+        [--allow_synthetic_smpl] [KEY VALUE ...]
+
+Port of the JAX package's ``eval.py``: the model from the config in f32
+(the reference protocol) with the checkpoint's weights loaded strictly
+(``core.builder.load_weights``: the port's ``.pth.tar`` files and the
+reference-layout export of ``python -m maed_tpu.utils.torch_convert``),
+the eval set's windows (``data.dataset.VideoDataset`` over
+``<DB_DIR>/<eval_ds>_<eval_set>_db.pt``, ``data.loaders.ShardedLoader``)
+and ``core.evaluate.Evaluator.run``, which prints the five metrics and,
+with ``--output_path``, writes ``inference.pkl`` there. It runs on the card
+unless the config says ``DEVICE cpu``.
+"""
+
+from __future__ import annotations
+
+
+def main(argv=None):
+    """Returns (metrics, poses) of the run."""
+    # imported here, not at the top: loader workers started from a forkserver
+    # import the main module, and should not pay for torch and the model
+    import torch
+
+    from maed_tpu_torch.core.builder import (build_eval_model, configure_backends, device_of,
+                                             load_weights, model_config)
+    from maed_tpu_torch.core.config import parse_args
+    from maed_tpu_torch.core.evaluate import Evaluator
+    from maed_tpu_torch.core.trainer import single_process_only
+    from maed_tpu_torch.data.dataset import VideoDataset
+    from maed_tpu_torch.data.loaders import ShardedLoader
+    from maed_tpu_torch.data.transforms import build_eval_transforms
+
+    args, cfg, _ = parse_args(argv)
+    single_process_only("python -m maed_tpu_torch.eval")
+    device = device_of(cfg)
+    configure_backends(cfg)
+
+    ckpt_path = args.checkpoint or args.pretrained  # the reference CLI took --pretrained
+    model, smpl = build_eval_model(
+        **model_config(cfg), dtype=torch.float32, device=device,
+        state_dict=load_weights(ckpt_path) if ckpt_path else None,
+        allow_synthetic_smpl=args.allow_synthetic_smpl)
+
+    d = cfg.DATASET
+    dataset = VideoDataset(
+        args.eval_ds, args.eval_set,
+        build_eval_transforms(d.WIDTH, d.HEIGHT, device_normalize=bool(d.DEVICE_PREPROC),
+                              device_crop=bool(d.DEVICE_CROP)),
+        seqlen=0, sample_pool=cfg.EVAL.SAMPLE_POOL, overlap=0,
+        random_sample=False, random_start=False,
+    )
+    loader = ShardedLoader(dataset, cfg.EVAL.BATCH_SIZE, shuffle=False, drop_last=False)
+
+    def forward(images, J_regressor=None):
+        return model(images, smpl, J_regressor=J_regressor)
+
+    return Evaluator(smpl).run(
+        forward, loader, seqlen=cfg.EVAL.SEQLEN, interp=cfg.EVAL.INTERPOLATION,
+        dataset_name=args.eval_ds, save_path=args.output_path,
+        batch_size=cfg.EVAL.BATCH_SIZE,
+        # the smoke runs' opt-in, as for the body: without the real h36m
+        # regressor the metrics use the native joint bank
+        allow_missing_regressor=args.allow_synthetic_smpl,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,101 @@
+"""Training CLI of the port:
+
+    python -m maed_tpu_torch.train --cfg configs/config_stage2.yaml \
+        [--pretrained stage1.pth.tar] [--allow_synthetic_smpl] [KEY VALUE ...]
+
+Port of the JAX package's ``train.py``, for one process: the model from the
+config (``core.builder.build_train_model``: the stage-2 MAED in f32), the
+loaders (``data.loaders.get_data_loaders``), Adam and its schedule
+(``parallel.train_step.make_optimizer``), the step
+(``parallel.train_step.make_train_step``) and ``core.trainer.Trainer``.
+It runs on the card unless the config says ``DEVICE cpu``, and fails when
+no card is visible. A SIGTERM stops it after the step in flight with
+``preempt.pth.tar`` written; it then exits 0, or MAED_PREEMPT_EXIT when
+that is set, and ``TRAIN.RESUME auto`` continues the run.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+
+def main(argv=None):
+    """Returns the Trainer after its run (it exits on a preemption)."""
+    # imported here, not at the top: loader workers started from a forkserver
+    # import the main module, and should not pay for torch and the model
+    import numpy as np
+    import torch
+
+    from maed_tpu_torch.core.builder import (build_train_model, configure_backends, device_of,
+                                             load_weights, model_config)
+    from maed_tpu_torch.core.config import parse_args
+    from maed_tpu_torch.core.loss import LossWeights
+    from maed_tpu_torch.core.trainer import Trainer
+    from maed_tpu_torch.data.loaders import get_data_loaders
+    from maed_tpu_torch.parallel.train_step import make_optimizer, make_train_step
+    from maed_tpu_torch.utils.checkpoint import load_pretrained_state
+    from maed_tpu_torch.utils.logging_utils import create_logger, prepare_output_dir
+
+    args, cfg, _ = parse_args(argv)
+    if args.init_backbone:
+        raise NotImplementedError(
+            "--init_backbone (the published encoder init) is not ported yet: "
+            "ROADMAP.md, queue 1, item 5")
+    device = device_of(cfg)
+    configure_backends(cfg)
+
+    logdir = prepare_output_dir(cfg.OUTPUT_DIR, cfg.EXP_NAME, cfg.dump())
+    logger = create_logger(logdir)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    logger.info(f"device: {device} ({name}), torch {torch.__version__}")
+
+    seed = max(cfg.SEED_VALUE, 0)
+    if cfg.SEED_VALUE >= 0:
+        np.random.seed(cfg.SEED_VALUE)
+        torch.manual_seed(cfg.SEED_VALUE)
+
+    model, smpl = build_train_model(**model_config(cfg), device=device, seed=seed,
+                                    allow_synthetic_smpl=args.allow_synthetic_smpl)
+    if args.pretrained:
+        unused = load_pretrained_state(model, load_weights(args.pretrained), drop_decoder=True)
+        logger.info(f"=> loaded the pretrained encoder from {args.pretrained}"
+                    + (f"; {len(unused)} keys unused: {unused[:5]}" if unused else ""))
+
+    loaders = get_data_loaders(cfg)
+    steps_per_epoch = (
+        cfg.TRAIN.NUM_ITERS_PER_EPOCH
+        if cfg.TRAIN.NUM_ITERS_PER_EPOCH > 0
+        else max(len(ld) for k, ld in loaders.items() if k.startswith("train"))
+    )
+    optimizer = make_optimizer(cfg.TRAIN.OPTIM, steps_per_epoch, model.parameters())
+    weights = LossWeights(
+        kp_2d=cfg.LOSS.KP_2D_W, kp_3d=cfg.LOSS.KP_3D_W, shape=cfg.LOSS.SHAPE_W,
+        pose=cfg.LOSS.POSE_W, norm=cfg.LOSS.SMPL_NORM, accl=cfg.LOSS.ACCL_W,
+    )
+    generator = torch.Generator(device=device).manual_seed(seed)
+    train_step = make_train_step(model, optimizer, smpl, weights, generator)
+
+    def eval_forward(images, J_regressor=None):
+        return model(images, smpl, J_regressor=J_regressor)
+
+    trainer = Trainer(
+        data_loaders=loaders, train_step=train_step, model=model, optimizer=optimizer,
+        generator=generator, smpl_model=smpl, cfg=cfg, logdir=logdir,
+        eval_forward=eval_forward, logger=logger,
+        num_iters_per_epoch=cfg.TRAIN.NUM_ITERS_PER_EPOCH,
+        allow_missing_regressor=args.allow_synthetic_smpl,
+        log_freq=cfg.DEBUG_FREQ,
+    )
+    trainer.fit()
+    if trainer.preempted:
+        logger.info(f"preempted — resume with TRAIN.RESUME={logdir}/preempt.pth.tar "
+                    "(or TRAIN.RESUME auto)")
+        # 0 by default (pod managers read nonzero as a failure); a relaunch
+        # loop that must tell "preempted" from "finished" sets MAED_PREEMPT_EXIT
+        sys.exit(int(os.environ.get("MAED_PREEMPT_EXIT", "0")))
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

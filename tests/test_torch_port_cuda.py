@@ -1,5 +1,7 @@
 """The port's kernels against their plain versions on the card, at small and
-ragged shapes (chip_smoke.py checks them at the flagship shapes).
+ragged shapes (chip_smoke.py checks them at the flagship shapes); the native
+JPEG decoder of the card's machine against cv2's pixels of the fixture
+frames, and the loader's workers under a live CUDA context.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 The machine with the card has no JAX, and tests/conftest.py imports it, so
@@ -7,6 +9,8 @@ run these there with:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -907,3 +911,61 @@ def test_function_backward_on_the_card(cuda, name, dtype, odd):
         assert torch.isfinite(g).all(), i
         assert_close(g.float(), w.float(), FUNCTION_GRAD_TOL[dtype] * w.abs().max().item(),
                      what=f"{name} gradient {i}")
+
+
+FIXTURE_DIR = Path(__file__).resolve().parent / "torch_port_data"
+DECODE_BOUND = 0.06  # after the crop and the normalize: tests/test_data.py's bound for two decoders
+
+
+def test_native_decoder_against_cv2s_pixels(cuda):
+    """The native library's decoder on this machine (nvJPEG where libjpeg is
+    absent) on the fixture frames (made by
+    tests/test_torch_port_data.py::make_fixture_frames): its fused decode +
+    crop + normalize within DECODE_BOUND of the same crop of the pixels cv2
+    decoded from them, through the bytes path and through the single-image
+    decode."""
+    from maed_tpu_torch import native
+    from maed_tpu_torch.data.transforms import FusedCropNormalize
+
+    stored = np.load(FIXTURE_DIR / "decoded.npz")
+    blobs = [(FIXTURE_DIR / f"frame_{k}.jpg").read_bytes() for k in range(len(stored["sha256"]))]
+    want = stored["crop"].astype(np.float32)
+    crop = FusedCropNormalize(112, 112)
+    for clip in (blobs, [native.decode(b) for b in blobs]):
+        got = crop({"clip": clip, "bbox": stored["bbox"]}, None)["clip"]
+        assert np.abs(got - want).max() < DECODE_BOUND
+    assert all(native.decode(b).shape == (360, 480, 3) for b in blobs)
+    with pytest.raises(IOError):
+        native.decode(blobs[0][:100])
+
+
+def test_loader_workers_under_a_live_cuda_context(cuda, monkeypatch):
+    """With a CUDA context in the process the workers start from a
+    forkserver, and give the batches of the in-process loader."""
+    from maed_tpu_torch.core.config import get_cfg_defaults
+    from maed_tpu_torch.data import loaders as TL
+    from maed_tpu_torch.data.dataset import VideoDataset
+    from maed_tpu_torch.data.transforms import build_train_transforms
+
+    monkeypatch.delenv("MAED_LOADER_MP", raising=False)
+    torch.zeros(1, device=cuda)
+    assert torch.cuda.is_initialized() and TL._default_start_method() == "forkserver"
+    rng = np.random.RandomState(0)
+    frames = [str(p) for p in sorted(FIXTURE_DIR.glob("frame_*.jpg"))]
+    n = 48
+    db = {"vid_name": np.repeat(["a", "b"], n // 2), "img_name": np.array(frames * (n // 4)),
+          "frame_id": np.arange(n), "bbox": np.tile([240.0, 180.0, 160.0, 160.0], (n, 1)),
+          "joints2D": np.concatenate([rng.rand(n, 49, 2) * 300, np.ones((n, 49, 1))], -1),
+          "joints3D": np.concatenate([rng.randn(n, 49, 3), np.ones((n, 49, 1))], -1),
+          "pose": rng.randn(n, 72) * 0.2, "shape": rng.randn(n, 10)}
+    d = get_cfg_defaults().DATASET
+    d.update(WIDTH=64, HEIGHT=64)
+    ds = VideoDataset("syn", "train", build_train_transforms(d), seqlen=4, sample_pool=8,
+                      db=db, verbose=False)
+    got, want = (list(TL.ShardedLoader(ds, 2, shuffle=True, seed=5, num_workers=w).iter_from(1))
+                 for w in (2, 0))
+    assert len(got) == len(want) > 2
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for key in w:
+            assert np.array_equal(np.asarray(g[key]), np.asarray(w[key])), key

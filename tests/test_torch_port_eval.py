@@ -16,6 +16,7 @@ frames of distances between such points, at 0.1 mm + 1e-3 relative.
 import functools
 from types import SimpleNamespace
 
+import joblib
 import numpy as np
 import pytest
 import jax
@@ -326,15 +327,13 @@ def test_evaluator_gt_verts_match_jax(tiny_models):
     assert_close(got, want, 1e-5)
 
 
-def test_evaluator_errors_and_what_is_not_ported(tiny_models):
+def test_evaluator_errors_and_what_is_not_ported(tiny_models, tmp_path):
     (_, _), (t_forward, t_smpl) = tiny_models
     ev = TE.Evaluator(t_smpl)
     windows = list(Windows("49"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ev.inference(t_forward, [dict(windows[0], trans=np.zeros((2, POOL, 2, 3)))], seqlen=2,
                      dataset_name="testset", verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ev.save_result("somewhere")
     assert ev.sync_metrics({"mpjpe": 1.0}, 3) == ({"mpjpe": 1.0}, 3)
     # GT-free input: predictions accumulate, evaluate has nothing to score
     blind = dict(windows[0])
@@ -342,6 +341,10 @@ def test_evaluator_errors_and_what_is_not_ported(tiny_models):
     ev.inference(lambda x, jreg: echo(x, torch), [blind], seqlen=2, dataset_name="testset",
                  verbose=False)
     assert "pred_verts" in ev.accumulators and "target_j3d" not in ev.accumulators
+    # the predictions are saved all the same
+    ev.save_result(str(tmp_path))
+    saved = joblib.load(tmp_path / "inference.pkl")
+    assert saved["pred_verts"].shape == np.concatenate(ev.accumulators["pred_verts"]).shape
     with pytest.raises(RuntimeError, match="no ground truth"):
         ev.evaluate()
     # GT presence must not flip between batches

@@ -1,13 +1,18 @@
-"""maed_tpu_torch imports and runs without JAX, flax or triton, as it must on
-the machine with the card (which has no JAX): a fresh interpreter in which
-importing any of them fails imports every module of the port, maps a flax
-parameter tree onto the port's state_dict, runs the tiny eval forward of a
-parallel and of a coupling model on the CPU, drives
-``core.evaluate.Evaluator.run`` over the coupling one and takes one stage-2
-train step (``build_train_model``, ``make_optimizer``, ``make_train_step``:
-both forwards, the backward through the kernels' autograd Functions, the
-Adam update); in the end no module of maed_tpu, jax, flax or triton is
-loaded."""
+"""maed_tpu_torch imports and runs without JAX, flax, triton, pyyaml, cv2,
+joblib or PIL, as it must on the machine with the card (which has no JAX and
+is promised none of the others): a fresh interpreter in which importing any
+of them fails imports every module of the port, maps a flax parameter tree
+onto the port's state_dict, runs the tiny eval forward of a parallel and of
+a coupling model on the CPU, drives ``core.evaluate.Evaluator.run`` over
+the coupling one and takes one stage-2 train step (``build_train_model``,
+``make_optimizer``, ``make_train_step``: both forwards, the backward
+through the kernels' autograd Functions, the Adam update). Then it runs
+``python -m maed_tpu_torch.train`` on a tiny config (``DEVICE cpu``, 2
+iterations, 1 epoch) over synthetic DBs written as plain pickles, whose
+frames are the JPEGs of tests/torch_port_data, and
+``python -m maed_tpu_torch.eval`` on its model_best.pth.tar, which writes
+inference.pkl. In the end no module of maed_tpu, jax, flax, triton, yaml,
+cv2, joblib or PIL is loaded."""
 
 import os
 import subprocess
@@ -16,9 +21,12 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 
+BLOCKED = ("maed_tpu", "jax", "flax", "triton", "yaml", "cv2", "joblib", "PIL")
+
 SCRIPT = """
 import importlib, pkgutil, sys
-sys.modules["jax"] = sys.modules["flax"] = sys.modules["triton"] = None
+for name in BLOCKED:
+    sys.modules[name] = None
 import numpy as np
 import torch
 torch.set_num_threads(1)  # tiny shapes: the thread pool would only contend with other workers
@@ -76,15 +84,84 @@ img = {"image": torch.randint(0, 256, (1, 32, 32, 3), dtype=torch.uint8),
 out = step(vid, img)
 assert all(torch.isfinite(v) for v in out.values()), out
 assert all(not torch.equal(a, b) for a, b in zip(before, model.parameters()) if b.grad.abs().sum() > 0)
+
+import glob, os, pickle, runpy
+os.makedirs("data/database")
+frames = sorted(glob.glob(os.path.join(FIXTURES, "frame_*.jpg")))
+def video_db(n, seed, with_3d=True):
+    rng = np.random.RandomState(seed)
+    db = {"vid_name": np.array(["a"] * (n // 2) + ["b"] * (n - n // 2)),
+          "img_name": np.array([frames[i % len(frames)] for i in range(n)]),
+          "frame_id": np.arange(n), "bbox": np.tile([240.0, 180.0, 150.0, 150.0], (n, 1)),
+          "joints2D": np.concatenate([rng.rand(n, 49, 2) * 300, np.ones((n, 49, 1))], -1)}
+    if with_3d:
+        db["joints3D"] = np.concatenate([rng.randn(n, 49, 3) * 0.3, np.ones((n, 49, 1))], -1)
+        db["pose"], db["shape"] = rng.randn(n, 72) * 0.2, rng.randn(n, 10) * 0.5
+    return db
+dbs = {"syn2d_train": video_db(12, 0, False), "syn3d_train": video_db(12, 1),
+       "3dpw_val": video_db(12, 2), "synimg_train": {k: v for k, v in video_db(6, 3).items()
+                                                      if k not in ("vid_name", "frame_id")}}
+for name, db in dbs.items():
+    with open(f"data/database/{name}_db.pt", "wb") as f:
+        pickle.dump(db, f)
+open("tiny.yaml", "w").write(CONFIG)
+def cli(module, *argv):
+    sys.argv = [module, "--cfg", "tiny.yaml", "--allow_synthetic_smpl", *argv]
+    runpy.run_module(module, run_name="__main__")
+cli("maed_tpu_torch.train")
+(logdir,) = glob.glob("results/*_tiny")
+assert sorted(os.listdir(logdir)) == ["best.txt", "config.yaml", "epoch_0.pth.tar",
+                                      "model_best.pth.tar", "train_log.txt", "train_metrics.jsonl"]
+cli("maed_tpu_torch.eval", "--checkpoint", os.path.join(logdir, "model_best.pth.tar"),
+    "--eval_ds", "3dpw", "--eval_set", "val", "--output_path", "out")
+with open("out/inference.pkl", "rb") as f:
+    out = pickle.load(f)
+assert sorted(out) == ["bboxes", "paths", "pred_theta", "pred_verts"], sorted(out)
 assert not [name for name, mod in sys.modules.items()
-            if mod is not None and name.split(".")[0] in ("maed_tpu", "jax", "flax", "triton")]
+            if mod is not None and name.split(".")[0] in BLOCKED]
 print("NOJAX_OK")
+"""
+
+CONFIG = """\
+DEVICE: cpu
+EXP_NAME: tiny
+NUM_WORKERS: 0
+SEED_VALUE: 1
+SAVE_FREQ: 1
+DATASET:
+  WIDTH: 32
+  HEIGHT: 32
+  SEQLEN: 4
+  SAMPLE_POOL: 4
+EVAL:
+  SEQLEN: 4
+  SAMPLE_POOL: 8
+  BATCH_SIZE: 2
+TRAIN:
+  BATCH_SIZE_2D: 1
+  BATCH_SIZE_3D: 1
+  BATCH_SIZE_IMG: 1
+  NUM_ITERS_PER_EPOCH: 2
+  END_EPOCH: 1
+  DATASETS_2D: [syn2d]
+  DATASETS_3D: [syn3d]
+  DATASETS_IMG: [synimg]
+  DATASET_EVAL: 3dpw
+MODEL:
+  ENCODER:
+    NUM_BLOCKS: 1
+    NUM_HEADS: 2
+    SPA_TEMP_MODE: parallel
+  DECODER:
+    HIDDEN_DIM: 32
 """
 
 
 def test_port_runs_without_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=tmp_path, env=env,
+    script = (f"BLOCKED = {BLOCKED!r}\nFIXTURES = {str(REPO / 'tests' / 'torch_port_data')!r}\n"
+              f"CONFIG = {CONFIG!r}\n" + SCRIPT)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX_OK" in proc.stdout
