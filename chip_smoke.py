@@ -45,6 +45,17 @@
    must match the validation that chose it; the native decoder against the
    pixels cv2 decoded from the frames; the 3D loader's rate alone with 0 and
    8 workers.
+8. Stage 1 (``phase_stage1``): ``build_train_model`` for the ResNet-50
+   with BatchNorm and KTD at full width in f32, 3 steps of 128 uint8 images
+   through kernel A (its only kernel: the ResNet stays on cuDNN), through
+   A's plain version and through the plain versions in f64, held to each
+   other with the running statistics (STAGE1_STATS_RTOL, F32_GRAD_RATIO);
+   a bf16 eval forward of 8 clips x 16 frames through cnn + ktd and cnn +
+   iterative by BF16_RATIO; A at B = 128; ``python -m maed_tpu_torch.train
+   --cfg configs/config_stage1.yaml`` for 2 epochs of 3 iterations,
+   resumed after SIGTERM bit for bit, BatchNorm buffers included, and the
+   eval CLI on its model_best.pth.tar; the published-backbone import
+   (``--init_backbone``) from a synthetic in21k .npz and a timm .pth.
 
 Any failed check raises. On success the last two lines are the kernels'
 record and {"ok": true, "device": {...}}. Needs a CUDA card (and exits
@@ -56,6 +67,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -100,6 +112,8 @@ def per_forward(mode: str, depth: int = 6, dtype: torch.dtype = torch.bfloat16,
     from maed_tpu_torch import kernels
 
     counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    if mode == "cnn":  # stage 1's ResNet-50 stays on cuDNN; then SMPL's skinning
+        return dict(counts, skinning=1)
     counts.update(layernorm=1, skinning=1, ln_rows=depth, ln_mlp_fc1=depth, ln_mlp_fc2=depth)
     counts["groupnorm" if dtype == torch.bfloat16 else "groupnorm_strided"] = 52
     for name in BLOCK_KERNELS[mode]:
@@ -196,6 +210,11 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def rel_l2(a, b):
+    """The L2 distance of ``a`` from ``b``, relative to ``b``'s norm."""
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
 def check_close(name, got, want, atol, rtol=0.0):
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
@@ -237,6 +256,19 @@ def compare(label, kernel, plain, atol, rtol, moved=None, flops=0.0, kind="bf16"
     return record
 
 
+def skinning_inputs(rng, B, device):
+    """Kernel A's inputs for B frames, f32: rest vertices, weights normalized
+    per vertex, rigid joint transforms."""
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device, torch.float32)  # noqa: E731
+    v_posed = T(rng.randn(B, NUM_VERTS, 3) * 0.3)
+    W = rng.rand(NUM_VERTS, 24) ** 4
+    W = T(W / W.sum(axis=1, keepdims=True))
+    q, _ = np.linalg.qr(rng.randn(B * 24, 3, 3))
+    A = np.zeros((B * 24, 4, 4))
+    A[:, :3, :3], A[:, :3, 3], A[:, 3, 3] = q, rng.randn(B * 24, 3) * 0.3, 1.0
+    return v_posed, W, T(A.reshape(B, 24, 4, 4))
+
+
 def phase_kernels(device):
     """Each kernel against its plain version at the flagship shapes, timed in
     f32 and bf16. The records kept are the bf16 ones (the serving dtype);
@@ -254,15 +286,8 @@ def phase_kernels(device):
     kinds = {f32: "f32", bf16: "bf16"}  # the peak a product of that dtype is held to
     record = {}
 
-    # A: skinning, f32. Rigid joint transforms, weights normalized per vertex.
-    v_posed = T(rng.randn(B, NUM_VERTS, 3) * 0.3)
-    W = rng.rand(NUM_VERTS, 24) ** 4
-    W = T(W / W.sum(axis=1, keepdims=True))
-    q, _ = np.linalg.qr(rng.randn(B * 24, 3, 3))
-    A = np.zeros((B * 24, 4, 4))
-    A[:, :3, :3], A[:, :3, 3], A[:, 3, 3] = q, rng.randn(B * 24, 3) * 0.3, 1.0
-    A = T(A.reshape(B, 24, 4, 4))
-    args = (v_posed, W, A)
+    args = skinning_inputs(rng, B, device)
+    v_posed = args[0]
     print(f"kernel A skinning: v_posed {tuple(v_posed.shape)} f32")
     # per vertex: 24 joints blended into a 3x4 transform, then applied
     record["skinning"] = compare(
@@ -959,12 +984,10 @@ def check_f32_train(record, loss_k, loss_p, grad, plain_grad, stem, loss_64, gra
     """The f32 step's limits (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL outside the
     stem, F32_GRAD_RATIO against the f64 step); adds the distances to
     ``record``."""
-    def dist(a, b):
-        return ((a.double() - b.double()).norm() / b.double().norm()).item()
-
-    rest = dist(grad[~stem], plain_grad[~stem])
-    kern, plain = dist(grad, grad_64), dist(plain_grad, grad_64)
-    record.update(grad_rel_l2_outside_stem=rest, grad_rel_l2_stem=dist(grad[stem], plain_grad[stem]),
+    rest = rel_l2(grad[~stem], plain_grad[~stem])
+    kern, plain = rel_l2(grad, grad_64), rel_l2(plain_grad, grad_64)
+    record.update(grad_rel_l2_outside_stem=rest,
+                  grad_rel_l2_stem=rel_l2(grad[stem], plain_grad[stem]),
                   grad_rel_l2_kernels_vs_f64=kern, grad_rel_l2_plain_vs_f64=plain)
     print(f"  f32 gradient, kernels vs plain: outside the stem {rest:.3e} (bound "
           f"{TRAIN_GRAD_RTOL}), the stem {record['grad_rel_l2_stem']:.3e}; against the f64 step "
@@ -1127,14 +1150,14 @@ def trainer_overrides(out: str):
 
 
 def run_cli(workdir: Path, module: str, args, log: Path, stop_on: str | None = None,
-            timeout: float = 600):
-    """``python -m <module> --cfg configs/config_stage2.yaml
-    --allow_synthetic_smpl <args>`` in ``workdir``, its output to ``log``.
-    With ``stop_on``, SIGTERM is sent when a line containing it appears.
-    Returns the exit code; the process is always ended."""
+            timeout: float = 600, cfg: str = "config_stage2.yaml"):
+    """``python -m <module> --cfg configs/<cfg> --allow_synthetic_smpl
+    <args>`` in ``workdir``, its output to ``log``. With ``stop_on``,
+    SIGTERM is sent when a line containing it appears. Returns the exit
+    code; the process is always ended."""
     import signal
 
-    cmd = [sys.executable, "-m", module, "--cfg", str(ROOT / "configs" / "config_stage2.yaml"),
+    cmd = [sys.executable, "-m", module, "--cfg", str(ROOT / "configs" / cfg),
            "--allow_synthetic_smpl", *args]
     env = dict(os.environ, PYTHONUNBUFFERED="1",
                PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
@@ -1246,6 +1269,102 @@ def loader_rate(workdir: Path, workers: int):
     return dict(workers=workers, **json.loads(out.stdout.strip().splitlines()[-1]))
 
 
+def trainer_cli_runs(workdir: Path, cfg: str, overrides, iters: int, epochs: int) -> dict:
+    """The train CLI on ``configs/<cfg>`` with ``overrides(out_dir)`` (DBs
+    under ``workdir``): one uninterrupted run of ``epochs`` epochs of
+    ``iters`` iterations; the same command with TRAIN.RESUME auto, stopped
+    by SIGTERM in epoch 2 and relaunched; the eval CLI on the first run's
+    model_best.pth.tar, which must agree with the validation that chose it
+    (METRIC_ATOL_MM) and write inference.pkl. Returns the record: the first
+    run's iterations (ms, the median of iterations 2 on of each epoch), data
+    wait, peak memory, validations, checkpoint writes and losses; the
+    resumed run against it (``resume``) and the eval CLI's metrics."""
+    from maed_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out1, out2 = workdir / "run1", workdir / "run2"
+    run_cli(workdir, "maed_tpu_torch.train", overrides(str(out1)), workdir / "run1.log", cfg=cfg)
+    resume = overrides(str(out2)) + ["TRAIN.RESUME", "auto"]
+    run_cli(workdir, "maed_tpu_torch.train", resume, workdir / "run2a.log",
+            stop_on=f"[Train] epoch 2/{epochs} it 1/{iters}", cfg=cfg)
+    run_cli(workdir, "maed_tpu_torch.train", resume, workdir / "run2b.log", cfg=cfg)
+
+    # the uninterrupted run: times, memory, validation, checkpoint writes
+    recs1 = run_records(out1)
+    steps1 = [r for r in recs1 if "loss" in r]
+    timed = [r for r in recs1 if "step_s" in r]
+    per_epoch, data_ms = {}, {}
+    for r in timed:
+        per_epoch.setdefault(r["epoch"], []).append((r["data_s"] + r["step_s"]) * 1e3)
+        data_ms.setdefault(r["epoch"], []).append(r["data_s"] * 1e3)
+    later = [r for r in timed if r["iter"] >= 1]
+    evals = [r for r in recs1 if "eval" in r]
+    (run1,) = list(out1.iterdir())
+    record = dict(
+        ms_per_iteration=[float(np.median(v[1:])) for _, v in sorted(per_epoch.items())],
+        each_iteration_ms=per_epoch, each_data_ms=data_ms,
+        data_wait_share=sum(r["data_s"] for r in later) / sum(r["data_s"] + r["step_s"]
+                                                             for r in later),
+        peak_memory_bytes=max(r["peak_bytes"] or 0 for r in timed),
+        validation_s=[r["eval_s"] for r in evals],
+        validation_s_per_window_batch=[r["eval_s"] / r["window_batches"] for r in evals],
+        checkpoint_writes=[dict(name=r["checkpoint"], s=r["write_s"], mb=r["bytes"] / 1e6)
+                           for r in recs1 if "checkpoint" in r],
+        losses=[r["loss"] for r in steps1])
+    print(f"  {cfg} run 1: ms an iteration (median of iterations 2-{iters} of each epoch, host "
+          f"clock) {record['ms_per_iteration']}, data wait {record['data_wait_share']:.3f}, peak "
+          f"{record['peak_memory_bytes'] / 2 ** 30:.2f} GiB; validation {record['validation_s']} s "
+          f"({record['validation_s_per_window_batch']} s a window batch); writes "
+          + ", ".join(f"{w['name']} {w['mb']:.0f} MB {w['s']:.2f} s"
+                      for w in record["checkpoint_writes"]))
+    if len(steps1) != iters * epochs or not all(np.isfinite(r["loss"]) for r in steps1):
+        raise AssertionError(f"run 1 recorded {len(steps1)} steps: {steps1}")
+
+    # the resumed run against it
+    (first, *_), recs2 = sorted(out2.iterdir()), run_records(out2)
+    pre = load_checkpoint(str(first / "preempt.pth.tar"))
+    steps2 = [r for r in recs2 if "loss" in r]
+    if [(r["epoch"], r["iter"]) for r in steps2] != [(r["epoch"], r["iter"]) for r in steps1]:
+        raise AssertionError(f"the resumed run's steps {[(r['epoch'], r['iter']) for r in steps2]}")
+    name = f"epoch_{epochs - 1}.pth.tar"
+    (run2_last,) = [d for d in out2.iterdir() if (d / name).is_file()]
+    last1 = load_checkpoint(str(run1 / name))
+    rel, exact = state_distance(load_checkpoint(str(run2_last / name)), last1)
+    record["resume"] = dict(
+        stopped_at=dict(epoch=pre["epoch"], iter=pre["epoch_iter"]),
+        loss_max_rel=max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                         for a, b in zip(steps2, steps1)),
+        losses_equal=steps2 == steps1, state_rel_l2=rel, bit_equal=exact,
+        buffers=sum(k.endswith(("running_mean", "running_var", "num_batches_tracked"))
+                    for k in last1["state_dict"]))
+    print(f"  {cfg} run 2: SIGTERM in epoch {pre['epoch'] + 1}, preempt.pth.tar after iteration "
+          f"{pre['epoch_iter']}; resumed: losses max rel {record['resume']['loss_max_rel']:.3e}, "
+          f"each step's equal: {steps2 == steps1}; {name} (weights, {record['resume']['buffers']} "
+          f"BatchNorm buffers, Adam's moments) rel L2 {rel:.3e}, bit for bit: {exact}")
+    if not 0 < pre["epoch_iter"] < iters or pre["epoch"] != 1:
+        raise AssertionError(f"the SIGTERM landed at epoch {pre['epoch']} iteration "
+                             f"{pre['epoch_iter']}, not inside epoch 2")
+
+    # the eval CLI on model_best against the validation that chose it
+    eval_log = workdir / "eval.log"
+    run_cli(workdir, "maed_tpu_torch.eval",
+            ["--checkpoint", str(run1 / "model_best.pth.tar"), "--eval_ds", "3dpw",
+             "--eval_set", "val", "--output_path", str(workdir / "eval_out")]
+            + overrides(str(workdir / "unused")), eval_log, cfg=cfg)
+    line = [ln for ln in eval_log.read_text().splitlines() if ln.startswith("MPJPE:")][-1]
+    got = {k.strip().lower(): float(v) for k, v in
+           (part.split(":") for part in line.rstrip(",").split(","))}
+    best = float((run1 / "best.txt").read_text())
+    chosen = [r["eval"] for r in evals if r["eval"]["pa-mpjpe"] == best][0]
+    worst = max(abs(got[k] - v) for k, v in chosen.items())
+    record["eval_cli"] = dict(metrics=got, validation=chosen, max_abs_mm=worst)
+    print(f"  {cfg} eval CLI on model_best: {got}; against its validation max {worst:.4f} mm "
+          f"(bound {METRIC_ATOL_MM})")
+    if not worst <= METRIC_ATOL_MM or not (workdir / "eval_out" / "inference.pkl").is_file():
+        raise AssertionError("the eval CLI disagrees with the validation or wrote no "
+                             "inference.pkl")
+    return record
+
+
 def phase_trainer(device):
     """The port's CLIs at full width on configs/config_stage2.yaml (the
     released stage-2 MAED in f32, 3 + 4 clips of 16 frames and 7 images a
@@ -1258,93 +1377,21 @@ def phase_trainer(device):
     import shutil
     import tempfile
 
-    from maed_tpu_torch.utils.checkpoint import load_checkpoint
-
     card = card_identity()
     torch.cuda.empty_cache()
     record = {"card": card, "decode": check_decoder(device)}
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
     try:
         write_trainer_dbs(workdir)
-        out1, out2 = workdir / "run1", workdir / "run2"
-        run_cli(workdir, "maed_tpu_torch.train", trainer_overrides(str(out1)), workdir / "run1.log")
-        resume = trainer_overrides(str(out2)) + ["TRAIN.RESUME", "auto"]
-        run_cli(workdir, "maed_tpu_torch.train", resume, workdir / "run2a.log",
-                stop_on=f"[Train] epoch 2/{TRAINER_EPOCHS} it 1/{TRAINER_ITERS}")
-        run_cli(workdir, "maed_tpu_torch.train", resume, workdir / "run2b.log")
-
-        # the uninterrupted run: times, memory, validation, checkpoint writes
-        recs1 = run_records(out1)
-        steps1 = [r for r in recs1 if "loss" in r]
-        timed = [r for r in recs1 if "step_s" in r]
-        per_epoch, data_ms = {}, {}
-        for r in timed:
-            per_epoch.setdefault(r["epoch"], []).append((r["data_s"] + r["step_s"]) * 1e3)
-            data_ms.setdefault(r["epoch"], []).append(r["data_s"] * 1e3)
-        iter_ms = [float(np.median(v[1:TRAINER_ITERS])) for _, v in sorted(per_epoch.items())]
-        later = [r for r in timed if r["iter"] >= 1]
-        data_share = sum(r["data_s"] for r in later) / sum(r["data_s"] + r["step_s"] for r in later)
-        evals = [r for r in recs1 if "eval" in r]
-        writes = [dict(name=r["checkpoint"], s=r["write_s"], mb=r["bytes"] / 1e6)
-                  for r in recs1 if "checkpoint" in r]
-        (run1,) = list(out1.iterdir())
-        best = float((run1 / "best.txt").read_text())
-        record.update(
-            ms_per_iteration=iter_ms, each_iteration_ms=per_epoch, each_data_ms=data_ms,
-            data_wait_share=data_share,
-            peak_memory_bytes=max(r["peak_bytes"] or 0 for r in timed),
-            validation_s_per_window_batch=[r["eval_s"] / r["window_batches"] for r in evals],
-            checkpoint_writes=writes, losses=[r["loss"] for r in steps1])
-        print(f"  run 1: ms an iteration (median of iterations 2-{TRAINER_ITERS} of each epoch, "
-              f"host clock) {iter_ms}, data wait {data_share:.3f}, peak "
-              f"{record['peak_memory_bytes'] / 2 ** 30:.2f} GiB; validation "
-              f"{record['validation_s_per_window_batch']} s a window batch; writes "
-              + ", ".join(f"{w['name']} {w['mb']:.0f} MB {w['s']:.2f} s" for w in writes))
-        if len(steps1) != TRAINER_ITERS * TRAINER_EPOCHS or not all(
-                np.isfinite(r["loss"]) for r in steps1):
-            raise AssertionError(f"run 1 recorded {len(steps1)} steps: {steps1}")
-
-        # the resumed run against it
-        (first, *_), recs2 = sorted(out2.iterdir()), run_records(out2)
-        pre = load_checkpoint(str(first / "preempt.pth.tar"))
-        steps2 = [r for r in recs2 if "loss" in r]
-        if [(r["epoch"], r["iter"]) for r in steps2] != [(r["epoch"], r["iter"]) for r in steps1]:
-            raise AssertionError(f"the resumed run's steps {[(r['epoch'], r['iter']) for r in steps2]}")
-        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(steps2, steps1))
-        name = f"epoch_{TRAINER_EPOCHS - 1}.pth.tar"
-        (run2_last,) = [d for d in out2.iterdir() if (d / name).is_file()]
-        rel, exact = state_distance(load_checkpoint(str(run2_last / name)),
-                                    load_checkpoint(str(run1 / name)))
-        record["resume"] = dict(stopped_at=dict(epoch=pre["epoch"], iter=pre["epoch_iter"]),
-                                loss_max_rel=loss_rel, state_rel_l2=rel, bit_equal=exact)
-        print(f"  run 2: SIGTERM in epoch {pre['epoch'] + 1}, preempt.pth.tar after iteration "
-              f"{pre['epoch_iter']}; resumed: losses max rel {loss_rel:.3e} (bound "
-              f"{RESUME_LOSS_RTOL}), {name} rel L2 {rel:.3e} (bound {RESUME_PARAM_RTOL}), "
-              f"bit for bit: {exact}")
-        if not 0 < pre["epoch_iter"] < TRAINER_ITERS or pre["epoch"] != 1:
-            raise AssertionError(f"the SIGTERM landed at epoch {pre['epoch']} iteration "
-                                 f"{pre['epoch_iter']}, not inside epoch 2")
-        if not (loss_rel <= RESUME_LOSS_RTOL and rel <= RESUME_PARAM_RTOL):
+        record.update(trainer_cli_runs(workdir, "config_stage2.yaml", trainer_overrides,
+                                       TRAINER_ITERS, TRAINER_EPOCHS))
+        resume = record["resume"]
+        print(f"  the resumed run: losses max rel {resume['loss_max_rel']:.3e} (bound "
+              f"{RESUME_LOSS_RTOL}), state rel L2 {resume['state_rel_l2']:.3e} (bound "
+              f"{RESUME_PARAM_RTOL})")
+        if not (resume["loss_max_rel"] <= RESUME_LOSS_RTOL
+                and resume["state_rel_l2"] <= RESUME_PARAM_RTOL):
             raise AssertionError("the resumed run left the uninterrupted one")
-
-        # the eval CLI on model_best against the validation that chose it
-        eval_log = workdir / "eval.log"
-        run_cli(workdir, "maed_tpu_torch.eval",
-                ["--checkpoint", str(run1 / "model_best.pth.tar"), "--eval_ds", "3dpw",
-                 "--eval_set", "val", "--output_path", str(workdir / "eval_out")]
-                + trainer_overrides(str(workdir / "unused")), eval_log)
-        line = [ln for ln in eval_log.read_text().splitlines() if ln.startswith("MPJPE:")][-1]
-        got = {k.strip().lower(): float(v) for k, v in
-               (part.split(":") for part in line.rstrip(",").split(","))}
-        (chosen,) = [r["eval"] for r in evals if r["eval"]["pa-mpjpe"] == best]
-        worst = max(abs(got[k] - v) for k, v in chosen.items())
-        record["eval_cli"] = dict(metrics=got, validation=chosen, max_abs_mm=worst)
-        print(f"  eval CLI on model_best: {got}; against its validation max {worst:.4f} mm "
-              f"(bound {METRIC_ATOL_MM})")
-        if not worst <= METRIC_ATOL_MM or not (workdir / "eval_out" / "inference.pkl").is_file():
-            raise AssertionError("the eval CLI disagrees with the validation or wrote no "
-                                 "inference.pkl")
-
         record["loader"] = [loader_rate(workdir, w) for w in (0, 8)]
         print("  3D loader alone: " + ", ".join(
             f"{r['clips_per_s']:.1f} clips/s with {r['used']} workers" for r in record["loader"]))
@@ -1352,6 +1399,401 @@ def phase_trainer(device):
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"trainer": record}))
     return record
+
+
+# phase_stage1: stage 1 (configs/config_stage1.yaml: the ResNet-50 with
+# BatchNorm and KTD, image-only, 128 images a step) at full width
+STAGE1_IMAGES, STAGE1_STEPS = 128, 3
+STAGE1_ITERS, STAGE1_EPOCHS = 3, 2
+# f32, the steps through kernel A against the same steps through its plain
+# version from the same weights and generator. Each step's loss within
+# TRAIN_LOSS_RTOL and the first step's gradient within TRAIN_GRAD_RTOL; the
+# BatchNorm statistics after the first step (its forward's) within
+# STAGE1_STATS_RTOL relative L2, each running_mean and running_var. After an
+# Adam update f32 itself cannot hold them that close: the first update,
+# lr g / (|g| + eps), turns the ResNet's f32 gradient error (6.7e-3 relative
+# L2 from an f64 step at these random weights on an H100, on either path)
+# into whole steps of lr, and the f32 statistics after the second and third
+# steps lie 7e-4 and 5e-3 from the f64 run's, on either path (PERF.md). So
+# from the second step on, the statistics, and every step's loss and the
+# first gradient too, are held as the stem's gradient is (F32_GRAD_RATIO):
+# through the kernels at most F32_GRAD_RATIO times as far from the same
+# steps in f64 as through the plain versions.
+STAGE1_STATS_RTOL = 1e-5
+
+
+class Stage1Recipe:
+    """configs/config_stage1.yaml's optimizer: Adam at 1e-4 with L2 1e-5, no
+    warmup, milestones at 60 and 90."""
+    OPTIM, LR, WD, MOMENTUM = "adam", 1e-4, 1e-5, 0.9
+    WARMUP_EPOCH, WARMUP_FACTOR, MILESTONES = 0, 0.1, [60, 90]
+
+
+def make_image_batch(smpl, device, n, seed=5):
+    """A stage-1 step's batch: n uint8 images at IMG^2 with targets from
+    :func:`consistent_targets` (one frame each)."""
+    rng = np.random.RandomState(seed)
+    image = torch.from_numpy(rng.randint(0, 256, (n, IMG, IMG, 3), dtype=np.uint8)).to(device)
+    tgt = consistent_targets(rng, smpl, n, 1, device)
+    return {"image": image, "kp_2d": tgt["kp_2d"][:, 0], "kp_3d": tgt["kp_3d"][:, 0],
+            "theta": tgt["theta"][:, 0], "w_smpl": torch.ones((n,), device=device)}
+
+
+def stage1_steps(model, smpl, img, steps, plain=False, seed=7):
+    """``steps`` stage-1 steps (the image batch alone) of ``model`` from a new
+    optimizer and a generator seeded with ``seed``. Returns a dict: each
+    step's loss, the first step's whole gradient, the kernel launches over
+    all the steps (counted from 0), the host-clock ms of each step
+    (CUDA-synchronised), the peak device memory, and after each step the
+    BatchNorm running statistics."""
+    from maed_tpu_torch import kernels
+    from maed_tpu_torch.core.loss import LossWeights
+    from maed_tpu_torch.parallel.train_step import make_optimizer, make_train_step
+
+    device = next(model.parameters()).device
+    step = make_train_step(model, make_optimizer(Stage1Recipe, 500, model.parameters()), smpl,
+                           LossWeights(), torch.Generator(device=device).manual_seed(seed),
+                           plain=plain)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    run = dict(losses=[], ms=[], stats=[], grad=None)
+    kernels.reset_launches()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        metrics = step(None, img)
+        torch.cuda.synchronize()
+        run["ms"].append((time.perf_counter() - t0) * 1e3)
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"stage 1: non-finite loss terms {metrics}")
+        run["losses"].append(metrics["loss"].item())
+        run["stats"].append({k: v.clone() for k, v in model.state_dict().items()
+                             if k.endswith(("running_mean", "running_var"))})
+        if i == 0:
+            run["grad"] = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    run["launches"] = dict(kernels.LAUNCHES)
+    run["peak"] = torch.cuda.max_memory_allocated(device)
+    return run
+
+
+def stats_distance(a: dict, b: dict) -> float:
+    """The largest relative L2 distance between two sets of BatchNorm buffers."""
+    return max(rel_l2(a[k], b[k]) for k in a)
+
+
+def stage1_f64(start, smpl, img, device):
+    """The same steps through the plain versions in f64 from the f32 weights
+    ``start``."""
+    from maed_tpu_torch.core.builder import build_train_model
+
+    def f64(t):
+        return t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+
+    model, _ = build_train_model(encoder="cnn", decoder="ktd", dtype=torch.float64,
+                                 device=device, seed=0, allow_synthetic_smpl=True)
+    model.double().load_state_dict({k: f64(v) for k, v in start.items()})
+    run = stage1_steps(model, type(smpl)(*map(f64, smpl)), {k: f64(v) for k, v in img.items()},
+                       STAGE1_STEPS, plain=True)
+    del model
+    torch.cuda.empty_cache()
+    return run
+
+
+def stage1_step_phase(device, record):
+    """The f32 stage-1 step at full width through kernel A, through its
+    plain version and in f64; returns the trained state_dict and the
+    steps' launches."""
+    from maed_tpu_torch.core.builder import build_train_model
+
+    t0 = time.perf_counter()
+    model, smpl = build_train_model(encoder="cnn", decoder="ktd", device=device, seed=0,
+                                    allow_synthetic_smpl=True)
+    img = make_image_batch(smpl, device, STAGE1_IMAGES)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    print(f"stage 1 f32: built cnn + ktd in {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters), "
+          f"{STAGE1_IMAGES} images a step at {IMG}^2, uint8")
+    kern = stage1_steps(model, smpl, img, STAGE1_STEPS)
+    trained = {k: v.clone() for k, v in model.state_dict().items()}
+    expect_launches(kern["launches"], "cnn", STAGE1_STEPS)
+    if int(trained["encoder.bn1.num_batches_tracked"]) != STAGE1_STEPS or torch.equal(
+            trained["encoder.bn1.running_var"], start["encoder.bn1.running_var"]):
+        raise AssertionError("stage 1: the steps left the BatchNorm statistics as they were")
+    model.load_state_dict(start)
+    plain = stage1_steps(model, smpl, img, STAGE1_STEPS, plain=True)
+    del model
+    torch.cuda.empty_cache()
+    if any(plain["launches"].values()):
+        raise AssertionError(f"stage 1: the plain steps launched {plain['launches']}")
+    exact = stage1_f64(start, smpl, img, device)
+
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(kern["losses"], plain["losses"])]
+    loss_64 = [(abs(a - c), abs(b - c)) for a, b, c in
+               zip(kern["losses"], plain["losses"], exact["losses"])]
+    grad_rel = rel_l2(kern["grad"], plain["grad"])
+    grad_64 = (rel_l2(kern["grad"], exact["grad"]), rel_l2(plain["grad"], exact["grad"]))
+    stats_rel = [stats_distance(a, b) for a, b in zip(kern["stats"], plain["stats"])]
+    stats_64 = [(stats_distance(a, c), stats_distance(b, c))
+                for a, b, c in zip(kern["stats"], plain["stats"], exact["stats"])]
+    ms = float(np.median(kern["ms"][1:]))
+    record["step"] = dict(
+        ms_per_step=ms, step_ms=kern["ms"], peak_memory_bytes=kern["peak"],
+        losses=kern["losses"], plain_step_ms=plain["ms"], f64_step_ms=exact["ms"],
+        plain_peak_memory_bytes=plain["peak"], loss_rel=loss_rel, grad_rel_l2=grad_rel,
+        bn_stats_max_rel_l2=stats_rel, loss_abs_to_f64=loss_64, grad_rel_l2_to_f64=grad_64,
+        bn_stats_max_rel_l2_to_f64=stats_64, launches=kern["launches"])
+    print(f"  {record['card']}: {ms:.1f} ms a step (median of steps 2-{STAGE1_STEPS}; each "
+          + ", ".join(f"{t:.1f}" for t in kern["ms"]) + f"), peak memory "
+          f"{kern['peak'] / 2 ** 30:.2f} GiB; plain " + ", ".join(f"{t:.1f}" for t in plain["ms"])
+          + " ms; f64 " + ", ".join(f"{t:.1f}" for t in exact["ms"]) + " ms")
+    print(f"  launches over {STAGE1_STEPS} steps: "
+          f"{ {k: v for k, v in kern['launches'].items() if v} }")
+    print("  kernels vs plain, each step: loss rel " + ", ".join(f"{r:.3e}" for r in loss_rel)
+          + f" (bound {TRAIN_LOSS_RTOL}); BatchNorm statistics max rel L2 "
+          + ", ".join(f"{r:.3e}" for r in stats_rel)
+          + f" (bound {STAGE1_STATS_RTOL} after step 1); step 1 gradient rel L2 {grad_rel:.3e} "
+          f"(bound {TRAIN_GRAD_RTOL})")
+    print("  against the f64 steps (kernels, plain): loss abs "
+          + ", ".join(f"({a:.3e}, {b:.3e})" for a, b in loss_64) + "; statistics "
+          + ", ".join(f"({a:.3e}, {b:.3e})" for a, b in stats_64)
+          + f"; step 1 gradient ({grad_64[0]:.3e}, {grad_64[1]:.3e}) (ratio bound "
+          f"{F32_GRAD_RATIO})")
+    ratios = [a <= F32_GRAD_RATIO * b for a, b in loss_64 + stats_64[1:] + [grad_64]]
+    if not (max(loss_rel) <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_RTOL
+            and stats_rel[0] <= STAGE1_STATS_RTOL and all(ratios)):
+        raise AssertionError("stage 1: the f32 steps through kernel A left the plain ones")
+    return trained, kern["launches"]
+
+
+def stage1_eval_phase(device, record, trained):
+    """One bf16 eval forward of N_CLIPS x SEQLEN frames through cnn + ktd (the
+    trained weights and statistics) and cnn + iterative (seeded), each held
+    by BF16_RATIO to the f32 plain forward; returns the launches of the
+    first."""
+    from maed_tpu_torch import kernels
+    from maed_tpu_torch.core.builder import build_eval_model
+
+    clips = torch.from_numpy(np.random.RandomState(6).randint(
+        0, 256, (N_CLIPS, SEQLEN, IMG, IMG, 3), dtype=np.uint8)).to(device)
+    eval_launches = None
+    for decoder, state in (("ktd", trained), ("iterative", None)):
+        kw = dict(encoder="cnn", decoder=decoder, device=device, seed=1, allow_synthetic_smpl=True)
+        f32_model, smpl = build_eval_model(dtype=torch.float32, state_dict=state, **kw)
+        want = f32_model(clips, smpl, plain=True)
+        state = f32_model.state_dict()
+        del f32_model
+        model, _ = build_eval_model(dtype=torch.bfloat16, state_dict=state, **kw)
+        model(clips, smpl)  # warmup
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = model(clips, smpl)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        expect_launches(launches, "cnn", 1)
+        check_outputs(out, clips=N_CLIPS, joints=49)
+        plain = model(clips, smpl, plain=True)
+        check_bf16_ratio(f"stage 1 cnn + {decoder}", [out], [plain], [want])
+        record[f"eval_{decoder}"] = dict(bf16_forward_ms=ms, launches=launches,
+                                         device_ms=time_ms(lambda: model(clips, smpl), 4))
+        print(f"  cnn + {decoder}: bf16 forward of {N_CLIPS}x{SEQLEN}x{IMG}^2 uint8 {ms:.2f} ms "
+              f"(host clock), {record[f'eval_{decoder}']['device_ms']:.2f} ms (device, mean of "
+              f"4); launches { {k: v for k, v in launches.items() if v} }")
+        eval_launches = eval_launches or launches
+        del model, want, out, plain
+        torch.cuda.empty_cache()
+    return eval_launches
+
+
+def write_stage1_dbs(workdir: Path, seed: int = 13):
+    """Stage 1's DBs over the fixture frames, as plain pickles under
+    ``<workdir>/data/database``: 640 images (five batches of
+    STAGE1_IMAGES: the loader drops a partial batch) and 2 validation videos
+    of one 128-frame window each."""
+    import pickle
+
+    rng = np.random.RandomState(seed)
+    frames = [str(p) for p in sorted(FIXTURE_DIR.glob("frame_*.jpg"))]
+    image = synthetic_video_db(rng, frames, 1, 5 * STAGE1_IMAGES)
+    dbs = {"synimg_train": {k: v for k, v in image.items() if k not in ("vid_name", "frame_id")},
+           "3dpw_val": synthetic_video_db(rng, frames, 2, POOL)}
+    (workdir / "data" / "database").mkdir(parents=True)
+    for name, db in dbs.items():
+        with open(workdir / "data" / "database" / f"{name}_db.pt", "wb") as f:
+            pickle.dump(db, f)
+
+
+def stage1_overrides(out: str):
+    return ["DEVICE", "cuda", "OUTPUT_DIR", out, "SEED_VALUE", "7",
+            "NUM_WORKERS", str(max(1, (os.cpu_count() or 2) - 1)),
+            "TRAIN.DATASETS_IMG", "[synimg]", "TRAIN.DATASET_EVAL", "3dpw",
+            "TRAIN.BATCH_SIZE_IMG", str(STAGE1_IMAGES),
+            "TRAIN.NUM_ITERS_PER_EPOCH", str(STAGE1_ITERS), "TRAIN.END_EPOCH", str(STAGE1_EPOCHS),
+            "SAVE_FREQ", "1", "DEBUG_FREQ", "1",
+            # deterministic cuDNN algorithms, for the resumed run to equal the first
+            "CUDNN.BENCHMARK", "false", "CUDNN.DETERMINISTIC", "true"]
+
+
+def stage1_cli_phase(workdir: Path, record):
+    """``python -m maed_tpu_torch.train --cfg configs/config_stage1.yaml`` at
+    full width through :func:`trainer_cli_runs`: the resumed run must be the
+    uninterrupted one bit for bit, every step's losses and the last
+    checkpoint, BatchNorm buffers included."""
+    write_stage1_dbs(workdir)
+    record["cli"] = trainer_cli_runs(workdir, "config_stage1.yaml", stage1_overrides,
+                                     STAGE1_ITERS, STAGE1_EPOCHS)
+    resume = record["cli"]["resume"]
+    if not (resume["losses_equal"] and resume["bit_equal"] and resume["buffers"]):
+        raise AssertionError("the resumed stage-1 run is not the uninterrupted one bit for bit")
+
+
+def npz_from_state_dict(sd: dict, heads: int = 12) -> dict:
+    """A stage-2 encoder's weights (the port's names, torch layouts) as the
+    published in21k .npz names them: TF/JAX naming, HWIO convs, (in, out)
+    dense kernels, q, k and v apart as (C, h, d), the attention's out kernel
+    as (h, d, C); with a classifier head, and without MAED's own gate and
+    temp_embed."""
+    out = {"head/kernel": np.ones((768, 8), np.float32), "head/bias": np.zeros(8, np.float32)}
+    gn, abc = {"weight": "gamma", "bias": "beta"}, {"1": "a", "2": "b", "3": "c"}
+    leaf = {"weight": "kernel", "bias": "bias"}
+    bb = r"encoder\.patch_embed\.backbone\."
+    for key, value in sd.items():
+        v = value.detach().cpu().numpy()
+        tf = v.transpose(2, 3, 1, 0) if v.ndim == 4 else (v.T if v.ndim == 2 else v)
+        if key == "encoder.patch_embed.backbone.stem.conv.weight":
+            out["resnet/root_block/standardized_conv2d/kernel"] = tf
+        elif m := re.fullmatch(bb + r"stem\.norm\.(weight|bias)", key):
+            out[f"resnet/group_norm/{gn[m[1]]}"] = v
+        elif m := re.fullmatch(bb + r"stages\.(\d+)\.blocks\.(\d+)\.(.+)", key):
+            unit, rest = f"resnet/block{int(m[1]) + 1}/unit{int(m[2]) + 1:02d}", m[3]
+            if mm := re.fullmatch(r"conv(\d)\.weight", rest):
+                out[f"{unit}/{abc[mm[1]]}/standardized_conv2d/kernel"] = tf
+            elif mm := re.fullmatch(r"norm(\d)\.(weight|bias)", rest):
+                out[f"{unit}/{abc[mm[1]]}/group_norm/{gn[mm[2]]}"] = v
+            elif rest == "downsample.conv.weight":
+                out[f"{unit}/a/proj/standardized_conv2d/kernel"] = tf
+            elif mm := re.fullmatch(r"downsample\.norm\.(weight|bias)", rest):
+                out[f"{unit}/a/proj/group_norm/{gn[mm[1]]}"] = v
+        elif m := re.fullmatch(r"encoder\.patch_embed\.proj\.(weight|bias)", key):
+            out[f"embedding/{leaf[m[1]]}"] = tf
+        elif key == "encoder.cls_token":
+            out["cls"] = v
+        elif key == "encoder.pos_embed":
+            out["Transformer/posembed_input/pos_embedding"] = v
+        elif m := re.fullmatch(r"encoder\.norm\.(weight|bias)", key):
+            out[f"Transformer/encoder_norm/{'scale' if m[1] == 'weight' else 'bias'}"] = v
+        elif m := re.fullmatch(r"encoder\.pre_logits\.fc\.(weight|bias)", key):
+            out[f"pre_logits/{leaf[m[1]]}"] = tf
+        elif m := re.fullmatch(r"encoder\.blocks\.(\d+)\.(.+)", key):
+            base, rest = f"Transformer/encoderblock_{m[1]}", m[2]
+            attn = f"{base}/MultiHeadDotProductAttention_1"
+            C = v.shape[-1]
+            if mm := re.fullmatch(r"norm([12])\.(weight|bias)", rest):
+                ln = 0 if mm[1] == "1" else 2
+                out[f"{base}/LayerNorm_{ln}/{'scale' if mm[2] == 'weight' else 'bias'}"] = v
+            elif mm := re.fullmatch(r"mlp\.fc([12])\.(weight|bias)", rest):
+                out[f"{base}/MlpBlock_3/Dense_{int(mm[1]) - 1}/{leaf[mm[2]]}"] = tf
+            elif rest == "attn.proj.weight":
+                out[f"{attn}/out/kernel"] = tf.reshape(heads, C // heads, C)
+            elif rest == "attn.proj.bias":
+                out[f"{attn}/out/bias"] = v
+            elif rest.startswith("attn.qkv."):
+                C = v.shape[0] // 3
+                for i, n in enumerate(("query", "key", "value")):
+                    if rest.endswith("weight"):
+                        out[f"{attn}/{n}/kernel"] = tf[:, i * C:(i + 1) * C].reshape(
+                            C, heads, C // heads)
+                    else:
+                        out[f"{attn}/{n}/bias"] = v[i * C:(i + 1) * C].reshape(heads, C // heads)
+    return out
+
+
+def stage1_import_phase(device, workdir: Path, record):
+    """``--init_backbone``'s function at full width: a published init of 12
+    blocks, seeded random weights, written as the in21k .npz and as a timm
+    .pth, each loaded into the stage-2 model of 6 blocks. Every mapped tensor
+    must equal its source; MAED's own gate and temp_embed, and the decoder,
+    keep their init; blocks 6-11 of the file are left out."""
+    from maed_tpu_torch.core.builder import build_train_model, empty_model, init_weights_
+    from maed_tpu_torch.utils.pretrained import apply_pretrained_backbone
+
+    own = ("ts_attn", "temp_embed")  # MAED's own parameters, not in a published init
+    published = empty_model(device, num_blocks=12)
+    init_weights_(published, seed=9)
+    source = {k: v.detach().clone() for k, v in published.state_dict().items()
+              if k.startswith("encoder.")}
+    del published
+    np.savez(workdir / "in21k.npz", **npz_from_state_dict(source))
+    timm = {k[len("encoder."):]: v.cpu() for k, v in source.items()
+            if not any(o in k for o in own)}
+    timm.update({"head.weight": torch.ones(8, 768), "head.bias": torch.zeros(8)})
+    torch.save(timm, workdir / "in21k.pth")
+    model, _ = build_train_model(device=device, seed=0, allow_synthetic_smpl=True)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    record["import"] = {}
+    for name in ("in21k.npz", "in21k.pth"):
+        model.load_state_dict(init)
+        t0 = time.perf_counter()
+        unused = apply_pretrained_backbone(model, str(workdir / name))
+        seconds = time.perf_counter() - t0
+        got = model.state_dict()
+        mapped = [k for k in got if k in source and not any(o in k for o in own)]
+        kept = [k for k in got if k not in mapped]
+        bad = ([k for k in mapped if not torch.equal(got[k], source[k])]
+               + [k for k in kept if not torch.equal(got[k], init[k])])
+        left_out = sorted({int(m[1]) for u in unused
+                           if (m := re.match(r"encoder\.blocks\.(\d+)\.", u))})
+        record["import"][name] = dict(mapped=len(mapped), kept=len(kept), unused=len(unused),
+                                      blocks_left_out=left_out, s=seconds)
+        print(f"  --init_backbone {name}: {len(mapped)} tensors equal to the file's, {len(kept)} "
+              f"kept their init (the gate, temp_embed, the decoder), blocks {left_out} of the "
+              f"file left out; {seconds:.2f} s")
+        if bad or left_out != list(range(6, 12)) or not any("ts_attn" in k for k in kept):
+            raise AssertionError(f"--init_backbone {name}: {len(bad)} tensors wrong, e.g. "
+                                 f"{bad[:5]}; blocks left out {left_out}")
+    del model
+
+
+def phase_stage1(device):
+    """Stage 1 at full width (the ResNet-50 with BatchNorm and KTD, 128
+    images a step, f32, TF32 off, deterministic cuDNN): three steps through
+    kernel A against the same steps through its plain version, running
+    statistics included; a bf16 eval forward of cnn + ktd and of cnn +
+    iterative held by BF16_RATIO; A at B = 128; the train CLI on
+    configs/config_stage1.yaml, resumed after SIGTERM bit for bit, and the
+    eval CLI; the published-backbone import. Prints one JSON record and
+    returns A's launches in the steps and in one eval forward."""
+    import shutil
+    import tempfile
+
+    from maed_tpu_torch.ops import skinning
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    record = {"card": card_identity()}
+    torch.cuda.empty_cache()
+    trained, step_launches = stage1_step_phase(device, record)
+    eval_launches = stage1_eval_phase(device, record, trained)
+    del trained
+    torch.cuda.empty_cache()
+    args = skinning_inputs(np.random.RandomState(8), STAGE1_IMAGES, device)
+    record["skinning"] = compare(
+        f"skinning f32 at B = {STAGE1_IMAGES}", lambda: skinning.skinning(*args),
+        lambda: skinning.skinning_reference(*args), 1e-5, 0.0, moved=args,
+        flops=STAGE1_IMAGES * NUM_VERTS * (24 * 12 * 2 + 24), kind="f32", iters=50)
+    record["skinning"]["device_ms"] = time_ms(lambda: skinning.skinning(*args), 50, queued=True)
+    print(f"  {record['card']}: A at B = {STAGE1_IMAGES} {record['skinning']['ms']:.4f} ms "
+          f"(events), {record['skinning']['device_ms']:.4f} ms on the device")
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_stage1_"))
+    try:
+        stage1_cli_phase(workdir, record)
+        stage1_import_phase(device, workdir, record)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"stage1": record}))
+    return step_launches, eval_launches
 
 
 def main() -> int:
@@ -1369,29 +1811,43 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     print(card_identity())
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     lib = kernels.build()
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
 
-    record = phase_kernels(device)
+    seconds = {}  # each phase's, host clock: the script must stay well inside its limit
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__] = round(time.perf_counter() - t0, 1)
+        print(f"{phase.__name__}: {seconds[phase.__name__]} s")
+        return out
+
+    record = timed(phase_kernels, device)
     clips, jreg = make_requests(device)
-    launches, outs, plains = phase_serve(device, clips, jreg)
-    phase_f32(device, clips, jreg, outs, plains)
+    launches, outs, plains = timed(phase_serve, device, clips, jreg)
+    timed(phase_f32, device, clips, jreg, outs, plains)
     del outs, plains
-    eval_launches = phase_eval(device)
-    phase_modes(device, clips[0], jreg)
-    train_launches = phase_train(device)
-    phase_trainer(device)
+    eval_launches = timed(phase_eval, device)
+    timed(phase_modes, device, clips[0], jreg)
+    train_launches = timed(phase_train, device)
+    timed(phase_trainer, device)
+    stage1_step, stage1_eval = timed(phase_stage1, device)
+    print(json.dumps({"phase_seconds": seconds,
+                      "total_s": round(time.perf_counter() - t_start, 1)}))
 
     src, jax_ops = "maed_tpu_torch/", "maed_tpu/ops/"
     kernels_line = [
         dict(name="skinning", route="cuda", source=src + "csrc/skinning.cu",
              replaces=jax_ops + "smpl_pallas.py:30",
              launches=launches["skinning"],
-             launches_train=train_launches["skinning"], **record["skinning"]),
+             launches_train=train_launches["skinning"],
+             launches_stage1_steps=stage1_step["skinning"],
+             launches_stage1_eval=stage1_eval["skinning"], **record["skinning"]),
         dict(name="fast_layernorm", route="triton", source=src + "ops/layernorm.py",
              replaces=jax_ops + "layernorm.py:60",
              launches=launches["layernorm"],

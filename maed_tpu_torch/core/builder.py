@@ -3,11 +3,15 @@ training.
 
 Port of ``maed_tpu/core/builder.py::build_eval_model``. It takes keyword
 arguments (:func:`model_config` makes them from a config), and seeded
-random weights when no state_dict is given. As in the JAX builder, weight
-standardization is folded into the stem's weights, so the model runs the
-``standardize_ws=False`` path. :func:`build_train_model` builds the model
-that ``parallel.train_step`` trains: f32 master weights, cast at use, and
-the standardization in the forward. :func:`load_weights` reads the weights
+random weights when no state_dict is given. Either model of the two-stage
+recipe: the stage-2 MAED (encoder 'ste', decoder 'ktd') and the stage-1 one
+(encoder 'cnn', the ResNet-50 with BatchNorm; decoder 'ktd' or
+'iterative'). As in the JAX builder, the ViT's weight standardization is
+folded into the stem's weights for eval, so that model runs the
+``standardize_ws=False`` path; the ResNet's BatchNorm statistics travel in
+the state_dict as buffers. :func:`build_train_model` builds the model that
+``parallel.train_step`` trains: f32 master weights, cast at use, and the
+standardization in the forward. :func:`load_weights` reads the weights
 of a ``.pth.tar``: the port's own checkpoints and the reference-layout file
 ``python -m maed_tpu.utils.torch_convert`` exports from a JAX run (orbax
 directories are not read: that converter is the way across).
@@ -21,7 +25,9 @@ import torch
 from torch import nn
 
 from maed_tpu_torch.models.maed import MAED
+from maed_tpu_torch.models.resnet import BatchNorm
 from maed_tpu_torch.models.resnetv2 import GroupNormAct, StdConv
+from maed_tpu_torch.models.spin import IterativeRegressor
 from maed_tpu_torch.models.vit import FastLayerNorm, Mlp, StAttention
 from maed_tpu_torch.ops.smpl import SMPLModel
 from maed_tpu_torch.utils.checkpoint import (fold_weight_standardization, load_checkpoint,
@@ -31,16 +37,14 @@ from maed_tpu_torch.utils.smpl_io import find_smpl_model
 
 def model_config(cfg) -> dict:
     """The model keyword arguments of :func:`build_train_model` and
-    :func:`build_eval_model` from a config's MODEL and DATASET sections.
-    Only the stage-2 model (encoder 'ste', decoder 'ktd') is ported."""
+    :func:`build_eval_model` from a config's MODEL and DATASET sections:
+    the encoder ('ste' or 'cnn') and decoder ('ktd' or 'iterative') with
+    their sizes."""
     enc, dec, d = cfg.MODEL.ENCODER, cfg.MODEL.DECODER, cfg.DATASET
-    if enc.BACKBONE.lower() != "ste" or dec.BACKBONE.lower() != "ktd":
-        raise NotImplementedError(
-            f"encoder {enc.BACKBONE!r} + decoder {dec.BACKBONE!r}: the port builds the stage-2 "
-            "MAED (ste + ktd) only; stage 1 is ROADMAP.md queue 1, item 5")
     if d.WIDTH != d.HEIGHT:
         raise ValueError(f"DATASET.WIDTH {d.WIDTH} != HEIGHT {d.HEIGHT}: the model takes square crops")
-    return dict(num_blocks=enc.NUM_BLOCKS, num_heads=enc.NUM_HEADS, hidden_dim=dec.HIDDEN_DIM,
+    return dict(encoder=enc.BACKBONE.lower(), decoder=dec.BACKBONE.lower(),
+                num_blocks=enc.NUM_BLOCKS, num_heads=enc.NUM_HEADS, hidden_dim=dec.HIDDEN_DIM,
                 img_size=d.WIDTH, st_mode=enc.SPA_TEMP_MODE)
 
 
@@ -76,13 +80,17 @@ def configure_backends(cfg) -> None:
 
 def init_weights_(model: MAED, seed: int) -> None:
     """Seeded random weights, drawn on the model's device, with the scales of
-    the JAX package's initializers: He-normal (fan-out) stem convs,
-    LeCun-normal dense layers, xavier-uniform with gain 0.01 for the
-    decoder's output regressors, N(0, 0.02) embeddings, unit norms."""
+    the JAX package's initializers: He-normal (fan-out) stem convs of the
+    ViT, LeCun-normal ResNet convs and dense layers, xavier-uniform with
+    gain 0.01 for the decoder's output regressors, N(0, 0.02) embeddings,
+    unit norms; BatchNorm as flax starts it (scale 1, bias 0, running mean
+    0, variance 1, no batch tracked)."""
     device = next(model.parameters()).device
     g = torch.Generator(device=device).manual_seed(seed)
     dec = model.decoder
-    small = {id(m) for m in (dec.decshape, dec.deccam, *dec.joint_regs)}
+    small = {id(m) for m in (dec.decshape, dec.deccam, *getattr(dec, "joint_regs", ()))}
+    if isinstance(dec, IterativeRegressor):
+        small.add(id(dec.decpose))
     done = set()
 
     def normal(p, std):
@@ -105,12 +113,16 @@ def init_weights_(model: MAED, seed: int) -> None:
                 done.add(id(mod.weight))
             else:
                 normal(mod.weight, math.sqrt(1.0 / fan_in))
-            const(mod.bias, 0.0)
+            if mod.bias is not None:
+                const(mod.bias, 0.0)
         elif isinstance(mod, (GroupNormAct, FastLayerNorm)):
             const(mod.weight, 1.0)
             const(mod.bias, 0.0)
+        elif isinstance(mod, BatchNorm):
+            mod.reset_()
+            done.update((id(mod.weight), id(mod.bias)))
     enc = model.encoder
-    embeds = [enc.cls_token, enc.pos_embed]
+    embeds = [enc.cls_token, enc.pos_embed] if model.encoder_name == "ste" else []
     if hasattr(enc, "temp_embed"):  # the modes that mix frames by position
         embeds.append(enc.temp_embed)
     for p in embeds:
@@ -128,10 +140,11 @@ def cast_weights_(model: MAED, dtype: torch.dtype) -> None:
     call. The norms' parameters and the biases that a kernel takes in f32
     stay f32: the MLP's, the qkv projection's (but in st_mode 'temporal',
     whose projection is a plain product) and, in st_mode 'parallel', the
-    gate's and the output projection's."""
+    gate's and the output projection's. BatchNorm's affine stays f32, as
+    its running statistics (buffers, never cast) do."""
     keep = set()
     for mod in model.modules():
-        if isinstance(mod, (FastLayerNorm, GroupNormAct)):
+        if isinstance(mod, (FastLayerNorm, GroupNormAct, BatchNorm)):
             keep.update(id(p) for p in mod.parameters())
         elif isinstance(mod, Mlp):
             keep.update((id(mod.fc1.bias), id(mod.fc2.bias)))
@@ -145,8 +158,20 @@ def cast_weights_(model: MAED, dtype: torch.dtype) -> None:
             p.data = p.data.to(dtype)
 
 
-def build_train_model(*, num_blocks: int = 6, num_heads: int = 12,
-                      hidden_dim: int = 1024, img_size: int = 224,
+def empty_model(device, **kwargs) -> MAED:
+    """``MAED(**kwargs)`` on ``device`` with its weights uninitialized (built
+    on the meta device, no weight drawn twice) and the iterative decoder's
+    mean parameters in place."""
+    with torch.device("meta"):
+        model = MAED(**kwargs)
+    model = model.to_empty(device=device)
+    if isinstance(model.decoder, IterativeRegressor):
+        model.decoder.reset_mean_params_()
+    return model
+
+
+def build_train_model(*, encoder: str = "ste", decoder: str = "ktd", num_blocks: int = 6,
+                      num_heads: int = 12, hidden_dim: int = 1024, img_size: int = 224,
                       st_mode: str = "parallel", dtype: torch.dtype = torch.float32,
                       device: torch.device | str = "cuda", seed: int = 0,
                       state_dict: dict | None = None, allow_synthetic_smpl: bool = False,
@@ -154,17 +179,19 @@ def build_train_model(*, num_blocks: int = 6, num_heads: int = 12,
     """(model, smpl) for ``parallel.train_step.make_train_step``, the model in
     training mode.
 
-    The model is the released stage-2 recipe's (KTD dropout 0.5, no other
-    dropout). ``dtype`` is the compute dtype, f32 (the recipe's) or bf16;
-    the parameters stay f32 master weights whatever it is, and the forward
-    casts them at use. The stem standardizes its weights in the forward
-    (``standardize_ws=True``), which is what training differentiates, so
-    nothing is folded. Weights and body as in :func:`build_eval_model`.
+    The defaults are the released stage-2 recipe's model (KTD dropout 0.5,
+    no other dropout); encoder 'cnn' is stage 1's (the ResNet-50, whose
+    BatchNorm normalizes by the batch and updates its running statistics
+    in a training forward). ``dtype`` is the compute dtype, f32 (the
+    recipe's) or bf16; the parameters stay f32 master weights whatever it
+    is, and the forward casts them at use. The ViT's stem standardizes its
+    weights in the forward (``standardize_ws=True``), which is what
+    training differentiates, so nothing is folded. Weights and body as in
+    :func:`build_eval_model`.
     """
-    with torch.device("meta"):
-        model = MAED(num_blocks=num_blocks, num_heads=num_heads, hidden_dim=hidden_dim,
-                     img_size=img_size, standardize_ws=True, st_mode=st_mode, dtype=dtype)
-    model = model.to_empty(device=device)
+    model = empty_model(device, encoder=encoder, decoder=decoder, num_blocks=num_blocks,
+                        num_heads=num_heads, hidden_dim=hidden_dim, img_size=img_size,
+                        standardize_ws=True, st_mode=st_mode, smpl_dir=smpl_dir, dtype=dtype)
     if state_dict is None:
         init_weights_(model, seed)
     else:
@@ -174,8 +201,8 @@ def build_train_model(*, num_blocks: int = 6, num_heads: int = 12,
     return model, smpl
 
 
-def build_eval_model(*, num_blocks: int = 6, num_heads: int = 12,
-                     hidden_dim: int = 1024, img_size: int = 224,
+def build_eval_model(*, encoder: str = "ste", decoder: str = "ktd", num_blocks: int = 6,
+                     num_heads: int = 12, hidden_dim: int = 1024, img_size: int = 224,
                      st_mode: str = "parallel", dtype: torch.dtype = torch.bfloat16,
                      device: torch.device | str = "cuda", seed: int = 0,
                      state_dict: dict | None = None,
@@ -184,22 +211,24 @@ def build_eval_model(*, num_blocks: int = 6, num_heads: int = 12,
     """(model, smpl) ready for ``model(clips, smpl, J_regressor=...)``.
 
     The defaults are the released stage-2 model; ``st_mode`` picks another
-    attention mode of ``models.vit.ST_MODES``. ``state_dict`` holds
+    attention mode of ``models.vit.ST_MODES``, and encoder 'cnn' with
+    decoder 'ktd' or 'iterative' the stage-1 model, which normalizes by
+    its BatchNorm's running statistics. ``state_dict`` holds
     reference-named weights (``utils.weights.state_dict_from_jax`` or a
-    reference checkpoint's); without it the weights are random from
-    ``seed``. ``dtype`` is the activation dtype (bf16 serves, f32 is the
-    reference eval protocol); the weights used in ``dtype`` are cast to it
-    once (``cast_weights_``), the rest stay f32. The SMPL body comes from
-    ``smpl_dir``, or is the synthetic 6890-vertex body when
-    ``allow_synthetic_smpl`` allows the fallback.
+    reference checkpoint's; the BatchNorm statistics with them); without it
+    the weights are random from ``seed``. ``dtype`` is the activation dtype
+    (bf16 serves, f32 is the reference eval protocol); the weights used in
+    ``dtype`` are cast to it once (``cast_weights_``), the rest stay f32.
+    The SMPL body comes from ``smpl_dir``, or is the synthetic 6890-vertex
+    body when ``allow_synthetic_smpl`` allows the fallback.
     """
-    with torch.device("meta"):
-        model = MAED(num_blocks=num_blocks, num_heads=num_heads, hidden_dim=hidden_dim,
-                     img_size=img_size, standardize_ws=False, st_mode=st_mode, dtype=dtype)
-    model = model.to_empty(device=device)
+    model = empty_model(device, encoder=encoder, decoder=decoder, num_blocks=num_blocks,
+                        num_heads=num_heads, hidden_dim=hidden_dim, img_size=img_size,
+                        standardize_ws=False, st_mode=st_mode, smpl_dir=smpl_dir, dtype=dtype)
     if state_dict is None:
         init_weights_(model, seed)
         state_dict = model.state_dict()
+    # the fold touches the ViT stem's convs only: the ResNet has no StdConv
     model.load_state_dict(fold_weight_standardization(state_dict), strict=True)
     cast_weights_(model, dtype)
     model.eval()

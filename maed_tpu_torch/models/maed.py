@@ -1,9 +1,13 @@
-"""MAED: the STE hybrid-ViT encoder and the KTD decoder.
+"""MAED: an encoder (the STE hybrid ViT, or the stage-1 ResNet-50) and a
+decoder (KTD, or the iterative regressor).
 
-Port of ``maed_tpu/models/maed.py`` for encoder 'ste' (any ``st_mode``) and
-decoder 'ktd'. Inputs are NHWC clips (N, T, H, W, 3), uint8 (normalized on
-the device) or float; frames fold into the batch for the encoder and the
-outputs unfold back to (N, T, ...).
+Port of ``maed_tpu/models/maed.py``: encoder 'ste' (any ``st_mode``) or
+'cnn', decoder 'ktd' or 'iterative'. Inputs are NHWC clips (N, T, H, W, 3),
+uint8 (normalized on the device) or float; frames fold into the batch for
+the encoder and the outputs unfold back to (N, T, ...). The decoder takes
+the encoder's features: 768 from the ViT, 2048 from the ResNet, whose
+BatchNorm runs in the module's own mode (batch statistics and their
+running update in ``train()``, the running statistics in eval).
 
 A MAED is built in eval mode, the mode every eval caller runs it in: its
 forward then runs under ``torch.inference_mode``. ``train()`` (as
@@ -18,9 +22,14 @@ import torch
 from torch import nn
 
 from maed_tpu_torch.models.ktd import KTD
+from maed_tpu_torch.models.resnet import ResNet50
+from maed_tpu_torch.models.spin import IterativeRegressor
 from maed_tpu_torch.models.vit import VisionTransformer
 from maed_tpu_torch.ops.image import device_normalize
 from maed_tpu_torch.ops.smpl import SMPLModel
+
+
+ENCODERS, DECODERS = ("ste", "cnn"), ("ktd", "iterative")
 
 
 class MAED(nn.Module):
@@ -28,18 +37,34 @@ class MAED(nn.Module):
                  img_size: int = 224, standardize_ws: bool = True,
                  st_mode: str = "parallel", drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 decoder_drop: float = 0.5, dtype: torch.dtype = torch.float32):
-        """standardize_ws=False runs the stem on weights that
+                 decoder_drop: float = 0.5, encoder: str = "ste", decoder: str = "ktd",
+                 smpl_dir: str = "data/smpl_data", dtype: torch.dtype = torch.float32):
+        """standardize_ws=False runs the ViT's stem on weights that
         ``utils.checkpoint.fold_weight_standardization`` standardized. The
-        rates are the encoder's dropout, attention dropout and (largest)
-        drop-path, and KTD's dropout."""
+        rates are the ViT's dropout, attention dropout and (largest)
+        drop-path, and the decoder's dropout. ``smpl_dir`` is where the
+        iterative decoder looks for ``smpl_mean_params.npz``."""
         super().__init__()
-        self.encoder = VisionTransformer(depth=num_blocks, num_heads=num_heads,
-                                         representation_size=768, img_size=img_size,
-                                         standardize=standardize_ws, st_mode=st_mode,
-                                         drop_rate=drop_rate, attn_drop_rate=attn_drop_rate,
-                                         drop_path_rate=drop_path_rate, dtype=dtype)
-        self.decoder = KTD(feat_dim=768, hidden_dim=hidden_dim, drop=decoder_drop, dtype=dtype)
+        self.encoder_name, self.decoder_name = encoder.lower(), decoder.lower()
+        if self.encoder_name not in ENCODERS or self.decoder_name not in DECODERS:
+            raise NotImplementedError(f"encoder {encoder!r} + decoder {decoder!r}: the encoders "
+                                      f"are {ENCODERS}, the decoders {DECODERS}")
+        if self.encoder_name == "ste":
+            self.encoder = VisionTransformer(depth=num_blocks, num_heads=num_heads,
+                                             representation_size=768, img_size=img_size,
+                                             standardize=standardize_ws, st_mode=st_mode,
+                                             drop_rate=drop_rate, attn_drop_rate=attn_drop_rate,
+                                             drop_path_rate=drop_path_rate, dtype=dtype)
+            feat_dim = 768
+        else:
+            self.encoder = ResNet50(dtype=dtype)
+            feat_dim = self.encoder.num_features
+        if self.decoder_name == "ktd":
+            self.decoder = KTD(feat_dim=feat_dim, hidden_dim=hidden_dim, drop=decoder_drop,
+                               dtype=dtype)
+        else:
+            self.decoder = IterativeRegressor(feat_dim=feat_dim, hidden_dim=hidden_dim,
+                                              drop=decoder_drop, data_dir=smpl_dir, dtype=dtype)
         self.eval()
 
     def forward(self, x: torch.Tensor, smpl_model: SMPLModel,
@@ -51,8 +76,12 @@ class MAED(nn.Module):
         with torch.inference_mode(not train):
             x = device_normalize(x)
             N, T = x.shape[:2]
-            feat = self.encoder(x.reshape((N * T,) + x.shape[2:]), seqlen=T, plain=plain,
-                                train=train, generator=generator)
+            frames = x.reshape((N * T,) + x.shape[2:])
+            if self.encoder_name == "cnn":
+                feat = self.encoder(frames, train=train)
+            else:
+                feat = self.encoder(frames, seqlen=T, plain=plain, train=train,
+                                    generator=generator)
             out = self.decoder(feat, smpl_model, J_regressor=J_regressor, plain=plain,
                                train=train, generator=generator)
             return {

@@ -1,11 +1,16 @@
 """Training CLI of the port:
 
+    python -m maed_tpu_torch.train --cfg configs/config_stage1.yaml [KEY VALUE ...]
     python -m maed_tpu_torch.train --cfg configs/config_stage2.yaml \
-        [--pretrained stage1.pth.tar] [--allow_synthetic_smpl] [KEY VALUE ...]
+        [--init_backbone in21k.npz|.pth] [--pretrained stage1.pth.tar] \
+        [--allow_synthetic_smpl] [KEY VALUE ...]
 
 Port of the JAX package's ``train.py``, for one process: the model from the
-config (``core.builder.build_train_model``: the stage-2 MAED in f32), the
-loaders (``data.loaders.get_data_loaders``), Adam and its schedule
+config's MODEL section (``core.builder.build_train_model`` in f32: stage 1's
+ResNet-50 + KTD, stage 2's STE + KTD), then the published encoder init
+(``--init_backbone``, ``utils.pretrained``) and a stage-1 checkpoint's
+encoder (``--pretrained``), in that order; the loaders
+(``data.loaders.get_data_loaders``), Adam and its schedule
 (``parallel.train_step.make_optimizer``), the step
 (``parallel.train_step.make_train_step``) and ``core.trainer.Trainer``.
 It runs on the card unless the config says ``DEVICE cpu``, and fails when
@@ -36,12 +41,9 @@ def main(argv=None):
     from maed_tpu_torch.parallel.train_step import make_optimizer, make_train_step
     from maed_tpu_torch.utils.checkpoint import load_pretrained_state
     from maed_tpu_torch.utils.logging_utils import create_logger, prepare_output_dir
+    from maed_tpu_torch.utils.pretrained import apply_pretrained_backbone
 
     args, cfg, _ = parse_args(argv)
-    if args.init_backbone:
-        raise NotImplementedError(
-            "--init_backbone (the published encoder init) is not ported yet: "
-            "ROADMAP.md, queue 1, item 5")
     device = device_of(cfg)
     configure_backends(cfg)
 
@@ -57,6 +59,9 @@ def main(argv=None):
 
     model, smpl = build_train_model(**model_config(cfg), device=device, seed=seed,
                                     allow_synthetic_smpl=args.allow_synthetic_smpl)
+    if args.init_backbone:
+        apply_pretrained_backbone(model, args.init_backbone)
+        logger.info(f"=> loaded the published backbone init from {args.init_backbone}")
     if args.pretrained:
         unused = load_pretrained_state(model, load_weights(args.pretrained), drop_decoder=True)
         logger.info(f"=> loaded the pretrained encoder from {args.pretrained}"

@@ -2,9 +2,11 @@
 
 A flax MAED parameter tree is mapped onto the reference torch MAED's
 state_dict names and layouts (conv HWIO -> OIHW, dense (in, out) -> (out,
-in), norm scale -> weight). The port's modules use those names, so the result
-loads with ``load_state_dict(..., strict=True)``, as the released
-``.pth.tar`` will.
+in), norm scale -> weight), and a ``batch_stats`` tree (the 'cnn' encoder's
+BatchNorm) onto ``running_mean`` / ``running_var``, with the
+``num_batches_tracked`` that torch keeps and flax does not synthesized as
+int64 0. The port's modules use those names, so the result loads with
+``load_state_dict(..., strict=True)``, as the released ``.pth.tar`` will.
 
 The mapping is the port's own copy of ``maed_tpu/utils/torch_convert.py``'s
 inverse direction (``_flatten``, ``translate_flax_path``,
@@ -51,17 +53,26 @@ _RENAMES = [
     (r"^encoder/blocks_(\d+)/", r"encoder.blocks.\1."),
     (r"^encoder/pre_logits/", r"encoder.pre_logits.fc/"),
     (r"^decoder/joint_reg(\d+)/", r"decoder.joint_regs.\1."),
+    # the torchvision ResNet-50 ('cnn' encoder)
+    (r"^encoder/layer(\d)_(\d+)/downsample_conv/", r"encoder.layer\1.\2.downsample.0/"),
+    (r"^encoder/layer(\d)_(\d+)/downsample_bn/", r"encoder.layer\1.\2.downsample.1/"),
+    (r"^encoder/layer(\d)_(\d+)/", r"encoder.layer\1.\2."),
 ]
 
 
-def translate_flax_path(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
-    """flax parameter path and value -> (torch key, torch value)."""
+def translate_flax_path(path: str, value: np.ndarray,
+                        collection: str = "params") -> tuple[str, np.ndarray]:
+    """flax path and value of ``collection`` ('params' or 'batch_stats') ->
+    (torch key, torch value)."""
     p = path
     for pat, repl in _RENAMES:
         p = re.sub(pat, repl, p)
     p = p.replace("/", ".")
     leaf = p.rsplit(".", 1)[-1]
     stem = p[: -len(leaf) - 1]
+    if collection == "batch_stats":
+        field = {"mean": "running_mean", "var": "running_var"}[leaf]
+        return f"{stem}.{field}", value
     if leaf == "kernel":
         if value.ndim == 4:
             return f"{stem}.weight", np.transpose(value, (3, 2, 0, 1))
@@ -71,12 +82,21 @@ def translate_flax_path(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     return p, value
 
 
-def convert_params_to_state_dict(params: dict) -> dict[str, np.ndarray]:
-    """flax parameter tree -> reference-named torch state_dict (numpy)."""
-    return dict(translate_flax_path(path, v) for path, v in _flatten(params).items())
+def convert_params_to_state_dict(params: dict,
+                                 batch_stats: dict | None = None) -> dict[str, np.ndarray]:
+    """flax (params, batch_stats) -> reference-named torch state_dict
+    (numpy): the parameters, then each BatchNorm's statistics and its
+    ``num_batches_tracked`` (0)."""
+    sd = dict(translate_flax_path(path, v) for path, v in _flatten(params).items())
+    for path, v in _flatten(batch_stats or {}).items():
+        key, value = translate_flax_path(path, v, "batch_stats")
+        sd[key] = value
+        sd[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = np.asarray(0, np.int64)
+    return sd
 
 
-def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
-    """A flax MAED parameter tree (numpy leaves) -> the port's state_dict."""
+def state_dict_from_jax(params: dict, batch_stats: dict | None = None) -> dict[str, torch.Tensor]:
+    """A flax MAED parameter tree (numpy leaves), and the 'cnn' encoder's
+    ``batch_stats`` tree, -> the port's state_dict."""
     return {key: torch.from_numpy(np.ascontiguousarray(value))
-            for key, value in convert_params_to_state_dict(params).items()}
+            for key, value in convert_params_to_state_dict(params, batch_stats).items()}

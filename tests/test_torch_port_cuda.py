@@ -1,5 +1,7 @@
 """The port's kernels against their plain versions on the card, at small and
-ragged shapes (chip_smoke.py checks them at the flagship shapes); the native
+ragged shapes (chip_smoke.py checks them at the flagship shapes), also
+inside the stage-1 model (the ResNet-50 with BatchNorm, whose only kernel
+is SMPL's skinning); the native
 JPEG decoder of the card's machine against cv2's pixels of the fixture
 frames, and the loader's workers under a live CUDA context.
 
@@ -656,6 +658,78 @@ def test_block_of_every_mode_through_the_kernels(cuda, mode, dtype, atol, rtol):
         assert launches == expect
         assert got.shape == x.shape and got.dtype == dtype
         assert_close(got.float(), want.float(), atol, rtol)
+
+
+def stage1_model(monkeypatch, device, decoder, dtype=torch.float32):
+    """The stage-1 MAED (cnn + ``decoder``) with a narrow ResNet-50 (patched
+    into its module) and seeded weights on ``device``, in eval mode."""
+    import functools
+
+    from maed_tpu_torch.core.builder import empty_model, init_weights_
+    from maed_tpu_torch.models import maed as maed_module
+    from maed_tpu_torch.models.resnet import ResNet50
+
+    monkeypatch.setattr(maed_module, "ResNet50", functools.partial(
+        ResNet50, layers=(1, 1, 1, 1), channels=(32, 64, 128, 256)))
+    model = empty_model(device, encoder="cnn", decoder=decoder, hidden_dim=64, dtype=dtype)
+    init_weights_(model, 3)
+    return model.eval()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decoder", ["ktd", "iterative"])
+def test_stage1_model_through_the_kernels(cuda, monkeypatch, decoder, dtype):
+    """The stage-1 model's eval forward (2 clips x 4 frames at 64 px) launches
+    kernel A once and nothing else, and agrees with its plain forward: the
+    ResNet runs the same cuDNN calls on both paths and SMPL runs in f32 in
+    either dtype, so verts and kp_3d within 1e-4 m and theta within 1e-3,
+    as f32 forwards through the kernels are held."""
+    model = stage1_model(monkeypatch, cuda, decoder, dtype)
+    smpl = synthetic_smpl_model(6890, 0, device=cuda)
+    clips = torch.randint(0, 256, (2, 4, 64, 64, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(1)).to(cuda)
+    kernels.reset_launches()
+    got = model(clips, smpl)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"skinning": 1}
+    want = model(clips, smpl, plain=True)
+    for key, atol in (("verts", 1e-4), ("kp_3d", 1e-4), ("theta", 1e-3)):
+        assert torch.isfinite(got[key]).all(), key
+        assert_close(got[key], want[key], atol)
+
+
+@pytest.mark.parametrize("decoder", ["ktd", "iterative"])
+def test_stage1_train_forward_through_the_kernels(cuda, monkeypatch, decoder):
+    """A training forward of the stage-1 model in f32 (8 images at 64 px, the
+    decoder's dropout from one generator seed on both paths): through kernel
+    A (one launch; its backward is the plain version's, no launch) and
+    through its plain version, from the same weights and running
+    statistics. The statistics after it equal bit for bit (the ResNet does
+    not reach A), and the gradient of a loss on verts and theta lies within
+    1e-4 relative L2 of the plain one."""
+    model = stage1_model(monkeypatch, cuda, decoder).train()
+    smpl = synthetic_smpl_model(6890, 0, device=cuda)
+    frames = torch.randint(0, 256, (8, 1, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(2)).to(cuda)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    for plain in (False, True):
+        model.load_state_dict(start)
+        model.zero_grad(set_to_none=True)
+        kernels.reset_launches()
+        out = model(frames, smpl, plain=plain, generator=torch.Generator(cuda).manual_seed(5))
+        loss = out["verts"].square().mean() + out["theta"].square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        assert launches == ({} if plain else {"skinning": 1})
+        runs.append((torch.cat([p.grad.reshape(-1) for p in model.parameters()]),
+                     {k: v.clone() for k, v in model.state_dict().items() if "running" in k}))
+    (grad, stats), (plain_grad, plain_stats) = runs
+    assert not torch.equal(stats["encoder.bn1.running_var"], start["encoder.bn1.running_var"])
+    for k, v in stats.items():
+        assert torch.equal(v, plain_stats[k]), k
+    assert ((grad - plain_grad).norm() / plain_grad.norm()).item() <= 1e-4
 
 
 def test_procrustes_and_metrics_on_the_card(cuda):

@@ -38,7 +38,7 @@ from maed_tpu_torch.ops.procrustes import batch_similarity_transform as t_simila
 from maed_tpu_torch.utils.smpl_io import synthetic_smpl_model as t_synthetic_smpl
 from maed_tpu_torch.utils.weights import state_dict_from_jax
 from test_torch_port_models import random_params
-from torch_port_common import assert_close, to_torch
+from torch_port_common import assert_close, one_torch_thread, to_torch  # noqa: F401
 
 METRICS = ("mpjpe", "pa-mpjpe", "pve", "accel", "accel_err")
 
@@ -276,25 +276,35 @@ def tiny_models():
         (lambda images, jreg: t_model(images, t_smpl, J_regressor=jreg), t_smpl)
 
 
+@pytest.fixture(scope="module")
+def j_evaluator(tiny_models):
+    """One JAX Evaluator for every case, as a training run keeps one for its
+    validations: its jitted forward and GT-vertex rebuild compile once per
+    shape, not once per case."""
+    (_, j_smpl), _ = tiny_models
+    return JE.Evaluator(j_smpl)
+
+
 def regressor17(seed=7):
     jreg = np.random.RandomState(seed).rand(17, VERTS)
     return (jreg / jreg.sum(axis=1, keepdims=True)).astype(np.float32)
 
 
 @pytest.mark.parametrize("case, interp", [("j14", 1), ("j14", 2), ("native14", 1), ("49", 1)])
-def test_evaluator_run_matches_jax(tiny_models, tmp_path, monkeypatch, capsys, case, interp):
+def test_evaluator_run_matches_jax(tiny_models, j_evaluator, tmp_path, monkeypatch, capsys,
+                                   case, interp):
     """``Evaluator.run`` on both sides over the same windows (ragged last
     batch, a valid mask): '3dpw' with an h36m-style (17, V) regressor and the
     J14 selection, at interp 1 and 2; '3dpw' without its regressor file
     (``allow_missing_regressor``) and a 14-joint GT, which takes the native
     bank's J49_TO_J14; a dataset without a protocol and the 49-joint GT."""
-    ((j_apply, variables), j_smpl), (t_forward, t_smpl) = tiny_models
+    ((j_apply, variables), _), (t_forward, t_smpl) = tiny_models
     monkeypatch.setattr(j_config, "DATA_DIR", str(tmp_path))  # no regressor file there
     jreg = regressor17() if case == "j14" else None
     kw = dict(seqlen=2, interp=interp, batch_size=2, verbose=False, J_regressor=jreg,
               dataset_name="testset" if case == "49" else "3dpw",
               allow_missing_regressor=case == "native14")
-    j_ev, t_ev = JE.Evaluator(j_smpl), TE.Evaluator(t_smpl)
+    j_ev, t_ev = j_evaluator, TE.Evaluator(t_smpl)
     want_metrics, want_n = j_ev.run(j_apply, Windows(case, jreg), variables=variables, **kw)
     got_metrics, got_n = t_ev.run(t_forward, Windows(case, jreg), data_dir=str(tmp_path), **kw)
     if case == "native14":
@@ -316,12 +326,12 @@ def test_evaluator_run_matches_jax(tiny_models, tmp_path, monkeypatch, capsys, c
         assert_close(got_metrics[key], want_metrics[key], 0.1, 1e-3, what=key)
 
 
-def test_evaluator_gt_verts_match_jax(tiny_models):
-    (_, j_smpl), (_, t_smpl) = tiny_models
+def test_evaluator_gt_verts_match_jax(tiny_models, j_evaluator):
+    _, (_, t_smpl) = tiny_models
     rng = np.random.RandomState(8)
     theta = np.zeros((7, 85), np.float32)
     theta[:, 3:] = rng.randn(7, 82) * 0.3
-    want = JE.Evaluator(j_smpl)._gt_verts(theta)
+    want = j_evaluator._gt_verts(theta)
     got = TE.Evaluator(t_smpl)._gt_verts(theta)
     assert got.shape == (7, VERTS, 3)
     assert_close(got, want, 1e-5)

@@ -45,6 +45,7 @@ from maed_tpu_torch.ops import groupnorm as TGN
 from maed_tpu_torch.ops import layernorm as TLN
 from maed_tpu_torch.ops import mlp as TMLP
 from maed_tpu_torch.ops import st_attention as TST
+from torch_port_common import one_torch_thread  # noqa: F401
 from torch_port_common import assert_close, ln_inputs, mlp_inputs, to_torch, torch_mlp_args
 
 

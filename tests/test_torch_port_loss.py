@@ -14,7 +14,7 @@ import torch
 
 from maed_tpu.core import loss as JL
 from maed_tpu_torch.core import loss as TL
-from torch_port_common import assert_close, to_torch
+from torch_port_common import assert_close, one_torch_thread, to_torch  # noqa: F401
 
 ATOL = 1e-12
 

@@ -25,7 +25,7 @@ from maed_tpu_torch.models.ktd import KTD as TKTD
 from maed_tpu_torch.models.vit import Block as TBlock
 from maed_tpu_torch.utils.checkpoint import fold_weight_standardization as t_fold
 from maed_tpu_torch.utils.smpl_io import synthetic_smpl_model as t_synthetic_smpl
-from torch_port_common import assert_close, to_torch
+from torch_port_common import assert_close, one_torch_thread, to_torch  # noqa: F401
 
 ATOL64 = 1e-9
 

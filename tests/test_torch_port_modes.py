@@ -36,7 +36,7 @@ from maed_tpu_torch.ops import attention as TA
 from maed_tpu_torch.utils.smpl_io import synthetic_smpl_model as t_synthetic_smpl
 from maed_tpu_torch.utils.weights import state_dict_from_jax
 from test_torch_port_models import as_f64, random_params, sub_state_dict
-from torch_port_common import assert_close, to_torch
+from torch_port_common import assert_close, one_torch_thread, to_torch  # noqa: F401
 
 CONFIG = dict(num_blocks=1, num_heads=2, hidden_dim=32)
 SHAPE = (2, 2, 32, 32, 3)   # 2 clips of 2 frames

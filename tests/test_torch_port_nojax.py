@@ -11,8 +11,9 @@ through the kernels' autograd Functions, the Adam update). Then it runs
 iterations, 1 epoch) over synthetic DBs written as plain pickles, whose
 frames are the JPEGs of tests/torch_port_data, and
 ``python -m maed_tpu_torch.eval`` on its model_best.pth.tar, which writes
-inference.pkl. In the end no module of maed_tpu, jax, flax, triton, yaml,
-cv2, joblib or PIL is loaded."""
+inference.pkl. A second interpreter, with the same modules blocked, runs
+stage 1 (``test_stage1_runs_without_jax``). In the end no module of
+maed_tpu, jax, flax, triton, yaml, cv2, joblib or PIL is loaded."""
 
 import os
 import subprocess
@@ -157,11 +158,153 @@ MODEL:
 """
 
 
-def test_port_runs_without_jax(tmp_path):
+STAGE1_SCRIPT = """
+import sys
+for name in BLOCKED:
+    sys.modules[name] = None
+import glob, os, pickle, runpy
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from maed_tpu_torch.core.builder import build_eval_model, build_train_model
+from maed_tpu_torch.core.loss import LossWeights
+from maed_tpu_torch.models.maed import MAED
+from maed_tpu_torch.parallel.train_step import make_optimizer, make_train_step
+from maed_tpu_torch.utils.pretrained import apply_pretrained_backbone
+from maed_tpu_torch.utils.weights import state_dict_from_jax
+kw = dict(hidden_dim=32, img_size=32, device="cpu", seed=0, allow_synthetic_smpl=True,
+          smpl_dir="absent")
+clips = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (1, 2, 32, 32, 3),
+                                                          dtype=np.uint8))
+for decoder in ("ktd", "iterative"):
+    model, smpl = build_eval_model(encoder="cnn", decoder=decoder, dtype=torch.bfloat16, **kw)
+    out = model(clips, smpl)
+    assert out["verts"].shape == (1, 2, 6890, 3), decoder
+    assert all(torch.isfinite(v.float()).all() for v in out.values()), decoder
+model, smpl = build_train_model(encoder="cnn", decoder="ktd", **kw)
+class Optim:
+    OPTIM, LR, WD, MOMENTUM = "adam", 1e-3, 0.0, 0.9
+    WARMUP_EPOCH, WARMUP_FACTOR, MILESTONES = 0, 0.1, [3]
+step = make_train_step(model, make_optimizer(Optim, 10, model.parameters()), smpl, LossWeights(),
+                       torch.Generator().manual_seed(0))
+kp = lambda *shape: torch.cat([torch.randn(*shape, 3), torch.ones(*shape, 1)], -1)
+img = {"image": torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8),
+       "kp_2d": kp(2, 49)[..., 1:], "kp_3d": kp(2, 49), "theta": torch.randn(2, 85) * 0.1,
+       "w_smpl": torch.ones(2)}
+out = step(None, img)
+assert all(torch.isfinite(v) for v in out.values()), out
+assert int(model.encoder.bn1.num_batches_tracked) == 1
+tree = {"encoder": {"layer2_0": {"downsample_bn": {"scale": np.ones(8, np.float32)}}},
+        "decoder": {"decpose": {"kernel": np.ones((4, 144), np.float32)}}}
+stats = {"encoder": {"layer2_0": {"downsample_bn": {"mean": np.zeros(8, np.float32),
+                                                    "var": np.ones(8, np.float32)}}}}
+sd = state_dict_from_jax(tree, stats)
+assert sorted(sd) == ["decoder.decpose.weight", "encoder.layer2.0.downsample.1.num_batches_tracked",
+                      "encoder.layer2.0.downsample.1.running_mean",
+                      "encoder.layer2.0.downsample.1.running_var",
+                      "encoder.layer2.0.downsample.1.weight"], sorted(sd)
+rng = np.random.RandomState(1)
+npz = {"cls": rng.randn(1, 1, 768).astype(np.float32),
+       "Transformer/encoderblock_0/LayerNorm_0/scale": rng.randn(768).astype(np.float32)}
+for n in ("query", "key", "value"):
+    npz[f"Transformer/encoderblock_0/MultiHeadDotProductAttention_1/{n}/kernel"] = (
+        rng.randn(768, 2, 384).astype(np.float32))
+    npz[f"Transformer/encoderblock_0/MultiHeadDotProductAttention_1/{n}/bias"] = (
+        rng.randn(2, 384).astype(np.float32))
+np.savez("in21k.npz", **npz)
+stage2 = MAED(num_blocks=1, num_heads=2, hidden_dim=32, img_size=32)
+apply_pretrained_backbone(stage2, "in21k.npz")
+assert torch.equal(stage2.encoder.cls_token, torch.from_numpy(npz["cls"]))
+q = npz["Transformer/encoderblock_0/MultiHeadDotProductAttention_1/query/kernel"]
+qkv = stage2.encoder.blocks[0].attn.qkv.weight
+assert torch.equal(qkv[:768], torch.from_numpy(q.reshape(768, -1).T))
+torch.save({"norm.weight": torch.full((768,), 2.0), "head.weight": torch.ones(3, 768)}, "in21k.pth")
+apply_pretrained_backbone(stage2, "in21k.pth")
+assert torch.equal(stage2.encoder.norm.weight, torch.full((768,), 2.0))
+
+os.makedirs("data/database")
+frames = sorted(glob.glob(os.path.join(FIXTURES, "frame_*.jpg")))
+def db(n, seed, video):
+    rng = np.random.RandomState(seed)
+    d = {"img_name": np.array([frames[i % len(frames)] for i in range(n)]),
+         "bbox": np.tile([240.0, 180.0, 150.0, 150.0], (n, 1)),
+         "joints2D": np.concatenate([rng.rand(n, 49, 2) * 300, np.ones((n, 49, 1))], -1),
+         "joints3D": np.concatenate([rng.randn(n, 49, 3) * 0.3, np.ones((n, 49, 1))], -1),
+         "pose": rng.randn(n, 72) * 0.2, "shape": rng.randn(n, 10) * 0.5}
+    if video:
+        d["vid_name"], d["frame_id"] = np.array(["a"] * n), np.arange(n)
+    return d
+for name, d in {"synimg_train": db(8, 0, False), "3dpw_val": db(8, 1, True)}.items():
+    with open(f"data/database/{name}_db.pt", "wb") as f:
+        pickle.dump(d, f)
+open("tiny1.yaml", "w").write(CONFIG)
+def cli(module, *argv):
+    sys.argv = [module, "--cfg", "tiny1.yaml", "--allow_synthetic_smpl", *argv]
+    runpy.run_module(module, run_name="__main__")
+cli("maed_tpu_torch.train")
+(logdir,) = glob.glob("results/*_tiny1")
+best = torch.load(os.path.join(logdir, "model_best.pth.tar"), weights_only=True)["state_dict"]
+assert int(best["encoder.layer4.2.bn3.num_batches_tracked"]) == 2
+cli("maed_tpu_torch.eval", "--checkpoint", os.path.join(logdir, "model_best.pth.tar"),
+    "--eval_ds", "3dpw", "--eval_set", "val")
+assert not [name for name, mod in sys.modules.items()
+            if mod is not None and name.split(".")[0] in BLOCKED]
+print("NOJAX_OK")
+"""
+
+STAGE1_CONFIG = """\
+DEVICE: cpu
+EXP_NAME: tiny1
+NUM_WORKERS: 0
+SEED_VALUE: 1
+SAVE_FREQ: 1
+DATASET:
+  WIDTH: 32
+  HEIGHT: 32
+  SEQLEN: 4
+  SAMPLE_POOL: 4
+EVAL:
+  SEQLEN: 4
+  SAMPLE_POOL: 8
+  BATCH_SIZE: 2
+TRAIN:
+  BATCH_SIZE_2D: 0
+  BATCH_SIZE_3D: 0
+  BATCH_SIZE_IMG: 2
+  NUM_ITERS_PER_EPOCH: 2
+  END_EPOCH: 1
+  DATASETS_2D: []
+  DATASETS_3D: []
+  DATASETS_IMG: [synimg]
+  DATASET_EVAL: 3dpw
+MODEL:
+  ENCODER:
+    BACKBONE: cnn
+  DECODER:
+    BACKBONE: ktd
+    HIDDEN_DIM: 32
+"""
+
+
+def run_blocked(tmp_path, script, config):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     script = (f"BLOCKED = {BLOCKED!r}\nFIXTURES = {str(REPO / 'tests' / 'torch_port_data')!r}\n"
-              f"CONFIG = {CONFIG!r}\n" + SCRIPT)
+              f"CONFIG = {config!r}\n" + script)
     proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX_OK" in proc.stdout
+
+
+def test_stage1_runs_without_jax(tmp_path):
+    """Stage 1 with the same modules blocked: the bf16 eval forward of cnn +
+    ktd and cnn + iterative, one image-only train step of cnn + ktd (its
+    BatchNorm counts the batch), a cnn / iterative tree and its batch_stats
+    mapped to the port's names, the published-backbone import from an .npz
+    and a .pth, and ``python -m maed_tpu_torch.train`` on a tiny stage-1
+    config, then the eval CLI on its model_best.pth.tar."""
+    run_blocked(tmp_path, STAGE1_SCRIPT, STAGE1_CONFIG)
+
+
+def test_port_runs_without_jax(tmp_path):
+    run_blocked(tmp_path, SCRIPT, CONFIG)

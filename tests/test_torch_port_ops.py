@@ -32,7 +32,7 @@ from maed_tpu_torch.ops import joints as TJ
 from maed_tpu_torch.ops import smpl as TS
 from maed_tpu_torch.ops import skinning as TK
 from maed_tpu_torch.utils import smpl_io as TIO
-from torch_port_common import assert_close, to_torch
+from torch_port_common import assert_close, one_torch_thread, to_torch  # noqa: F401
 
 ATOL64 = 1e-9
 

@@ -19,6 +19,8 @@ agree bit for bit (test_torch_port_ops::test_device_normalize_matches_jax),
 and the port still takes the raw uint8 clips.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import jax
@@ -26,6 +28,8 @@ import jax.numpy as jnp
 import torch
 
 from maed_tpu.models import MAED as JMAED
+from maed_tpu.models import maed as j_maed_module
+from maed_tpu.models.resnet import ResNet50 as JResNet50
 from maed_tpu.ops.image import device_normalize as j_device_normalize
 from maed_tpu.utils.checkpoint import fold_weight_standardization as j_fold
 from maed_tpu.utils.smpl_io import synthetic_smpl_model as j_synthetic_smpl
@@ -36,7 +40,7 @@ from maed_tpu_torch.utils.checkpoint import fold_weight_standardization as t_fol
 from maed_tpu_torch.utils.smpl_io import synthetic_smpl_model as t_synthetic_smpl
 from maed_tpu_torch.utils.weights import state_dict_from_jax
 from test_torch_port_models import random_params
-from torch_port_common import assert_close, to_torch
+from torch_port_common import assert_close, one_torch_thread, to_torch  # noqa: F401
 
 CONFIG = dict(num_blocks=1, num_heads=2, hidden_dim=32)
 SHAPE = (1, 2, 32, 32, 3)
@@ -73,16 +77,29 @@ def assert_outputs_close(got, want, atol, rtol):
         assert_close(got[key], want[key], atol, rtol, what=key)
 
 
-def test_weight_mapping_equals_the_jax_packages(params):
+def test_weight_mapping_equals_the_jax_packages(params, monkeypatch):
     """utils.weights keeps its own copy of the flax -> torch key mapping (the
     port imports nothing of maed_tpu): key for key and value for value it is
-    maed_tpu.utils.torch_convert's."""
-    want = j_convert(params)
-    got = state_dict_from_jax(params)
-    assert list(got) == list(want)
-    for key, value in want.items():
-        assert got[key].dtype == torch.float32
-        np.testing.assert_array_equal(got[key].numpy(), value, err_msg=key)
+    maed_tpu.utils.torch_convert's, for the stage-2 tree (ste + ktd) and for
+    a stage-1 one (cnn + iterative, a narrow ResNet50) with its batch_stats,
+    whose num_batches_tracked both write as int64 0."""
+    monkeypatch.setattr(j_maed_module, "ResNet50", functools.partial(
+        JResNet50, layers=(1, 1, 1, 1), channels=(16, 32, 64, 128)))
+    cnn = JMAED(encoder="cnn", decoder="iterative", hidden_dim=32)
+    cnn_vars = jax.eval_shape(lambda: cnn.init(jax.random.PRNGKey(0), np.zeros(SHAPE, np.float32),
+                                               j_synthetic_smpl(64, 0)))
+    rng = np.random.RandomState(3)
+    cnn_params, cnn_stats = (jax.tree.map(lambda a: rng.randn(*a.shape).astype(np.float32),
+                                          cnn_vars[c]) for c in ("params", "batch_stats"))
+    for args in ((params,), (cnn_params, cnn_stats)):
+        want = j_convert(*args)
+        got = state_dict_from_jax(*args)
+        assert list(got) == list(want)
+        for key, value in want.items():
+            assert got[key].dtype == (torch.int64 if key.endswith("num_batches_tracked")
+                                      else torch.float32)
+            np.testing.assert_array_equal(got[key].numpy(), value, err_msg=key)
+    assert sum(k.endswith("num_batches_tracked") for k in got) == 17
 
 
 def test_state_dict_has_the_reference_names(params):

@@ -65,22 +65,12 @@ from maed_tpu_torch.parallel import train_step as TS
 from maed_tpu_torch.utils.smpl_io import synthetic_smpl_model as t_synthetic_smpl
 from maed_tpu_torch.utils.weights import state_dict_from_jax
 from test_torch_port_models import as_f64, random_params, sub_state_dict
-from torch_port_common import assert_close, to_torch
+from torch_port_common import assert_close, one_torch_thread, to_torch  # noqa: F401
 
 CONFIG = dict(num_blocks=1, num_heads=2, hidden_dim=32)
 T, RES = 2, 32
 LOSS_RTOL, GRAD_ATOL, PARAM_ATOL = 1e-10, 1e-9, 1e-10
 OPT_RTOL, OPT_ATOL = 1e-12, 1e-15
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The tiny model's ops are too small for torch's thread pool, which
-    only contends with the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 FIRST_LR = 1e-3 * 0.1  # _Optim's rate in the first warmup epoch
 
 

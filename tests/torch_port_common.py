@@ -6,7 +6,19 @@ so the tests that run on the card, where JAX is absent, can use it.
 """
 
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tests' shapes are tiny: torch's thread pool would only contend
+    with the other test workers. A test module that imports this fixture
+    runs its torch ops on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def to_torch(a, dtype=None):
