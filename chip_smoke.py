@@ -34,26 +34,40 @@
    same step through their plain versions (and, for the whole gradient, be
    as close to the same step in f64), and the bf16 gradient must lie at
    most BF16_RATIO times as far from the f32 one through the kernels as
-   through the plain versions.
-7. Runs the CLIs (``phase_trainer``) at full width on
+   through the plain versions. The f32 step of the same model with remat
+   (each ViT block recomputed in the backward) must give the gradient of
+   the step without it bit for bit; both print their step time and peak
+   memory.
+7. Data parallel (``phase_ddp``): two ranks on the one card over gloo
+   (``python3 chip_smoke.py --ddp-rank <dir>`` each; NCCL takes one rank a
+   device), each on half of a global batch, against one process on the
+   whole batch through the kernels in f32 at full width: stage 2 on 4 2D +
+   4 3D clips and 8 images, stage 1 on 128 images (global BatchNorm
+   moments), every dropout rate 0 on both sides.
+8. Runs the CLIs (``phase_trainer``) at full width on
    configs/config_stage2.yaml in f32 over synthetic DBs of the JPEG frames
    in tests/torch_port_data: ``python -m maed_tpu_torch.train`` for 2 epochs
    of 4 iterations with validation and checkpoints each epoch; the same
-   command with TRAIN.RESUME auto stopped by SIGTERM in epoch 2 and
-   relaunched, whose losses and last checkpoint must match the first run's;
+   command with TRAIN.RESUME auto as the one NCCL rank of ``python -m
+   torch.distributed.run --nproc_per_node 1``, stopped by SIGTERM in epoch 2
+   and relaunched, whose losses and last checkpoint must match the first
+   run's;
    ``python -m maed_tpu_torch.eval`` on model_best.pth.tar, whose metrics
    must match the validation that chose it; the native decoder against the
    pixels cv2 decoded from the frames; the 3D loader's rate alone with 0 and
    8 workers.
-8. Stage 1 (``phase_stage1``): ``build_train_model`` for the ResNet-50
+9. Stage 1 (``phase_stage1``): ``build_train_model`` for the ResNet-50
    with BatchNorm and KTD at full width in f32, 3 steps of 128 uint8 images
    through kernel A (its only kernel: the ResNet stays on cuDNN), through
    A's plain version and through the plain versions in f64, held to each
    other with the running statistics (STAGE1_STATS_RTOL, F32_GRAD_RATIO);
    a bf16 eval forward of 8 clips x 16 frames through cnn + ktd and cnn +
    iterative by BF16_RATIO; A at B = 128; ``python -m maed_tpu_torch.train
-   --cfg configs/config_stage1.yaml`` for 2 epochs of 3 iterations,
-   resumed after SIGTERM bit for bit, BatchNorm buffers included, and the
+   --cfg configs/config_stage1.yaml`` for 2 epochs of 3 iterations, the
+   same under torchrun (its one rank's BatchNorm takes the group's moments:
+   its first step held to the run without a launcher), and under torchrun
+   stopped by SIGTERM and resumed bit for bit, BatchNorm buffers included,
+   and the
    eval CLI on its model_best.pth.tar; the published-backbone import
    (``--init_backbone``) from a synthetic in21k .npz and a timm .pth.
 
@@ -895,24 +909,24 @@ def consistent_targets(rng, smpl, n, frames, device):
             "kp_3d": torch.cat([joints, conf], dim=-1), "kp_2d": torch.cat([kp2d, conf], dim=-1)}
 
 
-def make_train_batch(smpl, device):
-    """One stage-2 step's batches: TRAIN_2D + TRAIN_3D uint8 clips of SEQLEN
-    frames (the 2D clips first) and TRAIN_IMAGES uint8 images at IMG^2,
-    with targets from :func:`consistent_targets`."""
+def make_train_batch(smpl, device, n2d=TRAIN_2D, n3d=TRAIN_3D, n_img=TRAIN_IMAGES):
+    """One stage-2 step's batches: n2d + n3d uint8 clips of SEQLEN frames
+    (the 2D clips first) and n_img uint8 images at IMG^2, with targets from
+    :func:`consistent_targets`."""
     rng = np.random.RandomState(3)
-    n_vid = TRAIN_2D + TRAIN_3D
-    frames = rng.randint(0, 256, (n_vid * SEQLEN + TRAIN_IMAGES, IMG, IMG, 3), dtype=np.uint8)
+    n_vid = n2d + n3d
+    frames = rng.randint(0, 256, (n_vid * SEQLEN + n_img, IMG, IMG, 3), dtype=np.uint8)
     frames = torch.from_numpy(frames).to(device)
-    tgt2 = consistent_targets(rng, smpl, TRAIN_2D, SEQLEN, device)
-    tgt3 = consistent_targets(rng, smpl, TRAIN_3D, SEQLEN, device)
-    tgti = consistent_targets(rng, smpl, TRAIN_IMAGES, 1, device)
+    tgt2 = consistent_targets(rng, smpl, n2d, SEQLEN, device)
+    tgt3 = consistent_targets(rng, smpl, n3d, SEQLEN, device)
+    tgti = consistent_targets(rng, smpl, n_img, 1, device)
     vid = {"images": frames[:n_vid * SEQLEN].reshape(n_vid, SEQLEN, IMG, IMG, 3),
            "target_2d": {"kp_2d": tgt2["kp_2d"]},
            "target_3d": {"kp_2d": tgt3["kp_2d"], "kp_3d": tgt3["kp_3d"], "theta": tgt3["theta"],
-                         "w_smpl": torch.ones((TRAIN_3D, SEQLEN), device=device)}}
+                         "w_smpl": torch.ones((n3d, SEQLEN), device=device)}}
     img = {"image": frames[n_vid * SEQLEN:], "kp_2d": tgti["kp_2d"][:, 0],
            "kp_3d": tgti["kp_3d"][:, 0], "theta": tgti["theta"][:, 0],
-           "w_smpl": torch.ones((TRAIN_IMAGES,), device=device)}
+           "w_smpl": torch.ones((n_img,), device=device)}
     return vid, img
 
 
@@ -957,10 +971,11 @@ def train_steps(model, smpl, batch, steps, plain=False, seed=7):
     return metrics, grad, launches, times, peak
 
 
-def f64_plain_grad(start, smpl, batch, device):
+def f64_plain_grad(start, smpl, batch, device, dropout=True):
     """The first step's whole gradient (f64) through the plain versions of
     the model in f64 from the f32 weights ``start``, on the same batch and
-    generator seed as :func:`train_steps`."""
+    generator seed as :func:`train_steps` (``dropout=False``: with every
+    dropout rate 0)."""
     from maed_tpu_torch.core.builder import build_train_model
 
     def f64(t):
@@ -969,6 +984,8 @@ def f64_plain_grad(start, smpl, batch, device):
     model, _ = build_train_model(dtype=torch.float64, device=device, seed=0,
                                  allow_synthetic_smpl=True)
     model.double().load_state_dict({k: f64(v) for k, v in start.items()})
+    if not dropout:
+        without_dropout(model)
     vid, img = batch
     vid = {"images": vid["images"], "target_2d": {k: f64(v) for k, v in vid["target_2d"].items()},
            "target_3d": {k: f64(v) for k, v in vid["target_3d"].items()}}
@@ -1002,6 +1019,38 @@ def check_f32_train(record, loss_k, loss_p, grad, plain_grad, stem, loss_64, gra
     if not kern <= F32_GRAD_RATIO * plain:
         raise AssertionError(f"train f32: the kernels' gradient lies {kern:.3e} from the f64 "
                              f"step's, beyond {F32_GRAD_RATIO} x the plain versions' {plain:.3e}")
+
+
+def remat_check(model, smpl, batch, start, card):
+    """The f32 step of ``model`` from ``start`` without and with remat (each
+    ViT block under ``torch.utils.checkpoint``, recomputed in the backward),
+    TRAIN_STEPS steps each, with cuDNN's deterministic algorithms: the first
+    step's gradients must be equal bit for bit. Returns each one's step time
+    (median of steps 2 on, host clock), peak memory and launches a step."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for remat in (False, True):
+            model.load_state_dict(start)
+            model.encoder.remat = remat
+            _, grad, launches, times, peak = train_steps(model, smpl, batch, TRAIN_STEPS)
+            runs["remat" if remat else "no_remat"] = dict(
+                grad=grad, ms_per_step=float(np.median(times[1:])), step_ms=times,
+                peak_memory_bytes=peak, launches=launches)
+    finally:
+        model.encoder.remat = False
+        torch.backends.cudnn.deterministic = deterministic
+    equal = torch.equal(runs["no_remat"].pop("grad"), runs["remat"].pop("grad"))
+    a, b = runs["no_remat"], runs["remat"]
+    print(f"  remat, f32, cuDNN deterministic ({card}): {b['ms_per_step']:.1f} ms a step, peak "
+          f"{b['peak_memory_bytes'] / 2 ** 30:.2f} GiB; without: {a['ms_per_step']:.1f} ms, peak "
+          f"{a['peak_memory_bytes'] / 2 ** 30:.2f} GiB; step 1 gradients equal bit for bit: "
+          f"{equal}; launches a remat step {b['launches']}")
+    if not equal:
+        raise AssertionError("train f32: the remat step's gradient differs from the step's "
+                             "without remat")
+    return dict(runs, grad_bit_equal=equal)
 
 
 def phase_train(device):
@@ -1062,6 +1111,7 @@ def phase_train(device):
                               plain_step_ms=plain_times[0], plain_peak_memory_bytes=plain_peak,
                               grad_rel_l2_kernels_vs_plain=grad_dist)
         if dtype == torch.float32:
+            records["f32"]["remat"] = remat_check(model, smpl, batch, start, card)
             stem = torch.cat([torch.full((p.numel(),), "patch_embed.backbone." in name,
                                          device=device)
                               for name, p in model.named_parameters()])
@@ -1084,6 +1134,221 @@ def phase_train(device):
     records["bf16"].update(grad_dist_to_f32_plain=kern, plain_grad_dist_to_f32_plain=plain)
     print(json.dumps({"train": {"card": card, **records}}))
     return launches_train
+
+# phase_ddp: data parallel training on the one card, DDP_WORLD ranks over gloo
+# (NCCL takes one rank a device), each on its slice of a global batch of
+# DDP_2D + DDP_3D clips of SEQLEN frames and DDP_IMAGES images (stage 2), and
+# of DDP_STAGE1_IMAGES images (stage 1), against one process on the whole
+# batch, every dropout rate 0 on both sides (each rank draws its own masks)
+DDP_WORLD, DDP_2D, DDP_3D, DDP_IMAGES, DDP_STAGE1_IMAGES = 2, 4, 4, 8, 128
+
+
+def without_dropout(model):
+    """``model`` with every dropout and drop-path rate set to 0."""
+    from maed_tpu_torch.models.layers import Dropout
+
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.rate = 0.0
+    return model
+
+
+def rank_slice(batch: dict, rank: int, world: int, counts: dict) -> dict:
+    """Rank ``rank``'s equal slice of each leaf of ``batch`` along its first
+    axis; ``counts`` maps a key to the number of leading rows it splits
+    separately (the video batch's 2D clips come before its 3D clips)."""
+    def part(t, n):
+        return t[rank * (n // world):(rank + 1) * (n // world)]
+
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, dict):
+            out[k] = rank_slice(v, rank, world, {})
+        elif k in counts:
+            n = counts[k]
+            out[k] = torch.cat([part(v[:n], n), part(v[n:], v.shape[0] - n)])
+        else:
+            out[k] = part(v, v.shape[0])
+    return out
+
+
+def ddp_rank(out_dir: Path) -> int:
+    """One rank of :func:`phase_ddp` (``chip_smoke.py --ddp-rank <dir>``, with
+    torchrun's environment): joins the gloo group, takes one f32 stage-2
+    step through the kernels on its slice of the global batch, then one
+    stage-1 step; rank 0 writes the loss terms averaged over the ranks, the
+    averaged gradient and, for stage 1, the BatchNorm statistics after the
+    step (global moments) to ``<dir>/rank0.pt``."""
+    sys.path.insert(0, str(ROOT))
+    from maed_tpu_torch.core.builder import build_train_model
+    from maed_tpu_torch.parallel import dist
+
+    rank, world = dist.init_from_env(cpu=False, backend="gloo")
+    device = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    model, smpl = build_train_model(device=device, seed=0, allow_synthetic_smpl=True)
+    vid, img = make_train_batch(smpl, device, DDP_2D, DDP_3D, DDP_IMAGES)
+    batch = (rank_slice(vid, rank, world, {"images": DDP_2D}), rank_slice(img, rank, world, {}))
+    metrics, grad, launches, times, peak = train_steps(without_dropout(model), smpl, batch, 1)
+    keys = sorted(metrics[0])
+    mean = dist.mean_over_ranks(torch.stack([metrics[0][k] for k in keys])).tolist()
+    out["stage2"] = dict(metrics=dict(zip(keys, mean)), grad=grad.cpu(), launches=launches,
+                         step_ms=times[0], peak_memory_bytes=peak)
+    del model, grad
+    torch.cuda.empty_cache()
+    model, smpl = build_train_model(encoder="cnn", decoder="ktd", device=device, seed=0,
+                                    allow_synthetic_smpl=True)
+    img = rank_slice(make_image_batch(smpl, device, DDP_STAGE1_IMAGES), rank, world, {})
+    run = stage1_steps(without_dropout(model), smpl, img, 1)
+    loss = dist.mean_over_ranks(torch.tensor([run["losses"][0]])).item()
+    out["stage1"] = dict(loss=loss, grad=run["grad"].cpu(), launches=run["launches"],
+                         stats={k: v.cpu() for k, v in run["stats"][0].items()},
+                         step_ms=run["ms"][0], peak_memory_bytes=run["peak"])
+    if rank == 0:
+        torch.save(out, out_dir / "rank0.pt")
+    dist.shutdown()
+    return 0
+
+
+def run_ddp_ranks(workdir: Path, timeout: float = 600) -> dict:
+    """DDP_WORLD processes of :func:`ddp_rank` on a free localhost port;
+    returns rank 0's results."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    for rank in range(DDP_WORLD):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(DDP_WORLD),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port), PYTHONUNBUFFERED="1")
+        logs.append(workdir / f"rank{rank}.log")
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                           "--ddp-rank", str(workdir)], env=env, stdout=out,
+                                          stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"ddp rank {rank} exited {p.returncode}:\n"
+                                 + logs[rank].read_text()[-4000:])
+    return torch.load(workdir / "rank0.pt", weights_only=False)
+
+
+def phase_ddp(device):
+    """Data parallel training on the one card: DDP_WORLD gloo ranks
+    (``parallel.dist``: the loss terms over the global batch, BatchNorm over
+    its moments, the gradient averaged before the update), each on its
+    slice, against one process on the whole batch through the kernels, in
+    f32 at full width. Stage 2 (the released MAED, DDP_2D + DDP_3D clips and
+    DDP_IMAGES images): each loss term within TRAIN_LOSS_RTOL, the gradient
+    outside the stem within TRAIN_GRAD_RTOL and the whole gradient at most
+    F32_GRAD_RATIO times as far from the one-process step in f64 as the
+    one-process plain f32 step (phase_train's rule). Stage 1 (ResNet-50 +
+    KTD, DDP_STAGE1_IMAGES images): the loss within TRAIN_LOSS_RTOL, the
+    gradient within TRAIN_GRAD_RTOL, the BatchNorm statistics after the step
+    within STAGE1_STATS_RTOL (phase_stage1's bounds). Prints one JSON
+    record."""
+    import shutil
+    import tempfile
+
+    from maed_tpu_torch.core.builder import build_train_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_identity()
+    torch.cuda.empty_cache()
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_ddp_"))
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ddp_ranks(workdir)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    record = {"card": card, "world": DDP_WORLD, "ranks_s": ranks_s}
+
+    # stage 2: one process on the whole batch, through the kernels, plain, f64
+    model, smpl = build_train_model(device=device, seed=0, allow_synthetic_smpl=True)
+    without_dropout(model)
+    batch = make_train_batch(smpl, device, DDP_2D, DDP_3D, DDP_IMAGES)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    metrics, grad, _, times, peak = train_steps(model, smpl, batch, 1)
+    model.load_state_dict(start)
+    _, plain_grad, *_ = train_steps(model, smpl, batch, 1, plain=True)
+    stem = torch.cat([torch.full((p.numel(),), "patch_embed.backbone." in name, device=device)
+                      for name, p in model.named_parameters()])
+    del model
+    torch.cuda.empty_cache()
+    loss_64, grad_64 = f64_plain_grad(start, smpl, batch, device, dropout=False)
+    del start
+    got = ranks["stage2"]
+    ddp_grad = got["grad"].to(device)
+    terms = {k: abs(got["metrics"][k] - v.item()) / abs(v.item()) for k, v in metrics[0].items()}
+    rest = rel_l2(ddp_grad[~stem], grad[~stem])
+    ddp_64, plain_64, one_64 = (rel_l2(g, grad_64) for g in (ddp_grad, plain_grad, grad))
+    record["stage2"] = dict(
+        loss_terms_rel=terms, grad_rel_l2_outside_stem=rest,
+        grad_rel_l2_stem=rel_l2(ddp_grad[stem], grad[stem]), grad_rel_l2_ddp_vs_f64=ddp_64,
+        grad_rel_l2_plain_vs_f64=plain_64, grad_rel_l2_one_process_vs_f64=one_64,
+        rank_step_ms=got["step_ms"], rank_peak_memory_bytes=got["peak_memory_bytes"],
+        one_process_step_ms=times[0], one_process_peak_memory_bytes=peak,
+        rank_launches=got["launches"])
+    print(f"  stage 2, {DDP_WORLD} ranks x ({DDP_2D // DDP_WORLD} + {DDP_3D // DDP_WORLD} clips, "
+          f"{DDP_IMAGES // DDP_WORLD} images) against 1 x ({DDP_2D} + {DDP_3D}, {DDP_IMAGES}), "
+          f"f32 through the kernels: loss terms max rel {max(terms.values()):.3e} (bound "
+          f"{TRAIN_LOSS_RTOL}); gradient outside the stem rel L2 {rest:.3e} (bound "
+          f"{TRAIN_GRAD_RTOL}), the stem {record['stage2']['grad_rel_l2_stem']:.3e}; against the "
+          f"f64 step (loss {loss_64:.6f}): ranks {ddp_64:.3e}, one process {one_64:.3e}, plain "
+          f"{plain_64:.3e}, ratio {ddp_64 / plain_64:.3f} (bound {F32_GRAD_RATIO})")
+    print(f"  a rank's step: {got['step_ms']:.1f} ms, peak {got['peak_memory_bytes'] / 2 ** 30:.2f}"
+          f" GiB (two ranks share the card); one process: {times[0]:.1f} ms, peak "
+          f"{peak / 2 ** 30:.2f} GiB (host clock, first steps); launches a rank's step "
+          f"{ {k: v for k, v in got['launches'].items() if v} }")
+    if not (max(terms.values()) <= TRAIN_LOSS_RTOL and rest <= TRAIN_GRAD_RTOL
+            and ddp_64 <= F32_GRAD_RATIO * plain_64):
+        raise AssertionError("ddp stage 2: the ranks' step left the one-process step")
+    if not all(got["launches"][k] for k in ("groupnorm_strided", "skinning", "layernorm",
+                                            "ln_mlp_fc1", "ln_dense", "spatial_attention",
+                                            "temporal_attention", "gate_proj")):
+        raise AssertionError(f"ddp stage 2: a kernel was not launched: {got['launches']}")
+    del ddp_grad, grad, plain_grad, grad_64, stem, batch
+    torch.cuda.empty_cache()
+
+    # stage 1: one process on all the images
+    model, smpl = build_train_model(encoder="cnn", decoder="ktd", device=device, seed=0,
+                                    allow_synthetic_smpl=True)
+    img = make_image_batch(smpl, device, DDP_STAGE1_IMAGES)
+    one = stage1_steps(without_dropout(model), smpl, img, 1)
+    del model
+    torch.cuda.empty_cache()
+    got = ranks["stage1"]
+    loss_rel = abs(got["loss"] - one["losses"][0]) / abs(one["losses"][0])
+    grad_rel = rel_l2(got["grad"].to(device), one["grad"])
+    stats_rel = stats_distance({k: v.to(device) for k, v in got["stats"].items()}, one["stats"][0])
+    record["stage1"] = dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, bn_stats_max_rel_l2=stats_rel,
+                            rank_step_ms=got["step_ms"],
+                            rank_peak_memory_bytes=got["peak_memory_bytes"],
+                            one_process_step_ms=one["ms"][0],
+                            one_process_peak_memory_bytes=one["peak"])
+    print(f"  stage 1, {DDP_WORLD} x {DDP_STAGE1_IMAGES // DDP_WORLD} images against 1 x "
+          f"{DDP_STAGE1_IMAGES}: loss rel {loss_rel:.3e} (bound {TRAIN_LOSS_RTOL}), gradient rel "
+          f"L2 {grad_rel:.3e} (bound {TRAIN_GRAD_RTOL}), BatchNorm statistics max rel L2 "
+          f"{stats_rel:.3e} (bound {STAGE1_STATS_RTOL})")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_RTOL
+            and stats_rel <= STAGE1_STATS_RTOL):
+        raise AssertionError("ddp stage 1: the ranks' step left the one-process step")
+    print(json.dumps({"ddp": record}))
+    return record
+
 
 # phase_trainer: the CLIs at full width on the stage-2 config, a short run
 TRAINER_ITERS, TRAINER_EPOCHS = 4, 2
@@ -1149,15 +1414,28 @@ def trainer_overrides(out: str):
             "CUDNN.BENCHMARK", "false", "CUDNN.DETERMINISTIC", "true"]
 
 
+def child_pids(pid: int) -> list:
+    """The processes ``pid`` started (Linux's /proc)."""
+    try:
+        return [int(c) for c in Path(f"/proc/{pid}/task/{pid}/children").read_text().split()]
+    except OSError:
+        return []
+
+
 def run_cli(workdir: Path, module: str, args, log: Path, stop_on: str | None = None,
-            timeout: float = 600, cfg: str = "config_stage2.yaml"):
+            timeout: float = 600, cfg: str = "config_stage2.yaml", torchrun: bool = False):
     """``python -m <module> --cfg configs/<cfg> --allow_synthetic_smpl
-    <args>`` in ``workdir``, its output to ``log``. With ``stop_on``,
-    SIGTERM is sent when a line containing it appears. Returns the exit
-    code; the process is always ended."""
+    <args>`` in ``workdir``, its output to ``log``; with ``torchrun``, as
+    the one rank of ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1`` (NCCL). With ``stop_on``, SIGTERM is sent to the
+    trainer's process (under torchrun, the rank the launcher started) when a
+    line containing it appears. Returns the exit code; the process is always
+    ended."""
     import signal
 
-    cmd = [sys.executable, "-m", module, "--cfg", str(ROOT / "configs" / cfg),
+    launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "1"] if torchrun else [sys.executable])
+    cmd = [*launcher, "-m", module, "--cfg", str(ROOT / "configs" / cfg),
            "--allow_synthetic_smpl", *args]
     env = dict(os.environ, PYTHONUNBUFFERED="1",
                PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
@@ -1169,7 +1447,8 @@ def run_cli(workdir: Path, module: str, args, log: Path, stop_on: str | None = N
             for line in proc.stdout:
                 out.write(line)
                 if stop_on is not None and stop_on in line:
-                    proc.send_signal(signal.SIGTERM)
+                    for pid in child_pids(proc.pid) if torchrun else [proc.pid]:
+                        os.kill(pid, signal.SIGTERM)
                     stop_on = None
                 if time.perf_counter() - t0 > timeout:
                     raise TimeoutError(f"{module} ran over {timeout} s; see {log}")
@@ -1178,7 +1457,8 @@ def run_cli(workdir: Path, module: str, args, log: Path, stop_on: str | None = N
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    print(f"  {module} {' '.join(args[-4:])}: exit {rc} in {time.perf_counter() - t0:.1f} s")
+    print(f"  {'torchrun ' if torchrun else ''}{module} {' '.join(args[-4:])}: exit {rc} in "
+          f"{time.perf_counter() - t0:.1f} s")
     if rc != 0:
         raise AssertionError(f"{module} exited {rc}:\n" + log.read_text()[-4000:])
     return rc
@@ -1269,24 +1549,44 @@ def loader_rate(workdir: Path, workers: int):
     return dict(workers=workers, **json.loads(out.stdout.strip().splitlines()[-1]))
 
 
-def trainer_cli_runs(workdir: Path, cfg: str, overrides, iters: int, epochs: int) -> dict:
-    """The train CLI on ``configs/<cfg>`` with ``overrides(out_dir)`` (DBs
-    under ``workdir``): one uninterrupted run of ``epochs`` epochs of
-    ``iters`` iterations; the same command with TRAIN.RESUME auto, stopped
-    by SIGTERM in epoch 2 and relaunched; the eval CLI on the first run's
-    model_best.pth.tar, which must agree with the validation that chose it
-    (METRIC_ATOL_MM) and write inference.pkl. Returns the record: the first
-    run's iterations (ms, the median of iterations 2 on of each epoch), data
-    wait, peak memory, validations, checkpoint writes and losses; the
-    resumed run against it (``resume``) and the eval CLI's metrics."""
+def last_checkpoints(out_a: Path, out_b: Path, name: str):
+    """(relative L2, bit-equal) of ``name`` in run directory trees ``out_a``
+    and ``out_b``, and the second's checkpoint."""
     from maed_tpu_torch.utils.checkpoint import load_checkpoint
 
-    out1, out2 = workdir / "run1", workdir / "run2"
+    (a,) = [d for d in out_a.iterdir() if (d / name).is_file()]
+    (b,) = [d for d in out_b.iterdir() if (d / name).is_file()]
+    last_b = load_checkpoint(str(b / name))
+    return (*state_distance(load_checkpoint(str(a / name)), last_b), last_b)
+
+
+def trainer_cli_runs(workdir: Path, cfg: str, overrides, iters: int, epochs: int,
+                     torchrun_reference: bool = False) -> dict:
+    """The train CLI on ``configs/<cfg>`` with ``overrides(out_dir)`` (DBs
+    under ``workdir``): one uninterrupted run of ``epochs`` epochs of
+    ``iters`` iterations; the same command with TRAIN.RESUME auto as the one
+    rank of torchrun (NCCL: a process group of one, ``parallel.dist``),
+    stopped by SIGTERM to that rank in epoch 2 and relaunched; the eval CLI on the first run's
+    model_best.pth.tar, which must agree with the validation that chose it
+    (METRIC_ATOL_MM) and write inference.pkl. The resumed run is held to the
+    first run, or with ``torchrun_reference`` to an uninterrupted run under
+    torchrun too, which is then held to the first (``launcher``). Returns
+    the record: the first run's iterations (ms, the median of iterations 2
+    on of each epoch), data wait, peak memory, validations, checkpoint
+    writes and losses; the resumed run against its reference (``resume``)
+    and the eval CLI's metrics."""
+    from maed_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out1, out2, out3 = workdir / "run1", workdir / "run2", workdir / "run3"
     run_cli(workdir, "maed_tpu_torch.train", overrides(str(out1)), workdir / "run1.log", cfg=cfg)
+    if torchrun_reference:
+        run_cli(workdir, "maed_tpu_torch.train", overrides(str(out3)), workdir / "run3.log",
+                cfg=cfg, torchrun=True)
     resume = overrides(str(out2)) + ["TRAIN.RESUME", "auto"]
     run_cli(workdir, "maed_tpu_torch.train", resume, workdir / "run2a.log",
-            stop_on=f"[Train] epoch 2/{epochs} it 1/{iters}", cfg=cfg)
-    run_cli(workdir, "maed_tpu_torch.train", resume, workdir / "run2b.log", cfg=cfg)
+            stop_on=f"[Train] epoch 2/{epochs} it 1/{iters}", cfg=cfg, torchrun=True)
+    run_cli(workdir, "maed_tpu_torch.train", resume, workdir / "run2b.log", cfg=cfg,
+            torchrun=True)
 
     # the uninterrupted run: times, memory, validation, checkpoint writes
     recs1 = run_records(out1)
@@ -1319,27 +1619,43 @@ def trainer_cli_runs(workdir: Path, cfg: str, overrides, iters: int, epochs: int
     if len(steps1) != iters * epochs or not all(np.isfinite(r["loss"]) for r in steps1):
         raise AssertionError(f"run 1 recorded {len(steps1)} steps: {steps1}")
 
-    # the resumed run against it
+    name = f"epoch_{epochs - 1}.pth.tar"
+    reference, steps_ref = out1, steps1
+    if torchrun_reference:
+        # the one rank under torchrun against the process without a launcher
+        steps3 = [r for r in run_records(out3) if "loss" in r]
+        rel, exact, _ = last_checkpoints(out3, out1, name)
+        record["launcher"] = dict(
+            first_loss_rel=abs(steps3[0]["loss"] - steps1[0]["loss"]) / abs(steps1[0]["loss"]),
+            loss_max_rel=max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                             for a, b in zip(steps3, steps1)),
+            losses_equal=steps3 == steps1, state_rel_l2=rel, bit_equal=exact)
+        print(f"  {cfg} run 3 (torchrun, one NCCL rank, uninterrupted) against run 1: step 1 loss "
+              f"rel {record['launcher']['first_loss_rel']:.3e}, losses max rel "
+              f"{record['launcher']['loss_max_rel']:.3e}; {name} rel L2 {rel:.3e}, bit for bit: "
+              f"{exact}")
+        reference, steps_ref = out3, steps3
+
+    # the resumed run against its reference
     (first, *_), recs2 = sorted(out2.iterdir()), run_records(out2)
     pre = load_checkpoint(str(first / "preempt.pth.tar"))
     steps2 = [r for r in recs2 if "loss" in r]
     if [(r["epoch"], r["iter"]) for r in steps2] != [(r["epoch"], r["iter"]) for r in steps1]:
         raise AssertionError(f"the resumed run's steps {[(r['epoch'], r['iter']) for r in steps2]}")
-    name = f"epoch_{epochs - 1}.pth.tar"
-    (run2_last,) = [d for d in out2.iterdir() if (d / name).is_file()]
-    last1 = load_checkpoint(str(run1 / name))
-    rel, exact = state_distance(load_checkpoint(str(run2_last / name)), last1)
+    rel, exact, last_ref = last_checkpoints(out2, reference, name)
     record["resume"] = dict(
         stopped_at=dict(epoch=pre["epoch"], iter=pre["epoch_iter"]),
         loss_max_rel=max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
-                         for a, b in zip(steps2, steps1)),
-        losses_equal=steps2 == steps1, state_rel_l2=rel, bit_equal=exact,
+                         for a, b in zip(steps2, steps_ref)),
+        losses_equal=steps2 == steps_ref, state_rel_l2=rel, bit_equal=exact,
         buffers=sum(k.endswith(("running_mean", "running_var", "num_batches_tracked"))
-                    for k in last1["state_dict"]))
-    print(f"  {cfg} run 2: SIGTERM in epoch {pre['epoch'] + 1}, preempt.pth.tar after iteration "
-          f"{pre['epoch_iter']}; resumed: losses max rel {record['resume']['loss_max_rel']:.3e}, "
-          f"each step's equal: {steps2 == steps1}; {name} (weights, {record['resume']['buffers']} "
-          f"BatchNorm buffers, Adam's moments) rel L2 {rel:.3e}, bit for bit: {exact}")
+                    for k in last_ref["state_dict"]))
+    print(f"  {cfg} run 2 (torchrun, one NCCL rank): SIGTERM in epoch {pre['epoch'] + 1}, "
+          f"preempt.pth.tar after iteration {pre['epoch_iter']}; resumed, against run "
+          f"{3 if torchrun_reference else 1}: losses max rel "
+          f"{record['resume']['loss_max_rel']:.3e}, each step's equal: {steps2 == steps_ref}; "
+          f"{name} (weights, {record['resume']['buffers']} BatchNorm buffers, Adam's moments) "
+          f"rel L2 {rel:.3e}, bit for bit: {exact}")
     if not 0 < pre["epoch_iter"] < iters or pre["epoch"] != 1:
         raise AssertionError(f"the SIGTERM landed at epoch {pre['epoch']} iteration "
                              f"{pre['epoch_iter']}, not inside epoch 2")
@@ -1636,15 +1952,24 @@ def stage1_overrides(out: str):
 
 def stage1_cli_phase(workdir: Path, record):
     """``python -m maed_tpu_torch.train --cfg configs/config_stage1.yaml`` at
-    full width through :func:`trainer_cli_runs`: the resumed run must be the
-    uninterrupted one bit for bit, every step's losses and the last
-    checkpoint, BatchNorm buffers included."""
+    full width through :func:`trainer_cli_runs`: the resumed run under
+    torchrun must be the uninterrupted one under torchrun bit for bit, every
+    step's losses and the last checkpoint, BatchNorm buffers included. The
+    one rank's BatchNorm takes the group's moments (another rounding than
+    ``F.batch_norm`` without a group), so against the run without a
+    launcher its first step's loss is held as phase_stage1 holds the first
+    step (TRAIN_LOSS_RTOL); after Adam's updates f32 cannot hold two
+    roundings together (section 6 of PERF.md)."""
     write_stage1_dbs(workdir)
     record["cli"] = trainer_cli_runs(workdir, "config_stage1.yaml", stage1_overrides,
-                                     STAGE1_ITERS, STAGE1_EPOCHS)
-    resume = record["cli"]["resume"]
+                                     STAGE1_ITERS, STAGE1_EPOCHS, torchrun_reference=True)
+    resume, launcher = record["cli"]["resume"], record["cli"]["launcher"]
     if not (resume["losses_equal"] and resume["bit_equal"] and resume["buffers"]):
         raise AssertionError("the resumed stage-1 run is not the uninterrupted one bit for bit")
+    if not launcher["first_loss_rel"] <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"stage-1 CLI under torchrun: step 1 loss rel "
+                             f"{launcher['first_loss_rel']:.3e} from the run without a launcher, "
+                             f"beyond {TRAIN_LOSS_RTOL}")
 
 
 def npz_from_state_dict(sd: dict, heads: int = 12) -> dict:
@@ -1835,9 +2160,10 @@ def main() -> int:
     eval_launches = timed(phase_eval, device)
     timed(phase_modes, device, clips[0], jreg)
     train_launches = timed(phase_train, device)
+    timed(phase_ddp, device)
     timed(phase_trainer, device)
     stage1_step, stage1_eval = timed(phase_stage1, device)
-    print(json.dumps({"phase_seconds": seconds,
+    print(json.dumps({"phase_seconds": seconds, "card": card_identity(),
                       "total_s": round(time.perf_counter() - t_start, 1)}))
 
     src, jax_ops = "maed_tpu_torch/", "maed_tpu/ops/"
@@ -1898,4 +2224,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of phase_ddp
+        sys.exit(ddp_rank(Path(sys.argv[2])))
     sys.exit(main())

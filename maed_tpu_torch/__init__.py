@@ -9,6 +9,8 @@ module layout mirrors it so each counterpart sits at the same relative path:
   models/   ResNetV2 hybrid stem, ViT/STE encoder, KTD decoder, MAED
   utils/    SMPL model files, checkpoints, JAX weights, logging
   core/     config, builder (the entry points), loss, Evaluator, Trainer
+  parallel/ the train step and optimizer; data parallelism across processes
+            (``dist``: NCCL on the card, gloo on the CPU)
   data/     datasets, augmentations, loaders
   native/   the C++ data path (JPEG decode, crop, normalize), built with g++
   csrc/     CUDA C++ sources, built with nvcc at first use

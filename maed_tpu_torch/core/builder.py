@@ -164,7 +164,9 @@ def empty_model(device, **kwargs) -> MAED:
     mean parameters in place."""
     with torch.device("meta"):
         model = MAED(**kwargs)
-    model = model.to_empty(device=device)
+    # to_empty's empty_like of a meta tensor loads the meta decompositions at
+    # its first call in a process (about a second); torch.empty does not
+    model = model._apply(lambda t: torch.empty(t.shape, dtype=t.dtype, device=device))
     if isinstance(model.decoder, IterativeRegressor):
         model.decoder.reset_mean_params_()
     return model
@@ -175,7 +177,8 @@ def build_train_model(*, encoder: str = "ste", decoder: str = "ktd", num_blocks:
                       st_mode: str = "parallel", dtype: torch.dtype = torch.float32,
                       device: torch.device | str = "cuda", seed: int = 0,
                       state_dict: dict | None = None, allow_synthetic_smpl: bool = False,
-                      smpl_dir: str = "data/smpl_data") -> tuple[MAED, SMPLModel]:
+                      smpl_dir: str = "data/smpl_data",
+                      remat: bool = False) -> tuple[MAED, SMPLModel]:
     """(model, smpl) for ``parallel.train_step.make_train_step``, the model in
     training mode.
 
@@ -186,12 +189,15 @@ def build_train_model(*, encoder: str = "ste", decoder: str = "ktd", num_blocks:
     recipe's) or bf16; the parameters stay f32 master weights whatever it
     is, and the forward casts them at use. The ViT's stem standardizes its
     weights in the forward (``standardize_ws=True``), which is what
-    training differentiates, so nothing is folded. Weights and body as in
+    training differentiates, so nothing is folded. ``remat`` recomputes
+    each ViT block in the backward instead of keeping its activations (the
+    JAX package's ``MAED.remat``). Weights and body as in
     :func:`build_eval_model`.
     """
     model = empty_model(device, encoder=encoder, decoder=decoder, num_blocks=num_blocks,
                         num_heads=num_heads, hidden_dim=hidden_dim, img_size=img_size,
-                        standardize_ws=True, st_mode=st_mode, smpl_dir=smpl_dir, dtype=dtype)
+                        standardize_ws=True, st_mode=st_mode, smpl_dir=smpl_dir, remat=remat,
+                        dtype=dtype)
     if state_dict is None:
         init_weights_(model, seed)
     else:

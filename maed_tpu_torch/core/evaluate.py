@@ -35,6 +35,7 @@ import torch
 from maed_tpu_torch.ops.joints import J49_TO_H36M, J49_TO_J14, JID_DICT, REGRESSOR_DICT
 from maed_tpu_torch.ops.metrics import eval_metrics, vert_error
 from maed_tpu_torch.ops.smpl import SMPLModel, smpl_forward
+from maed_tpu_torch.parallel import dist
 
 DATA_DIR = "data/smpl_data"  # where the external regressors are looked for
 GT_VERTS_CHUNK = 5000        # poses a GT-vertex rebuild takes at once
@@ -306,13 +307,11 @@ class Evaluator:
         return eval_dict, num_pred
 
     def sync_metrics(self, eval_dict, num_pred):
-        """Count-weighted metric average across processes; the single-process
-        no-op until the port runs data-parallel."""
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "the metric average across processes is not ported yet: see ROADMAP.md")
-        return eval_dict, num_pred
+        """The metrics over every process's shard of the windows: each
+        metric's mean over the processes weighted by their prediction
+        counts, and the total count (``maed_tpu/core/evaluate.py:349``).
+        One process: the arguments."""
+        return dist.weighted_mean(eval_dict, num_pred)
 
     def log(self, eval_dict, num_pred, desc=""):
         print(f"Evaluated on {int(num_pred)} poses.")

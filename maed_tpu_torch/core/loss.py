@@ -8,6 +8,15 @@ terms, the video and image losses of the stage-2 step and their weighted
 merge, and the adversarial and smoothness losses, which the released recipe
 does not use. Every function takes and returns tensors, so one step covers
 every batch composition.
+
+Under data parallelism each process holds a slice of the batch, and the
+JAX package's terms are taken over the whole batch ('dp'-sharded under
+its mesh). The plain means need nothing: the ranks hold equal counts, so
+the mean of the ranks' means is the global one, and that is what averaging
+the ranks' gradients makes. The two terms that are not plain means take
+their global sums here (``parallel.dist``): ``smpl_losses`` the count of
+selected rows and the sums of squares, ``theta_norm_loss`` the sum under
+its square root, each through a differentiable sum over the ranks.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from maed_tpu_torch.ops.geometry import rodrigues
+from maed_tpu_torch.parallel import dist
 
 
 class LossWeights(NamedTuple):
@@ -64,7 +74,8 @@ def smpl_losses(pred_pose, pred_shape, gt_pose, gt_shape, w_smpl=None):
 
     Poses (..., 72), shapes (..., 10); ``w_smpl`` (...) the rows' validity,
     or None for every row. The sums are divided by the count of selected
-    rows (at least 1) times the row width.
+    rows (at least 1) times the row width; across processes, the global
+    sums by the global count.
     """
     pose_p = pred_pose.reshape(-1, pred_pose.shape[-1])
     pose_g = gt_pose.reshape(-1, gt_pose.shape[-1])
@@ -79,9 +90,17 @@ def smpl_losses(pred_pose, pred_shape, gt_pose, gt_shape, w_smpl=None):
     rm_p = rodrigues(pose_p.reshape(X * 24, 3)).reshape(X, -1)
     rm_g = rodrigues(pose_g.reshape(X * 24, 3)).reshape(X, -1)
 
-    n_sel = torch.clamp(w.sum(), min=1.0)
-    loss_pose = (w[:, None] * (rm_p - rm_g) ** 2).sum() / (n_sel * rm_p.shape[1])
-    loss_shape = (w[:, None] * (shape_p - shape_g) ** 2).sum() / (n_sel * shape_p.shape[1])
+    sum_pose = (w[:, None] * (rm_p - rm_g) ** 2).sum()
+    sum_shape = (w[:, None] * (shape_p - shape_g) ** 2).sum()
+    count = w.sum()
+    if dist.world() > 1:
+        # the global sums and count in one collective; the count is data,
+        # detached, so its sum stays outside autograd
+        sum_pose, sum_shape, count = dist.sum_over_ranks(
+            torch.stack([sum_pose, sum_shape, count.detach()]))
+    n_sel = torch.clamp(count, min=1.0)
+    loss_pose = sum_pose / (n_sel * rm_p.shape[1])
+    loss_shape = sum_shape / (n_sel * shape_p.shape[1])
     return loss_pose, loss_shape
 
 
@@ -100,9 +119,13 @@ def accl_loss(pred_kp3d, gt_kp3d):
 
 
 def theta_norm_loss(pred_theta):
-    """Frobenius norm of (pose || shape) over the batch, divided by the row count."""
+    """Frobenius norm of (pose || shape) over the batch, divided by the row
+    count; across processes, over the global batch."""
     flat = pred_theta.reshape(-1, pred_theta.shape[-1])[:, 3:]
-    return torch.sqrt((flat ** 2).sum()) / flat.shape[0]
+    squares, rows = (flat ** 2).sum(), flat.shape[0]
+    if dist.world() > 1:
+        squares, rows = dist.sum_over_ranks(squares), rows * dist.world()
+    return torch.sqrt(squares) / rows
 
 
 def video_loss(preds: dict, data_3d: dict, data_2d: dict | None, w: LossWeights):

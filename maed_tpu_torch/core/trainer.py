@@ -1,36 +1,46 @@
 """Trainer: the stage-2 epoch loop of mixed 2D/3D/image batches around one
 train step.
 
-Port of ``maed_tpu/core/trainer.py`` for one process on one card (or the
-CPU), without the JAX mesh. Its parts:
+Port of ``maed_tpu/core/trainer.py``, on one card (or the CPU) a process,
+one process or W of them data parallel (``parallel.dist``; the JAX package's
+'dp' mesh axis). Its parts:
 
   * each iteration draws a 2D and a 3D clip batch and, every IMG_USE_FREQ
-    iterations, an image batch from :class:`InfiniteLoader` s, and sends
-    them to the device through pinned memory without blocking the host;
+    iterations, an image batch from :class:`InfiniteLoader` s (each rank
+    its shard of the data), and sends them to the device through pinned
+    memory without blocking the host;
   * the step's metrics stay on the device and are read at log boundaries
-    (every ``log_freq`` iterations and at an epoch's end), where a NaN loss
-    stops the run with the JAX package's message;
-  * every SAVE_FREQ epochs it validates through ``Evaluator.run`` with the
-    model in ``eval()`` (then back to ``train()``), tracks the best
-    PA-MPJPE and writes ``epoch_N.pth.tar``, ``model_best.pth.tar`` and
-    ``best.txt``;
+    (every ``log_freq`` iterations and at an epoch's end), averaged over
+    the ranks in one collective a window, so that the values logged are
+    the global batch's; a NaN loss then stops every rank with the JAX
+    package's message;
+  * every SAVE_FREQ epochs it validates through ``Evaluator.run`` (each
+    rank its shard of the windows, the metrics then averaged by prediction
+    count) with the model in ``eval()`` (then back to ``train()``), tracks
+    the best PA-MPJPE and writes ``epoch_N.pth.tar``,
+    ``model_best.pth.tar`` and ``best.txt``;
   * SIGTERM lets the step in flight finish, writes ``preempt.pth.tar`` with
-    the loaders' positions and returns with ``preempted`` set;
-    TRAIN.RESUME (a path, or 'auto' for the newest checkpoint of this
-    experiment) continues bit for bit: batch contents are a pure function
-    of (seed, epoch, index), and the checkpoint holds the optimizer, the
-    schedule, the dropout generator and every loader's position.
+    the loaders' positions and returns with ``preempted`` set. With several
+    ranks, a SIGTERM that any rank saw stops all of them at the same
+    iteration: they agree at each log boundary and at each epoch's end, as
+    the JAX trainer's ``_agree_preempt`` does. TRAIN.RESUME (a path, or
+    'auto' for the newest checkpoint of this experiment, which rank 0
+    resolves and broadcasts) continues bit for bit: batch contents are a
+    pure function of (seed, epoch, index), and the checkpoint holds the
+    optimizer, the schedule, every rank's dropout generator and every
+    loader's position.
 
-It also appends one JSON object a line to ``<logdir>/train_metrics.jsonl``:
-each step's metrics; the timing of each log boundary's iteration (the data
-and the step, on the host clock) and the device's peak memory so far; each
-validation's metrics and seconds, each checkpoint write's seconds and bytes.
+Rank 0 alone logs and writes files; every rank enters the checkpoint writes,
+which gather the ranks' generators. It also appends one JSON object a line
+to ``<logdir>/train_metrics.jsonl``: each step's metrics; the timing of each
+log boundary's iteration (the data and the step, on the host clock) and the
+device's peak memory so far; each validation's metrics and seconds, each
+checkpoint write's seconds and bytes.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import os.path as osp
 import signal
 import sys
@@ -43,6 +53,7 @@ import torch
 
 from maed_tpu_torch.core.evaluate import Evaluator, load_eval_regressor
 from maed_tpu_torch.data.loaders import InfiniteLoader
+from maed_tpu_torch.parallel import dist
 from maed_tpu_torch.parallel.train_step import TrainOptimizer
 from maed_tpu_torch.utils.checkpoint import (find_auto_resume, load_checkpoint,
                                              prune_epoch_checkpoints, save_checkpoint,
@@ -55,23 +66,14 @@ RESUME_FIELDS = ("state_dict", "epoch", "performance", "optimizer", "scheduler",
                  "loader_state")
 
 
-def single_process_only(what: str) -> None:
-    """Raise when more than one process runs: data parallelism is not ported."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        world = max(world, torch.distributed.get_world_size())
-    if world > 1:
-        raise NotImplementedError(
-            f"{what} runs in one process: DDP over NCCL is not ported yet "
-            "(ROADMAP.md, queue 1, item 4)")
-
-
 class Trainer:
     """The epoch loop. ``train_step(vid_batch, img_batch) -> metrics`` is
     ``parallel.train_step.make_train_step``'s step over ``model``,
     ``optimizer`` and ``generator`` (its dropout masks); the trainer holds
     them for its checkpoints. ``eval_forward(images, J_regressor)`` is the
-    forward that validation runs, with the model in eval mode."""
+    forward that validation runs, with the model in eval mode. Under a
+    process group ``generator`` is this rank's own, and ``logdir`` names
+    rank 0's directory on every rank."""
 
     def __init__(
         self,
@@ -89,7 +91,7 @@ class Trainer:
         allow_missing_regressor: bool = False,
         log_freq: int = 10,
     ):
-        single_process_only("the trainer")
+        self.rank, self.world = dist.rank(), dist.world()
         self.train_2d = InfiniteLoader(data_loaders["train_2d"]) if data_loaders.get("train_2d") else None
         self.train_3d = InfiniteLoader(data_loaders["train_3d"]) if data_loaders.get("train_3d") else None
         self.train_img = InfiniteLoader(data_loaders["train_img"]) if data_loaders.get("train_img") else None
@@ -144,8 +146,10 @@ class Trainer:
             if target == "auto":
                 # relaunch the same command after a preemption or a crash:
                 # the newest preempt or epoch checkpoint of this experiment
-                # under OUTPUT_DIR, or a fresh start
-                target = find_auto_resume(cfg.OUTPUT_DIR, cfg.EXP_NAME)
+                # under OUTPUT_DIR, or a fresh start; rank 0's choice for all
+                if self.rank == 0:
+                    target = find_auto_resume(cfg.OUTPUT_DIR, cfg.EXP_NAME)
+                target = dist.broadcast_str_from_rank0(target)
                 self._log(f"TRAIN.RESUME=auto -> {target}" if target else
                           "TRAIN.RESUME=auto: no checkpoint found, starting fresh")
             if target:
@@ -153,11 +157,12 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
     def _log(self, msg: str) -> None:
-        (self.logger.info if self.logger else print)(msg)
+        if self.rank == 0:
+            (self.logger.info if self.logger else print)(msg)
 
     def _record(self, **fields) -> None:
-        """Append one JSON line to <logdir>/train_metrics.jsonl."""
-        if not self.logdir:
+        """Append one JSON line to <logdir>/train_metrics.jsonl (rank 0)."""
+        if not self.logdir or self.rank != 0:
             return
         with self._records_lock, open(osp.join(self.logdir, "train_metrics.jsonl"), "a") as f:
             f.write(json.dumps(fields) + "\n")
@@ -217,11 +222,30 @@ class Trainer:
         if not self.preempted:
             self._log("preemption requested — will checkpoint and stop")
 
+    def _agree_preempt(self) -> bool:
+        """The stop decision of every rank: whether any rank was asked to
+        stop. All ranks call it at the same iterations (log boundaries and
+        epoch ends): a rank that stopped one iteration before the others
+        would leave them hanging in the next collective."""
+        if self.world > 1:
+            self._preempt_requested = dist.any_rank(self._preempt_requested)
+        return self._preempt_requested
+
     def _read(self, pending, meters) -> None:
-        """Read the pending steps' metrics (waits for them): the NaN stop,
-        the meters and the per-step records."""
+        """Read the pending steps' metrics (waits for them), averaged over the
+        ranks in one collective: the NaN stop, the meters and the per-step
+        records."""
+        if not pending:
+            return
+        # the keys in one order on every rank (a step's terms come out of a set)
+        flat = dist.mean_over_ranks(torch.stack(
+            [m[k].detach().reshape(()).to(torch.float64) for _, _, m in pending
+             for k in sorted(m)])).tolist()
+        at = 0
         for i, step, m in pending:
-            values = {k: float(v) for k, v in m.items()}
+            values = dict(zip(sorted(m), flat[at:at + len(m)]))
+            values = {k: values[k] for k in m}
+            at += len(m)
             if np.isnan(values["loss"]):
                 sys.exit("Nan value in loss, exiting!...")
             for k, v in values.items():
@@ -239,7 +263,10 @@ class Trainer:
         pending = []
         self._epoch_iters_done = self.num_iters
         for i in range(start_iter, self.num_iters):
-            if self._preempt_requested:
+            # several ranks stop only where they agree (the log boundaries);
+            # one process at any iteration
+            if (self._agree_preempt() if self.world > 1 and i % self.log_freq == 0
+                    else self.world == 1 and self._preempt_requested):
                 # before pulling batches: the loaders' positions then equal
                 # the batches consumed, an exactly resumable point
                 self._epoch_iters_done = i
@@ -280,7 +307,7 @@ class Trainer:
                 self.eval_forward, self.valid_loader,
                 seqlen=self.cfg.EVAL.SEQLEN, interp=self.cfg.EVAL.INTERPOLATION,
                 dataset_name=self._eval_ds, J_regressor=self._eval_jreg,
-                batch_size=self.cfg.EVAL.BATCH_SIZE,
+                batch_size=self.cfg.EVAL.BATCH_SIZE, verbose=self.rank == 0,
                 allow_missing_regressor=self._allow_missing_regressor,
             )
         finally:
@@ -314,7 +341,7 @@ class Trainer:
                         ld.set_epoch(epoch)
                 t0 = time.time()
                 train_metrics = self.train_epoch(start_iter=start_iter)
-                if self._preempt_requested:
+                if self._agree_preempt():  # the epoch's end is a boundary too
                     self._save_preempt()
                     self.preempted = True
                     break
@@ -324,6 +351,9 @@ class Trainer:
                     eval_dict = self.validate()
                     performance = eval_dict["pa-mpjpe"] if eval_dict else float("inf")
                     self.save(performance, epoch)
+            # no rank leaves before rank 0's last write has landed
+            wait_pending_saves()
+            dist.barrier()
         finally:
             # never unwind with a checkpoint write in flight; re-raises a
             # failed background write
@@ -340,9 +370,16 @@ class Trainer:
             ) if ld is not None
         }
 
+    def _generator_state(self):
+        """The dropout generator's state; with several ranks, every rank's in
+        rank order (a collective: each rank must call it)."""
+        state = self.generator.get_state()
+        return state if self.world == 1 else dist.gather_objects(state)
+
     def state(self, epoch: int, performance: float) -> Dict:
         """The checkpoint of the run as it stands: the reference layout
-        (state_dict, epoch, performance) and what a resume needs."""
+        (state_dict, epoch, performance) and what a resume needs. With
+        several ranks, a collective, complete on rank 0."""
         return {
             "state_dict": self.model.state_dict(),
             "epoch": int(epoch),
@@ -350,7 +387,7 @@ class Trainer:
             "optimizer": self.optimizer.optimizer.state_dict(),
             "scheduler": self.optimizer.scheduler.state_dict(),
             "optimizer_calls": int(self.optimizer.calls),
-            "generator": self.generator.get_state(),
+            "generator": self._generator_state(),
             "global_step": int(self.train_global_step),
             "best_performance": float(self.best_performance),
             "loader_state": {name: ld.state() for name, ld in self._named_loaders().items()},
@@ -363,22 +400,31 @@ class Trainer:
     def _save_preempt(self):
         """The exact mid-epoch checkpoint: the state, the iterations done in
         this epoch and the loaders' positions. Written synchronously: the
-        process is about to exit."""
+        process is about to exit. Every rank enters; rank 0 writes and the
+        others wait for it."""
         if not self.logdir:
             return
         state = self.state(self.epoch, self.best_performance)
+        if self.rank != 0:
+            dist.barrier()
+            return
         state["epoch_iter"] = int(self._epoch_iters_done)
         path = save_checkpoint(self.logdir, state, name="preempt", on_success=self._written)
         self._log(f"preempt checkpoint written: {path} (epoch {self.epoch}, "
                   f"{self._epoch_iters_done}/{self.num_iters} iters)")
+        dist.barrier()
 
     def save(self, performance: float, epoch: int):
         """The epoch checkpoint, model_best when it is the best so far, and
-        best.txt after the write has landed."""
+        best.txt after the write has landed. Every rank enters (the
+        performance is the same on each, so is the best); rank 0 writes."""
         is_best = performance < self.best_performance
         if is_best:
             self.best_performance = performance
         if not self.logdir:
+            return
+        state = self.state(epoch, performance)
+        if self.rank != 0:
             return
         best_perf = self.best_performance
 
@@ -391,7 +437,7 @@ class Trainer:
             prune_epoch_checkpoints(self.logdir, self.save_keep_last)
             self._written(path, seconds, nbytes)
 
-        save_checkpoint(self.logdir, self.state(epoch, performance), is_best=is_best,
+        save_checkpoint(self.logdir, state, is_best=is_best,
                         name=f"epoch_{epoch}", async_write=self.save_async,
                         on_success=after_write)
 
@@ -402,11 +448,19 @@ class Trainer:
         if missing:
             raise KeyError(f"{path} cannot resume a run: it lacks {missing} (use --pretrained "
                            "for weights only)")
+        states = ckpt["generator"]
+        written_by = len(states) if isinstance(states, list) else 1
+        if written_by != self.world:
+            raise ValueError(
+                f"{path} holds the dropout generators of {written_by} process(es) and this run "
+                f"has {self.world}: each rank draws its masks from its own generator, so a run "
+                f"resumes only with the number of processes that wrote it (--pretrained starts "
+                "a new run from its encoder)")
         self.model.load_state_dict(ckpt["state_dict"], strict=True)
         self.optimizer.optimizer.load_state_dict(ckpt["optimizer"])
         self.optimizer.scheduler.load_state_dict(ckpt["scheduler"])
         self.optimizer.calls = int(ckpt["optimizer_calls"])
-        self.generator.set_state(ckpt["generator"])
+        self.generator.set_state(states[self.rank] if isinstance(states, list) else states)
         self.train_global_step = int(ckpt["global_step"])
         self.best_performance = float(ckpt["best_performance"])
         # an epoch checkpoint's own performance is not the run's best: the

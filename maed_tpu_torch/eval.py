@@ -17,6 +17,8 @@ unless the config says ``DEVICE cpu``.
 
 from __future__ import annotations
 
+import os
+
 
 def main(argv=None):
     """Returns (metrics, poses) of the run."""
@@ -28,13 +30,15 @@ def main(argv=None):
                                              load_weights, model_config)
     from maed_tpu_torch.core.config import parse_args
     from maed_tpu_torch.core.evaluate import Evaluator
-    from maed_tpu_torch.core.trainer import single_process_only
     from maed_tpu_torch.data.dataset import VideoDataset
     from maed_tpu_torch.data.loaders import ShardedLoader
     from maed_tpu_torch.data.transforms import build_eval_transforms
 
     args, cfg, _ = parse_args(argv)
-    single_process_only("python -m maed_tpu_torch.eval")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # as the JAX package's eval.py: validation inside training runs sharded
+        raise NotImplementedError("python -m maed_tpu_torch.eval runs in one process; start it "
+                                  "without torchrun's --nproc_per_node > 1")
     device = device_of(cfg)
     configure_backends(cfg)
 

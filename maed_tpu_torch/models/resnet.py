@@ -21,6 +21,15 @@ variance included (``torch.nn.BatchNorm2d`` would store the unbiased one).
 An eval forward normalizes by the running statistics. The statistics and
 the affine stay in f32 whatever the compute dtype, as flax's
 ``BatchNorm(dtype=bf16)`` reduces in f32.
+
+Under data parallelism (a process group, ``parallel.dist``) a training
+forward takes the moments of the global batch, as the JAX package's
+``nn.BatchNorm`` without ``axis_name`` does under its 'dp' mesh and the
+original MAED's SyncBatchNorm did: each rank's (n mean, n (var + mean^2),
+n) a channel, summed over the ranks in f64 in one differentiable
+collective a layer, normalize the rank's slice and move the running
+statistics, the biased variance again (``torch.nn.SyncBatchNorm`` would
+store the unbiased one, and takes no CPU tensor).
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from maed_tpu_torch.parallel import dist
 
 
 def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
@@ -58,20 +69,46 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
             self.num_batches_tracked.zero_()
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                                False, 0.0, self.eps)
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Move the running statistics a ``momentum`` of the way to a batch's
+        mean and biased variance."""
         with torch.no_grad():
-            stat = x.detach().to(torch.promote_types(x.dtype, torch.float32))
-            var, mean = torch.var_mean(stat, dim=(0, 2, 3), correction=0)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
             self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
             self.num_batches_tracked.add_(1)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        if dist.initialized():
+            return self._global_batch(x)
+        with torch.no_grad():
+            stat = x.detach().to(torch.promote_types(x.dtype, torch.float32))
+            var, mean = torch.var_mean(stat, dim=(0, 2, 3), correction=0)
+            self._track(mean, var)
         # normalized by the batch's own (biased) moments; the running
         # statistics were updated above
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """A training forward over the moments of every rank's batch, with the
+        gradient through them."""
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xa = x.to(acc)
+        var, mean = torch.var_mean(xa, dim=(0, 2, 3), correction=0)
+        n = x.numel() // x.shape[1]
+        m64, v64 = mean.double(), var.double()
+        total = dist.sum_over_ranks(torch.cat([n * m64, n * (v64 + m64 * m64),
+                                               m64.new_full((1,), float(n))]))
+        C = x.shape[1]
+        g_mean = total[:C] / total[-1]
+        g_var = total[C:2 * C] / total[-1] - g_mean * g_mean
+        self._track(g_mean.detach(), g_var.detach())
+        scale = self.weight.to(acc) * torch.rsqrt(g_var.to(acc) + self.eps)
+        shift = self.bias.to(acc) - g_mean.to(acc) * scale
+        return (xa * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
 
 
 def _conv(in_chs: int, out_chs: int, kernel: int, stride: int = 1) -> nn.Conv2d:

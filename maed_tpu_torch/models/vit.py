@@ -27,6 +27,12 @@ versions with the dropout on their probabilities (the seqlen == 1 shortcut
 stands down too), and a positive dropout or drop-path rate sends the
 parallel mode's gated tail and the MLP to their plain forms, with the
 residual added outside.
+
+``remat=True`` (the JAX package's ``nn.remat(Block)``) keeps no block's
+activations in a training forward under grad: each block runs under
+``torch.utils.checkpoint`` and its forward runs again in the backward
+(:func:`remat_block`), for the memory of one block's activations instead of
+``depth`` blocks'. The recomputation draws the first run's dropout masks.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from maed_tpu_torch.models.layers import Dropout, DropPath, dense
@@ -254,6 +261,35 @@ class Block(nn.Module):
         return x + self.drop_path(self.mlp.branch(x, self.norm2, generator), train, generator)
 
 
+def remat_block(block: Block, x: torch.Tensor, seqlen: int, plain: bool,
+                generator: torch.Generator | None) -> torch.Tensor:
+    """``block(x, seqlen, plain, train=True, generator)`` without keeping its
+    activations: the backward runs the block's forward again.
+
+    The masks come from ``generator``, which the checkpoint does not save
+    (its ``preserve_rng_state`` keeps the default CPU and CUDA generators
+    only): the first run draws from it, so that it ends the step where a
+    step without remat leaves it, and the recomputation draws from a copy
+    of its state before the block, so that it draws the same masks. The
+    kernels' autograd Functions nest inside: the recomputation runs their
+    forwards again, their backwards still go through the plain versions."""
+    if generator is None:
+        return torch.utils.checkpoint.checkpoint(block, x, seqlen, plain, True, None,
+                                                 use_reentrant=False)
+    before = generator.get_state()
+    first = [True]
+
+    def run(x):
+        g = generator
+        if not first[0]:
+            g = torch.Generator(device=generator.device)
+            g.set_state(before)
+        first[0] = False
+        return block(x, seqlen, plain, True, g)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+
+
 class HybridEmbed(nn.Module):
     """ResNetV2 feature map -> patch tokens through a 1x1 projection."""
 
@@ -300,9 +336,9 @@ class VisionTransformer(nn.Module):
                  max_seqlen: int = 16, img_size: int = 224, standardize: bool = True,
                  st_mode: str = "parallel", drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dtype, self.st_mode = dtype, st_mode
+        self.dtype, self.st_mode, self.remat = dtype, st_mode, remat
         self.patch_embed = HybridEmbed(embed_dim, standardize=standardize, dtype=dtype)
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.empty(1, num_patches(img_size) + 1, embed_dim))
@@ -328,7 +364,11 @@ class VisionTransformer(nn.Module):
             tokens = tokens.reshape(-1, seqlen, N, C) + self.temp_embed[:, :seqlen].to(tokens.dtype)
             tokens = tokens.reshape(BT, N, C)
         tokens = self.pos_drop(tokens, train, generator)
+        remat = self.remat and train and torch.is_grad_enabled()
         for block in self.blocks:
-            tokens = block(tokens, seqlen, plain, train, generator)
+            if remat:
+                tokens = remat_block(block, tokens, seqlen, plain, generator)
+            else:
+                tokens = block(tokens, seqlen, plain, train, generator)
         feat = self.norm(tokens, plain)[:, 0]
         return torch.tanh(dense(feat, self.pre_logits.fc, self.dtype))

@@ -13,6 +13,15 @@ warmup-then-milestones schedule as a ``LambdaLR`` stepped once per real
 update. ``GRAD_ACCUM_STEPS = k`` averages the gradients of k calls into one
 update, as ``optax.MultiSteps`` does, and the schedule then counts epochs
 of ``steps_per_epoch // k`` updates.
+
+Data parallel (a process group, ``parallel.dist``): each process runs the
+step on its slice of the global batch, and the k-th call averages the
+summed gradients over the processes (one all-reduce) just before the
+update, as the JAX step's gradient is reduced over its 'dp' axis. There is
+no ``DistributedDataParallel`` wrapper, so the model keeps its own
+state_dict names and a step may run the model twice (video, then image)
+before its one backward; every rank starts from rank 0's weights
+(``dist.broadcast_module``).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import warnings
 import torch
 
 from maed_tpu_torch.core.loss import LossWeights, image_loss, merge_loss, video_loss
+from maed_tpu_torch.parallel import dist
 
 
 def warmup_milestone_schedule(base_lr, warmup_epoch, warmup_factor, milestones,
@@ -48,8 +58,9 @@ class TrainOptimizer:
     A step's calls are :meth:`zero_grad`, the backward of the loss divided by
     ``accum_steps``, then :meth:`step`. The gradients are cleared at the
     first call of each cycle of ``accum_steps`` and summed over it; the k-th
-    call updates the parameters and steps the schedule. After an update the
-    parameters' ``.grad`` still hold the gradient it applied.
+    call averages them over the processes, if there are several, updates the
+    parameters and steps the schedule. After an update the parameters'
+    ``.grad`` still hold the gradient it applied.
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer,
@@ -66,6 +77,8 @@ class TrainOptimizer:
         self.calls += 1
         if self.calls % self.accum_steps:
             return False
+        dist.average_gradients(p for group in self.optimizer.param_groups
+                               for p in group["params"])
         self.optimizer.step()
         self.scheduler.step()
         return True

@@ -4,8 +4,15 @@
     python -m maed_tpu_torch.train --cfg configs/config_stage2.yaml \
         [--init_backbone in21k.npz|.pth] [--pretrained stage1.pth.tar] \
         [--allow_synthetic_smpl] [KEY VALUE ...]
+    python -m torch.distributed.run --standalone --nproc_per_node W \
+        -m maed_tpu_torch.train --cfg ... [KEY VALUE ...]
 
-Port of the JAX package's ``train.py``, for one process: the model from the
+Port of the JAX package's ``train.py``. Under torchrun, W processes train
+data parallel (``parallel.dist``: NCCL, one card a process; gloo with
+``DEVICE cpu``), each on its shard of every loader, as one process on the
+global batch of W times the config's batch sizes does; rank 0 alone logs
+and writes, and every rank draws its dropout masks from a generator of its
+own (rank 0's from the seed a single process uses). The model from the
 config's MODEL section (``core.builder.build_train_model`` in f32: stage 1's
 ResNet-50 + KTD, stage 2's STE + KTD), then the published encoder init
 (``--init_backbone``, ``utils.pretrained``) and a stage-1 checkpoint's
@@ -24,6 +31,9 @@ from __future__ import annotations
 import os
 import sys
 
+# rank r > 0 seeds its dropout generator with SEED_VALUE + r * this
+RANK_SEED_STRIDE = 1_000_003
+
 
 def main(argv=None):
     """Returns the Trainer after its run (it exits on a preemption)."""
@@ -38,19 +48,30 @@ def main(argv=None):
     from maed_tpu_torch.core.loss import LossWeights
     from maed_tpu_torch.core.trainer import Trainer
     from maed_tpu_torch.data.loaders import get_data_loaders
+    from maed_tpu_torch.parallel import dist
     from maed_tpu_torch.parallel.train_step import make_optimizer, make_train_step
     from maed_tpu_torch.utils.checkpoint import load_pretrained_state
     from maed_tpu_torch.utils.logging_utils import create_logger, prepare_output_dir
     from maed_tpu_torch.utils.pretrained import apply_pretrained_backbone
 
     args, cfg, _ = parse_args(argv)
+    rank, world = dist.init_from_env(cpu=str(cfg.DEVICE).lower() == "cpu")
     device = device_of(cfg)
     configure_backends(cfg)
 
-    logdir = prepare_output_dir(cfg.OUTPUT_DIR, cfg.EXP_NAME, cfg.dump())
-    logger = create_logger(logdir)
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    logger.info(f"device: {device} ({name}), torch {torch.__version__}")
+    logdir, logger = "", None
+    if rank == 0:
+        logdir = prepare_output_dir(cfg.OUTPUT_DIR, cfg.EXP_NAME, cfg.dump())
+        logger = create_logger(logdir)
+        name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+        logger.info(f"device: {device} ({name}), torch {torch.__version__}, process {rank} of "
+                    f"{world}")
+    # every rank enters the checkpoint writes, which rank 0 makes in its directory
+    logdir = dist.broadcast_str_from_rank0(logdir)
+
+    def log(msg):
+        if logger is not None:
+            logger.info(msg)
 
     seed = max(cfg.SEED_VALUE, 0)
     if cfg.SEED_VALUE >= 0:
@@ -61,13 +82,14 @@ def main(argv=None):
                                     allow_synthetic_smpl=args.allow_synthetic_smpl)
     if args.init_backbone:
         apply_pretrained_backbone(model, args.init_backbone)
-        logger.info(f"=> loaded the published backbone init from {args.init_backbone}")
+        log(f"=> loaded the published backbone init from {args.init_backbone}")
     if args.pretrained:
         unused = load_pretrained_state(model, load_weights(args.pretrained), drop_decoder=True)
-        logger.info(f"=> loaded the pretrained encoder from {args.pretrained}"
-                    + (f"; {len(unused)} keys unused: {unused[:5]}" if unused else ""))
+        log(f"=> loaded the pretrained encoder from {args.pretrained}"
+            + (f"; {len(unused)} keys unused: {unused[:5]}" if unused else ""))
+    dist.broadcast_module(model)  # every rank starts from rank 0's weights
 
-    loaders = get_data_loaders(cfg)
+    loaders = get_data_loaders(cfg, rank=rank, world_size=world, verbose=rank == 0)
     steps_per_epoch = (
         cfg.TRAIN.NUM_ITERS_PER_EPOCH
         if cfg.TRAIN.NUM_ITERS_PER_EPOCH > 0
@@ -78,7 +100,8 @@ def main(argv=None):
         kp_2d=cfg.LOSS.KP_2D_W, kp_3d=cfg.LOSS.KP_3D_W, shape=cfg.LOSS.SHAPE_W,
         pose=cfg.LOSS.POSE_W, norm=cfg.LOSS.SMPL_NORM, accl=cfg.LOSS.ACCL_W,
     )
-    generator = torch.Generator(device=device).manual_seed(seed)
+    # each rank its own masks; rank 0 those of a single process
+    generator = torch.Generator(device=device).manual_seed(seed + RANK_SEED_STRIDE * rank)
     train_step = make_train_step(model, optimizer, smpl, weights, generator)
 
     def eval_forward(images, J_regressor=None):
@@ -93,9 +116,10 @@ def main(argv=None):
         log_freq=cfg.DEBUG_FREQ,
     )
     trainer.fit()
+    dist.shutdown()
     if trainer.preempted:
-        logger.info(f"preempted — resume with TRAIN.RESUME={logdir}/preempt.pth.tar "
-                    "(or TRAIN.RESUME auto)")
+        log(f"preempted — resume with TRAIN.RESUME={logdir}/preempt.pth.tar "
+            "(or TRAIN.RESUME auto)")
         # 0 by default (pod managers read nonzero as a failure); a relaunch
         # loop that must tell "preempted" from "finished" sets MAED_PREEMPT_EXIT
         sys.exit(int(os.environ.get("MAED_PREEMPT_EXIT", "0")))

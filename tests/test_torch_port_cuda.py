@@ -732,6 +732,106 @@ def test_stage1_train_forward_through_the_kernels(cuda, monkeypatch, decoder):
     assert ((grad - plain_grad).norm() / plain_grad.norm()).item() <= 1e-4
 
 
+@pytest.mark.parametrize("shape", [(8, 64, 28, 28), (3, 256, 7, 9)])
+def test_batchnorm_of_a_one_rank_group_on_the_card(cuda, shape):
+    """BatchNorm's training forward under a process group of one (NCCL; the
+    moments summed over the ranks in f64, ``parallel.dist``) against its
+    no-group path (cuDNN's batch norm) in f32, on a channels-last input:
+    the output and the running statistics within 1e-5, the gradients of
+    x, the scale and the bias within 1e-5 relative L2."""
+    import torch.distributed as tdist
+
+    from maed_tpu_torch.models.resnet import BatchNorm
+    from torch_port_common import free_port
+
+    g = torch.Generator().manual_seed(6)
+    x = (torch.randn(shape, generator=g) * 2 + 0.5).to(cuda).to(
+        memory_format=torch.channels_last)
+    r = torch.randn(shape, generator=g).to(cuda)
+    runs = []
+    for grouped in (False, True):
+        bn = BatchNorm(shape[1]).to(cuda)
+        bn.reset_()
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=torch.Generator(cuda).manual_seed(1))
+            bn.bias.normal_(0.0, 0.1, generator=torch.Generator(cuda).manual_seed(2))
+        xi = x.clone().requires_grad_(True)
+        if grouped:
+            tdist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                                     world_size=1, rank=0)
+        try:
+            y = bn(xi, train=True)
+            (y * r).sum().backward()
+            torch.cuda.synchronize()
+        finally:
+            if grouped:
+                tdist.destroy_process_group()
+        runs.append((y.detach(), bn.running_mean.clone(), bn.running_var.clone(),
+                     xi.grad, bn.weight.grad, bn.bias.grad))
+    for name, a, b in zip(("y", "running_mean", "running_var"), runs[0][:3], runs[1][:3]):
+        assert_close(b, a, 1e-5, what=name)
+    for name, a, b in zip(("x", "scale", "bias"), runs[0][3:], runs[1][3:]):
+        assert ((b - a).norm() / a.norm()).item() <= 1e-5, name
+
+
+def test_remat_step_through_the_kernels(cuda):
+    """A stage-2 step in f32 through the kernels (2 blocks, 2 clips x 4
+    frames and 2 images at 64 px, KTD's dropout from one generator seed),
+    with and without remat, from the same weights, with cuDNN's
+    deterministic algorithms: the same loss terms and gradient, bit for
+    bit. With remat a block's kernels run again in the recomputation in the
+    backward, the stem's do not."""
+    from maed_tpu_torch.core.builder import build_train_model
+    from maed_tpu_torch.core.loss import LossWeights
+    from maed_tpu_torch.parallel.train_step import make_optimizer, make_train_step
+
+    class Optim:
+        OPTIM, LR, WD, MOMENTUM = "adam", 1e-4, 0.0, 0.9
+        WARMUP_EPOCH, WARMUP_FACTOR, MILESTONES = 0, 0.1, [3]
+
+    rng = np.random.RandomState(8)
+
+    def kp(*shape):
+        return to_torch(np.concatenate([rng.randn(*shape, 3), np.ones(shape + (1,))], -1),
+                        torch.float32).to(cuda)
+
+    vid = {"images": torch.from_numpy(rng.randint(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)).to(cuda),
+           "target_2d": {"kp_2d": kp(1, 4, 49)[..., 1:]},
+           "target_3d": {"kp_2d": kp(1, 4, 49)[..., 1:], "kp_3d": kp(1, 4, 49),
+                         "theta": to_torch(rng.randn(1, 4, 85) * 0.1, torch.float32).to(cuda),
+                         "w_smpl": torch.ones(1, 4, device=cuda)}}
+    img = {"image": torch.from_numpy(rng.randint(0, 256, (2, 64, 64, 3), dtype=np.uint8)).to(cuda),
+           "kp_2d": kp(2, 49)[..., 1:], "kp_3d": kp(2, 49),
+           "theta": to_torch(rng.randn(2, 85) * 0.1, torch.float32).to(cuda)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for remat in (False, True):
+            model, smpl = build_train_model(num_blocks=2, num_heads=12, hidden_dim=64, img_size=64,
+                                            device=cuda, seed=0, allow_synthetic_smpl=True,
+                                            smpl_dir="absent", remat=remat)
+            step = make_train_step(model, make_optimizer(Optim, 10, model.parameters()), smpl,
+                                   LossWeights(), torch.Generator(cuda).manual_seed(3))
+            kernels.reset_launches()
+            metrics = step(vid, img)
+            torch.cuda.synchronize()
+            runs.append((metrics, torch.cat([p.grad.reshape(-1) for p in model.parameters()]),
+                         dict(kernels.LAUNCHES)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (m0, g0, l0), (m1, g1, l1) = runs
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert torch.isfinite(g0).all() and torch.equal(g0, g1)
+    for name in ("ln_dense", "spatial_attention", "temporal_attention", "gate_proj"):
+        assert l0[name] > 0 and l1[name] == 2 * l0[name], (name, l0[name], l1[name])
+    # the checkpoint's recomputation stops once it has what the backward
+    # saved: the block's last kernel, whose output nothing inside saves, may not rerun
+    assert l1["ln_mlp_fc1"] in (l0["ln_mlp_fc1"], 2 * l0["ln_mlp_fc1"])
+    for name in ("groupnorm_strided", "skinning", "layernorm"):
+        assert l1[name] == l0[name] > 0, (name, l0[name], l1[name])
+
+
 def test_procrustes_and_metrics_on_the_card(cuda):
     """The batched 3 x 3 SVD goes through another library on the card; its U
     and V may differ in sign from the CPU's, R does not. f64 on the card

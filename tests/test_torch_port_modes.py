@@ -18,6 +18,8 @@ with and without its kernel differ by 1e-5. The attention step by itself is
 held at 5e-5 in tests/test_torch_port_kernels.py.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import jax
@@ -145,24 +147,39 @@ def assert_outputs_close(got, want, atol, rtol=0.0):
         assert_close(got[key], want[key], atol, rtol, what=key)
 
 
+F64_CLIPS = np.random.RandomState(1).randn(*SHAPE)
+
+
+@pytest.fixture(scope="module")
+def jax_f64():
+    """{mode: (its parameters, JAX's f64 outputs on F64_CLIPS)} for every
+    mode, traced and compiled in a thread a mode (XLA compiles them side by
+    side)."""
+    def one(mode):
+        params = jax_params(mode)
+        with jax.enable_x64(True):  # the flag is the thread's own
+            return params, jax_forward(mode, as_f64(params), F64_CLIPS, jnp.float64)
+
+    with ThreadPoolExecutor(len(ST_MODES)) as pool:
+        return dict(zip(ST_MODES, pool.map(one, ST_MODES)))
+
+
 @pytest.mark.parametrize("mode", ST_MODES)
-def test_maed_matches_jax_f64(mode):
-    params = jax_params(mode)
+def test_maed_matches_jax_f64(jax_f64, mode):
+    params, want = jax_f64[mode]
     sd = state_dict_from_jax(params)
     assert ("encoder.temp_embed" in sd) == (mode in TEMP_EMBED_MODES)
     assert ("encoder.blocks.0.attn.ts_attn.weight" in sd) == (mode == "parallel")
-    clips = np.random.RandomState(1).randn(*SHAPE)
-    with jax.enable_x64(True):
-        want = jax_forward(mode, as_f64(params), clips, jnp.float64)
+    clips = F64_CLIPS
     model = MAED(img_size=32, st_mode=mode, dtype=torch.float64, **CONFIG)
     model.load_state_dict(sd, strict=True)
     got = model.double()(to_torch(clips), t_synthetic_smpl(64, 0, device="cpu"))
     assert_outputs_close(got, want, 1e-8)
 
 
-def test_coupling_maed_matches_jax_through_its_pallas_attention(monkeypatch):
+def test_coupling_maed_matches_jax_through_its_pallas_attention(jax_f64, monkeypatch):
     monkeypatch.setenv("MAED_FUSED_ATTENTION", "1")
-    params = jax_params("coupling")
+    params = jax_f64["coupling"][0]
     clips = np.random.RandomState(2).randn(*SHAPE).astype(np.float32)
     want = jax_forward("coupling", params, clips, jnp.float32)
     model = MAED(img_size=32, st_mode="coupling", dtype=torch.float32, **CONFIG)

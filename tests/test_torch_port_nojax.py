@@ -6,7 +6,8 @@ onto the port's state_dict, runs the tiny eval forward of a parallel and of
 a coupling model on the CPU, drives ``core.evaluate.Evaluator.run`` over
 the coupling one and takes one stage-2 train step (``build_train_model``,
 ``make_optimizer``, ``make_train_step``: both forwards, the backward
-through the kernels' autograd Functions, the Adam update). Then it runs
+through the kernels' autograd Functions, the Adam update), and the same
+step of a ``remat=True`` model, whose losses are the same. Then it runs
 ``python -m maed_tpu_torch.train`` on a tiny config (``DEVICE cpu``, 2
 iterations, 1 epoch) over synthetic DBs written as plain pickles, whose
 frames are the JPEGs of tests/torch_port_data, and
@@ -19,6 +20,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -85,6 +88,13 @@ img = {"image": torch.randint(0, 256, (1, 32, 32, 3), dtype=torch.uint8),
 out = step(vid, img)
 assert all(torch.isfinite(v) for v in out.values()), out
 assert all(not torch.equal(a, b) for a, b in zip(before, model.parameters()) if b.grad.abs().sum() > 0)
+model, smpl = build_train_model(num_blocks=1, num_heads=2, hidden_dim=32, img_size=32,
+                                device="cpu", seed=0, allow_synthetic_smpl=True, smpl_dir="absent",
+                                remat=True)
+step = make_train_step(model, make_optimizer(Optim, 10, model.parameters()), smpl, LossWeights(),
+                       torch.Generator().manual_seed(0))
+remat_out = step(vid, img)
+assert all(torch.equal(remat_out[k], out[k]) for k in out), (remat_out, out)
 
 import glob, os, pickle, runpy
 os.makedirs("data/database")
@@ -191,9 +201,20 @@ kp = lambda *shape: torch.cat([torch.randn(*shape, 3), torch.ones(*shape, 1)], -
 img = {"image": torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8),
        "kp_2d": kp(2, 49)[..., 1:], "kp_3d": kp(2, 49), "theta": torch.randn(2, 85) * 0.1,
        "w_smpl": torch.ones(2)}
-out = step(None, img)
+import socket
+from maed_tpu_torch.parallel import dist
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                  MASTER_PORT=str(port))
+assert dist.init_from_env(cpu=True) == (0, 1) and dist.initialized()
+out = step(None, img)  # BatchNorm over the moments of a group of one
 assert all(torch.isfinite(v) for v in out.values()), out
 assert int(model.encoder.bn1.num_batches_tracked) == 1
+assert dist.broadcast_str_from_rank0("x") == "x" and dist.any_rank(True)
+assert dist.weighted_mean({"mpjpe": 2.0}, 3) == ({"mpjpe": 2.0}, 3)
+assert dist.gather_objects(7) == [7]
 tree = {"encoder": {"layer2_0": {"downsample_bn": {"scale": np.ones(8, np.float32)}}},
         "decoder": {"decpose": {"kernel": np.ones((4, 144), np.float32)}}}
 stats = {"encoder": {"layer2_0": {"downsample_bn": {"mean": np.zeros(8, np.float32),
@@ -241,7 +262,9 @@ open("tiny1.yaml", "w").write(CONFIG)
 def cli(module, *argv):
     sys.argv = [module, "--cfg", "tiny1.yaml", "--allow_synthetic_smpl", *argv]
     runpy.run_module(module, run_name="__main__")
-cli("maed_tpu_torch.train")
+cli("maed_tpu_torch.train")  # in the group of one that RANK and WORLD_SIZE describe
+assert not dist.initialized()
+del os.environ["RANK"], os.environ["WORLD_SIZE"]
 (logdir,) = glob.glob("results/*_tiny1")
 best = torch.load(os.path.join(logdir, "model_best.pth.tar"), weights_only=True)["state_dict"]
 assert int(best["encoder.layer4.2.bn3.num_batches_tracked"]) == 2
@@ -286,25 +309,44 @@ MODEL:
 """
 
 
-def run_blocked(tmp_path, script, config):
+def start_blocked(tmp_path, script, config):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     script = (f"BLOCKED = {BLOCKED!r}\nFIXTURES = {str(REPO / 'tests' / 'torch_port_data')!r}\n"
               f"CONFIG = {config!r}\n" + script)
-    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "NOJAX_OK" in proc.stdout
+    return subprocess.Popen([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def test_stage1_runs_without_jax(tmp_path):
+@pytest.fixture(scope="module")
+def blocked_runs(tmp_path_factory):
+    """The two interpreters, started at once."""
+    return {name: start_blocked(tmp_path_factory.mktemp(name), script, config)
+            for name, script, config in (("stage2", SCRIPT, CONFIG),
+                                         ("stage1", STAGE1_SCRIPT, STAGE1_CONFIG))}
+
+
+def finish_blocked(proc):
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err[-3000:]
+    assert "NOJAX_OK" in out
+
+
+def test_stage1_runs_without_jax(blocked_runs):
     """Stage 1 with the same modules blocked: the bf16 eval forward of cnn +
-    ktd and cnn + iterative, one image-only train step of cnn + ktd (its
-    BatchNorm counts the batch), a cnn / iterative tree and its batch_stats
-    mapped to the port's names, the published-backbone import from an .npz
-    and a .pth, and ``python -m maed_tpu_torch.train`` on a tiny stage-1
-    config, then the eval CLI on its model_best.pth.tar."""
-    run_blocked(tmp_path, STAGE1_SCRIPT, STAGE1_CONFIG)
+    ktd and cnn + iterative, one image-only train step of cnn + ktd in a
+    one-rank gloo group (``parallel.dist``: its BatchNorm takes the group's
+    moments and counts the batch; the group's collectives), a cnn /
+    iterative tree and its batch_stats mapped to the port's names, the
+    published-backbone import from an .npz and a .pth, and ``python -m
+    maed_tpu_torch.train`` on a tiny stage-1 config in that group, then the
+    eval CLI on its model_best.pth.tar."""
+    finish_blocked(blocked_runs["stage1"])
 
 
-def test_port_runs_without_jax(tmp_path):
-    run_blocked(tmp_path, SCRIPT, CONFIG)
+def test_port_runs_without_jax(blocked_runs):
+    finish_blocked(blocked_runs["stage2"])

@@ -20,6 +20,7 @@ and the port still takes the raw uint8 clips.
 """
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -110,9 +111,12 @@ def test_state_dict_has_the_reference_names(params):
     MAED(img_size=32, **CONFIG).load_state_dict(sd, strict=True)
 
 
-@pytest.mark.parametrize("variant", ["float_clips", "uint8_folded"])
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_slice_matches_jax(params, dtype, variant):
+VARIANTS = ("float_clips", "uint8_folded")
+
+
+def slice_case(params, dtype, variant):
+    """One case of ``test_slice_matches_jax``: the clips, the regressor,
+    JAX's outputs and the port's state_dict."""
     jdt, tdt, ndt, atol, rtol = DTYPES[dtype]
     rng = np.random.RandomState(1)
     folded = variant == "uint8_folded"
@@ -130,10 +134,27 @@ def test_slice_matches_jax(params, dtype, variant):
         clips = rng.randn(*SHAPE).astype(ndt)
         jreg, j_params, sd = None, params, state_dict_from_jax(params)
 
-    with jax.enable_x64(dtype == "f64"):
+    with jax.enable_x64(dtype == "f64"):  # the flag is the thread's own
         want = jax_forward(jax.tree.map(lambda a: np.asarray(a, ndt), j_params), clips,
                            j_synthetic_smpl(64, 0), jreg, jdt, not folded)
+    return clips, jreg, want, sd
 
+
+@pytest.fixture(scope="module")
+def slice_cases(params):
+    """Every case of ``test_slice_matches_jax``, JAX's side traced and
+    compiled in a thread a case (XLA compiles them side by side)."""
+    cases = [(dtype, variant) for dtype in DTYPES for variant in VARIANTS]
+    with ThreadPoolExecutor(len(cases)) as pool:
+        return dict(zip(cases, pool.map(lambda case: slice_case(params, *case), cases)))
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_slice_matches_jax(slice_cases, dtype, variant):
+    jdt, tdt, ndt, atol, rtol = DTYPES[dtype]
+    clips, jreg, want, sd = slice_cases[dtype, variant]
+    folded = variant == "uint8_folded"
     model = MAED(img_size=32, standardize_ws=not folded, dtype=tdt, **CONFIG)
     model.load_state_dict(sd, strict=True)
     got = model.to(tdt)(to_torch(clips), t_synthetic_smpl(64, 0, device="cpu"),

@@ -59,7 +59,7 @@ from maed_tpu_torch.utils.pretrained import apply_pretrained_backbone
 from maed_tpu_torch.utils.smpl_io import synthetic_smpl_model as t_synthetic_smpl
 from maed_tpu_torch.utils.weights import state_dict_from_jax
 from test_torch_port_models import random_params
-from torch_port_common import assert_close, one_torch_thread, to_torch  # noqa: F401
+from torch_port_common import Ranks, assert_close, one_torch_thread, to_torch  # noqa: F401
 
 ATOL = RTOL = 1e-8
 LAYERS, CHANNELS = (1, 1, 1, 1), (16, 32, 64, 128)
@@ -96,10 +96,12 @@ def port_state(params, stats, at):
 
 
 def assert_stats_close(model, want_stats, at):
-    """Every running_mean / running_var of ``model``, the submodule ``at``,
-    against a flax batch_stats tree."""
+    """Every running_mean / running_var of ``model``, the submodule ``at``
+    (or a dict of them by its state_dict names), against a flax batch_stats
+    tree."""
     want = port_state({}, f64(want_stats), at)
-    got = {k: v for k, v in model.state_dict().items() if "running" in k}
+    got = {k: v for k, v in (model if isinstance(model, dict) else model.state_dict()).items()
+           if "running" in k}
     assert set(got) == {k for k in want if "running" in k}
     for k, v in got.items():
         assert_close(v, want[k], ATOL, RTOL, what=k)
@@ -337,49 +339,92 @@ def image_batch(seed, n=4):
             "theta": rng.randn(n, 85) * 0.1, "w_smpl": np.ones(n)}
 
 
-def test_stage1_train_step_matches_jax(monkeypatch):
-    """make_train_step(has_batch_stats=True) on an image-only batch (cnn +
-    ktd, the dropout at 0): the loss terms at rtol 1e-10, every gradient
-    at 1e-9 x the largest, every parameter after Adam's first update (at
-    1e-10 plus what the two gradients' own difference moves that steep
-    update by, as tests/test_torch_port_train.py holds it), and the new
-    batch_stats. JAX's gradient is read back from Adam's first moment."""
-    model, params, stats = jax_stage1_maed(monkeypatch, "ktd", 20)
-    batch = image_batch(21)
-    smpl = j_synthetic_smpl(NV, 0)
-    with jax.enable_x64(True):
-        tx = JS.make_optimizer(_Optim, 10)
-        state = JS.TrainState(params=params, opt_state=jax.jit(tx.init)(params),
-                              batch_stats=stats, step=jnp.zeros((), jnp.int32),
-                              rng=jax.random.PRNGKey(0))
-        step = JS.make_train_step(model, tx, smpl, JLossWeights(), has_batch_stats=True,
-                                  donate=False)
-        new, metrics = step(state, None, batch)
-        mu = next(s for s in new.opt_state if isinstance(s, optax.ScaleByAdamState)).mu
-        grads = jax.tree.map(lambda m, p: np.asarray(m) / (1 - 0.9) - _Optim.WD * p, mu, params)
-        new_params = jax.tree.map(np.asarray, new.params)
-        new_stats = jax.tree.map(np.asarray, new.batch_stats)
+@pytest.fixture(scope="module")
+def jax_stage1_step(tmp_path_factory):
+    """JAX's make_train_step(has_batch_stats=True) on ``image_batch(21)``
+    (cnn + ktd, the dropout at 0): the parameters and batch_stats it starts
+    from, its metrics, its gradient (read back from Adam's first moment),
+    and the parameters and batch_stats after its update. The port's two
+    ranks on halves of the batch, from the same parameters, run while JAX
+    compiles (``ranks``)."""
+    with pytest.MonkeyPatch.context() as mp:
+        model, params, stats = jax_stage1_maed(mp, "ktd", 20)
+        batch = image_batch(21)
+        halves = [{k: to_torch(v[2 * r:2 * r + 2]) for k, v in batch.items()} for r in range(2)]
+        ranks = Ranks([dict(model=dict(encoder="cnn", decoder="ktd", hidden_dim=32, img_size=RES,
+                                       decoder_drop=0.0, smpl_dir="absent"),
+                            resnet=dict(layers=LAYERS, channels=CHANNELS), num_verts=NV,
+                            state_dict=state_dict_from_jax(params, stats),
+                            optim={k: v for k, v in vars(_Optim).items() if k.isupper()},
+                            calls=[(None, halves)])], tmp_path_factory.mktemp("two_ranks"))
+        smpl = j_synthetic_smpl(NV, 0)
+        with jax.enable_x64(True):
+            tx = JS.make_optimizer(_Optim, 10)
+            state = JS.TrainState(params=params, opt_state=jax.jit(tx.init)(params),
+                                  batch_stats=stats, step=jnp.zeros((), jnp.int32),
+                                  rng=jax.random.PRNGKey(0))
+            step = JS.make_train_step(model, tx, smpl, JLossWeights(), has_batch_stats=True,
+                                      donate=False)
+            new, metrics = step(state, None, batch)
+            mu = next(s for s in new.opt_state if isinstance(s, optax.ScaleByAdamState)).mu
+            grads = jax.tree.map(lambda m, p: np.asarray(m) / (1 - 0.9) - _Optim.WD * p, mu,
+                                 params)
+            return dict(params=params, stats=stats, ranks=ranks,
+                        metrics={k: float(v) for k, v in metrics.items()}, grads=grads,
+                        new_params=jax.tree.map(np.asarray, new.params),
+                        new_stats=jax.tree.map(np.asarray, new.batch_stats))
 
+
+def assert_stage1_step(got_metrics, grads, params, stats_of, want):
+    """A stage-1 step's loss terms at rtol 1e-10, every gradient at 1e-9 x
+    the largest, every parameter after Adam's first update (at 1e-10 plus
+    what the two gradients' own difference moves that steep update by, as
+    tests/test_torch_port_train.py holds it), and the new batch_stats
+    (``stats_of``: the module that holds them), against JAX's."""
+    assert set(got_metrics) == set(want["metrics"])
+    for k, v in want["metrics"].items():
+        np.testing.assert_allclose(float(got_metrics[k]), v, rtol=1e-10, atol=0, err_msg=k)
+    want_g, p0 = state_dict_from_jax(want["grads"]), state_dict_from_jax(want["params"])
+    want_p = state_dict_from_jax(want["new_params"])
+    largest = max(float(v.abs().max()) for v in want_g.values())
+    assert set(params) == set(want_g)
+    for k, p in params.items():
+        assert_close(grads[k], want_g[k], 1e-9 * largest, what=k)
+        g, eps = want_g[k] + _Optim.WD * p0[k], 1e-8
+        limit = 1e-10 + FIRST_LR * eps / (g.abs() + eps) ** 2 * (grads[k] - want_g[k]).abs()
+        assert bool(((p - want_p[k]).abs() <= limit).all()), k
+    assert_stats_close(stats_of, want["new_stats"]["encoder"], AT_ENCODER)
+
+
+def test_stage1_train_step_matches_jax(monkeypatch, jax_stage1_step):
+    """make_train_step on an image-only batch of four (cnn + ktd, the
+    dropout at 0) against JAX's, as ``assert_stage1_step`` holds it."""
+    want = jax_stage1_step
     tmod = port_stage1_maed(monkeypatch, "ktd").train()
-    tmod.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    tmod.load_state_dict(state_dict_from_jax(want["params"], want["stats"]), strict=True)
     opt = TS.make_optimizer(_Optim, 10, tmod.parameters())
     tstep = TS.make_train_step(tmod, opt, t_synthetic_smpl(NV, 0, device="cpu"), LossWeights())
-    got = tstep(None, {k: to_torch(v) for k, v in batch.items()})
-    assert set(got) == set(metrics)
-    for k, v in metrics.items():
-        np.testing.assert_allclose(got[k].item(), float(v), rtol=1e-10, atol=0, err_msg=k)
-
-    want_g, p0 = state_dict_from_jax(grads), state_dict_from_jax(params)
-    want_p = state_dict_from_jax(new_params)
-    largest = max(float(v.abs().max()) for v in want_g.values())
+    got = tstep(None, {k: to_torch(v) for k, v in image_batch(21).items()})
     named = dict(tmod.named_parameters())
-    assert set(named) == set(want_g)
-    for k, p in named.items():
-        assert_close(p.grad, want_g[k], 1e-9 * largest, what=k)
-        g, eps = want_g[k] + _Optim.WD * p0[k], 1e-8
-        limit = 1e-10 + FIRST_LR * eps / (g.abs() + eps) ** 2 * (p.grad - want_g[k]).abs()
-        assert bool(((p.detach() - want_p[k]).abs() <= limit).all()), k
-    assert_stats_close(tmod.encoder, new_stats["encoder"], AT_ENCODER)
+    assert_stage1_step(got, {k: p.grad for k, p in named.items()},
+                       {k: p.detach() for k, p in named.items()}, tmod.encoder, want)
+
+
+def test_two_ranks_on_halves_match_jax_on_the_whole_batch(jax_stage1_step):
+    """Data parallel stage 1: two gloo ranks, each on two of the four
+    images, against JAX's step on all four, as ``assert_stage1_step`` holds
+    it. JAX's BatchNorm (no axis_name) takes the moments of the whole
+    'dp'-sharded batch, so the port's must sum the ranks' moments: with
+    each rank's own, the loss terms, the gradient and the running
+    statistics all move. Both ranks end with the same parameters and
+    statistics, bit for bit."""
+    want = jax_stage1_step
+    ranks = [results[0] for results in want["ranks"].results()]
+    got = ranks[0]
+    (metrics,) = got["metrics"]
+    encoder_stats = {k[len("encoder."):]: v for k, v in got["stats"].items()}
+    assert_stage1_step(metrics, got["grads"], got["params"], encoder_stats, want)
+    assert ranks[1]["same_as_rank0"]
 
 
 # --- checkpoints and the eval model -------------------------------------------

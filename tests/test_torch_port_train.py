@@ -1,7 +1,7 @@
 """maed_tpu_torch's stage-2 training against maed_tpu's on the CPU, at the
 tiny config of tests/test_train.py (1 block, 2 heads, KTD hidden 32, 32 px,
-T = 2, a 64-vertex synthetic SMPL; one 2D clip, one 3D clip and one image a
-step):
+T = 2, a 64-vertex synthetic SMPL; two 2D clips, two 3D clips, one of them
+with a partial SMPL selection, and two images a step):
 
 - the warmup/milestone schedule equals JAX's at every step of a run
   crossing the warmup and both milestones (exactly, f64 on both sides);
@@ -14,7 +14,9 @@ step):
   gradient, every parameter after the Adam update at atol 1e-10 plus what
   the two gradients' own difference moves Adam's first update by where it
   is steep (|g| near eps; ``_assert_params``); for GRAD_ACCUM_STEPS = 2 (two
-  calls, the second updating) and for one update a call. A parallel block
+  calls, the second updating) and for one update a call; the same steps
+  in two gloo processes, each on its half of the batches (data parallel,
+  ``parallel.dist``), against JAX's on the whole batches. A parallel block
   in training with every dropout rate positive against the JAX block's
   stochastic path at 1e-9. KTD's dropout is 0 on both sides here; the JAX model gets it
   through ``monkeypatch`` of the ``KTD`` its ``MAED`` builds;
@@ -35,6 +37,7 @@ gradients (a jit of the transform alone).
 """
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import optax
@@ -65,7 +68,7 @@ from maed_tpu_torch.parallel import train_step as TS
 from maed_tpu_torch.utils.smpl_io import synthetic_smpl_model as t_synthetic_smpl
 from maed_tpu_torch.utils.weights import state_dict_from_jax
 from test_torch_port_models import as_f64, random_params, sub_state_dict
-from torch_port_common import assert_close, one_torch_thread, to_torch  # noqa: F401
+from torch_port_common import Ranks, assert_close, one_torch_thread, to_torch  # noqa: F401
 
 CONFIG = dict(num_blocks=1, num_heads=2, hidden_dim=32)
 T, RES = 2, 32
@@ -156,17 +159,33 @@ def _kp(rng, *shape):
 
 
 def _batches(seed):
-    """A video batch (one 2D clip, then one 3D clip, T frames) and an image
-    batch of one frame, as numpy f64, in make_train_step's layout."""
+    """A video batch (two 2D clips, then two 3D clips, T frames; the second
+    3D clip's SMPL target selected on its first frame only) and an image
+    batch of two frames, as numpy f64, in make_train_step's layout."""
     rng = np.random.RandomState(seed)
-    vid = {"images": rng.randn(2, T, RES, RES, 3),
-           "target_2d": {"kp_2d": _kp(rng, 1, T, 49, 3)},
-           "target_3d": {"kp_2d": _kp(rng, 1, T, 49, 3), "kp_3d": _kp(rng, 1, T, 49, 4),
-                         "theta": rng.randn(1, T, 85) * 0.1, "w_smpl": np.ones((1, T))}}
-    img = {"image": rng.randn(1, RES, RES, 3), "kp_2d": _kp(rng, 1, 49, 3),
-           "kp_3d": _kp(rng, 1, 49, 4), "theta": rng.randn(1, 85) * 0.1,
-           "w_smpl": np.ones(1)}
+    vid = {"images": rng.randn(4, T, RES, RES, 3),
+           "target_2d": {"kp_2d": _kp(rng, 2, T, 49, 3)},
+           "target_3d": {"kp_2d": _kp(rng, 2, T, 49, 3), "kp_3d": _kp(rng, 2, T, 49, 4),
+                         "theta": rng.randn(2, T, 85) * 0.1,
+                         "w_smpl": np.array([[1.0] * T, [1.0] + [0.0] * (T - 1)])}}
+    img = {"image": rng.randn(2, RES, RES, 3), "kp_2d": _kp(rng, 2, 49, 3),
+           "kp_3d": _kp(rng, 2, 49, 4), "theta": rng.randn(2, 85) * 0.1,
+           "w_smpl": np.ones(2)}
     return vid, img
+
+
+def _halves(seed, world=2):
+    """Rank r's slice of ``_batches(seed)``: the r-th 2D clip, the r-th 3D
+    clip and the r-th image, as f64 tensors."""
+    vid, img = _batches(seed)
+    vids, imgs = [], []
+    for r in range(world):
+        vids.append(_tree({"images": vid["images"][[r, world + r]],
+                           "target_2d": {"kp_2d": vid["target_2d"]["kp_2d"][r:r + 1]},
+                           "target_3d": {k: v[r:r + 1] for k, v in vid["target_3d"].items()}},
+                          to_torch))
+        imgs.append(_tree({k: v[r:r + 1] for k, v in img.items()}, to_torch))
+    return vids, imgs
 
 
 def _tree(batch, convert):
@@ -177,21 +196,54 @@ def _adam_mu(opt_state):
     return next(s for s in opt_state if isinstance(s, optax.ScaleByAdamState)).mu
 
 
+def start_two_ranks(params, tmp_path):
+    """The port's step in two gloo processes, each on its half of the
+    batches (one 2D clip, one 3D clip, one image), from ``params``: one
+    update on batch 1, and GRAD_ACCUM_STEPS = 2 over batches 1 and 2;
+    started now, their results read by the test."""
+    halves = [_halves(1), _halves(2)]
+    job = dict(model=dict(img_size=RES, decoder_drop=0.0, **CONFIG),
+               state_dict=state_dict_from_jax(params), num_verts=64)
+    optim = {k: v for k, v in vars(_Optim).items() if k.isupper()}
+    return Ranks([dict(job, optim=optim, calls=halves[:1]),
+                  dict(job, optim=dict(optim, GRAD_ACCUM_STEPS=2), calls=halves)], tmp_path)
+
+
 @pytest.fixture(scope="module")
-def jax_run():
+def jax_run(tmp_path_factory):
     """The JAX step (one compile) from the same state on batches 1 and 2:
     the parameters it starts from, and per batch the metrics, the gradient
     and the parameters after the update; and the parameters that
-    GRAD_ACCUM_STEPS = 2 makes of the two gradients."""
+    GRAD_ACCUM_STEPS = 2 makes of the two gradients. The two ranks of
+    ``start_two_ranks`` run while JAX compiles the step, and the
+    accumulation's optimizer compiles beside it in a thread (for the
+    parameters' shapes)."""
     x = np.zeros((1, T, RES, RES, 3), np.float32)
     smpl = j_synthetic_smpl(64, 0)
-    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True), \
+            ThreadPoolExecutor(1) as pool:
         mp.setattr(j_maed_module, "KTD", functools.partial(JKTD, drop=0.0))
         model = JMAED(encoder="ste", st_mode="parallel", decoder="ktd", dtype=jnp.float64,
                       **CONFIG)
         params = jax.tree.map(lambda a: np.asarray(a, np.float64),
                               random_params(lambda: model.init(jax.random.PRNGKey(0), x, smpl),
                                             0))
+        ranks = start_two_ranks(params, tmp_path_factory.mktemp("two_ranks"))
+        tx2 = JS.make_optimizer(_optim(GRAD_ACCUM_STEPS=2), 10)
+
+        def two_calls(p, grads):
+            opt_state = tx2.init(p)
+            for g in grads:
+                updates, opt_state = tx2.update(g, opt_state, p)
+                p = optax.apply_updates(p, updates)
+            return p
+
+        def compile_two_calls():
+            with jax.enable_x64(True):  # the flag is the thread's own
+                spec = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), params)
+                return jax.jit(two_calls).lower(spec, [spec, spec]).compile()
+
+        two_calls_compiled = pool.submit(compile_two_calls)
         tx = JS.make_optimizer(_Optim, 10)
         state = JS.TrainState(params=params, opt_state=jax.jit(tx.init)(params), batch_stats={},
                               step=jnp.zeros((), jnp.int32), rng=jax.random.PRNGKey(0))
@@ -203,19 +255,9 @@ def jax_run():
                                  _adam_mu(new.opt_state), params)
             runs.append(dict(metrics={k: float(v) for k, v in m.items()}, grads=grads,
                              params=jax.tree.map(np.asarray, new.params)))
-        tx2 = JS.make_optimizer(_optim(GRAD_ACCUM_STEPS=2), 10)
-
-        @jax.jit
-        def two_calls(p, grads):
-            opt_state = tx2.init(p)
-            for g in grads:
-                updates, opt_state = tx2.update(g, opt_state, p)
-                p = optax.apply_updates(p, updates)
-            return p
-
-        accum_params = two_calls(params, [run["grads"] for run in runs])
+        accum_params = two_calls_compiled.result()(params, [run["grads"] for run in runs])
         mean_grads = jax.tree.map(lambda a, b: (a + b) / 2, runs[0]["grads"], runs[1]["grads"])
-    return dict(params=params, runs=runs, mean_grads=mean_grads,
+    return dict(params=params, runs=runs, mean_grads=mean_grads, ranks=ranks,
                 accum_params=jax.tree.map(np.asarray, accum_params))
 
 
@@ -241,37 +283,45 @@ def _run(step, seed):
 def _assert_metrics(got, want):
     assert set(got) == set(want)
     for k, v in want.items():
-        np.testing.assert_allclose(got[k].item(), v, rtol=LOSS_RTOL, atol=0, err_msg=k)
+        np.testing.assert_allclose(float(got[k]), v, rtol=LOSS_RTOL, atol=0, err_msg=k)
 
 
-def _assert_grads(model, want_tree, scale=1.0):
-    """Every parameter's .grad times ``scale`` against the JAX gradient."""
+def _state(model):
+    """(every parameter's value, every parameter's .grad) by name."""
+    named = dict(model.named_parameters())
+    return ({k: p.detach() for k, p in named.items()}, {k: p.grad for k, p in named.items()})
+
+
+def _assert_grads(grads, want_tree, scale=1.0):
+    """Every parameter's gradient (``grads`` by name) times ``scale``
+    against the JAX gradient."""
     want = state_dict_from_jax(want_tree)
     largest = max(np.abs(v.numpy()).max() for v in want.values())
-    got = dict(model.named_parameters())
-    assert set(got) == set(want)
+    assert set(grads) == set(want)
     for k, v in want.items():
-        assert got[k].grad is not None, k
-        assert_close(got[k].grad * scale, v, GRAD_ATOL * largest, what=k)
+        assert grads[k] is not None, k
+        assert_close(grads[k] * scale, v, GRAD_ATOL * largest, what=k)
 
 
-def _assert_params(model, want_tree, start=None, grads_tree=None):
-    """Every parameter against JAX's at PARAM_ATOL, plus, after a first Adam
-    update of lr * g / (|g| + eps) from ``start`` with the JAX gradient
-    ``grads_tree`` (g = that gradient + WD * the parameter), what the two
-    gradients' own difference moves that update by: lr * eps / (|g| +
-    eps)^2 * |g_port - g_jax|. The update is steep where |g| nears eps =
-    1e-8, so there a difference of gradients at f64 rounding (far inside
-    GRAD_ATOL) moves a parameter by more than 1e-10."""
+def _assert_params(state, want_tree, start=None, grads_tree=None):
+    """Every parameter of ``state`` (values, gradients) against JAX's at
+    PARAM_ATOL, plus, after a first Adam update of lr * g / (|g| + eps) from
+    ``start`` with the JAX gradient ``grads_tree`` (g = that gradient + WD *
+    the parameter), what the two gradients' own difference moves that
+    update by: lr * eps / (|g| + eps)^2 * |g_port - g_jax|. The update is
+    steep where |g| nears eps = 1e-8, so there a difference of gradients at
+    f64 rounding (far inside GRAD_ATOL) moves a parameter by more than
+    1e-10."""
     want = state_dict_from_jax(want_tree)
     if grads_tree is not None:
         grads, p0 = state_dict_from_jax(grads_tree), state_dict_from_jax(start)
-    for k, p in model.named_parameters():
-        diff = (p.detach() - want[k]).abs()
+    params, port_grads = state
+    for k, p in params.items():
+        diff = (p - want[k]).abs()
         limit = torch.full_like(diff, PARAM_ATOL)
         if grads_tree is not None:
             g, eps = grads[k] + _Optim.WD * p0[k], 1e-8
-            limit += FIRST_LR * eps / (g.abs() + eps) ** 2 * (p.grad - grads[k]).abs()
+            limit += FIRST_LR * eps / (g.abs() + eps) ** 2 * (port_grads[k] - grads[k]).abs()
         assert bool((diff <= limit).all()), (k, float((diff - limit).max()))
 
 
@@ -283,11 +333,12 @@ def test_train_step_matches_jax_with_grad_accumulation(jax_run):
     step = _port_step(model, accum=2)
     first, second = jax_run["runs"]
     _assert_metrics(_run(step, 1), first["metrics"])
-    _assert_grads(model, first["grads"], scale=2.0)
-    _assert_params(model, jax_run["params"])
+    _assert_grads(_state(model)[1], first["grads"], scale=2.0)
+    _assert_params(_state(model), jax_run["params"])
     _assert_metrics(_run(step, 2), second["metrics"])
-    _assert_grads(model, jax_run["mean_grads"])
-    _assert_params(model, jax_run["accum_params"], jax_run["params"], jax_run["mean_grads"])
+    _assert_grads(_state(model)[1], jax_run["mean_grads"])
+    _assert_params(_state(model), jax_run["accum_params"], jax_run["params"],
+                   jax_run["mean_grads"])
 
 
 def test_train_step_matches_jax(jax_run):
@@ -297,11 +348,39 @@ def test_train_step_matches_jax(jax_run):
     model = _port_model(jax_run["params"])
     run = jax_run["runs"][0]
     _assert_metrics(_run(_port_step(model, accum=1), 1), run["metrics"])
-    _assert_grads(model, run["grads"])
-    _assert_params(model, run["params"], jax_run["params"], run["grads"])
+    _assert_grads(_state(model)[1], run["grads"])
+    _assert_params(_state(model), run["params"], jax_run["params"], run["grads"])
     assert TS.debug_nan_params(model) == []
     next(model.parameters()).grad[0] = float("nan")
     assert TS.debug_nan_params(model) == [next(iter(dict(model.named_parameters())))]
+
+
+# --- data parallel: two gloo ranks on halves of the batches -------------------
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_two_ranks_on_halves_match_jax_on_the_whole_batch(jax_run, accum):
+    """Data parallel, as the JAX step over its 'dp' mesh: two ranks, each on
+    half of the batches, against JAX's step on the whole batches. The loss
+    terms averaged over the ranks at LOSS_RTOL (loss_pose and loss_shape
+    divide by the global count of selected rows: the second 3D clip's
+    w_smpl selects one frame of T, so per-rank counts would differ; the
+    theta norm takes the global sum), the gradient averaged over the ranks
+    at GRAD_ATOL x the largest, the parameters after the update as
+    ``_assert_params`` holds them; for one update a call and for
+    GRAD_ACCUM_STEPS = 2 (the second call averages the two calls' summed
+    gradients over the ranks and updates). Both ranks end with the same
+    parameters and gradients, bit for bit."""
+    ranks = [results[accum - 1] for results in jax_run["ranks"].results()]
+    got = ranks[0]
+    runs = jax_run["runs"][:accum]
+    assert len(got["metrics"]) == accum
+    for metrics, run in zip(got["metrics"], runs):
+        _assert_metrics(metrics, run["metrics"])
+    grads = runs[0]["grads"] if accum == 1 else jax_run["mean_grads"]
+    params = runs[0]["params"] if accum == 1 else jax_run["accum_params"]
+    _assert_grads(got["grads"], grads)
+    _assert_params((got["params"], got["grads"]), params, jax_run["params"], grads)
+    assert ranks[1]["same_as_rank0"]
 
 
 # --- dropout -----------------------------------------------------------------

@@ -5,9 +5,18 @@ package as numpy arrays, to the port as tensors. This module imports no JAX,
 so the tests that run on the card, where JAX is absent, can use it.
 """
 
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+
+RANKS_SCRIPT = Path(__file__).resolve().parent / "torch_port_ranks.py"
+REPO = RANKS_SCRIPT.parent.parent
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,3 +69,55 @@ def torch_mlp_args(args, dtype):
         return to_torch(a).to(dt)
 
     return (T(x, dtype), T(s), T(b), T(w1.T, dtype), T(b1), T(w2.T, dtype), T(b2))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ranks_env(**extra) -> dict:
+    """The environment of a process of the port's data-parallel tests: the
+    repository importable, torch on one thread."""
+    path = os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")]))
+    return dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1", **extra)
+
+
+class Ranks:
+    """``tests/torch_port_ranks.py steps`` on ``jobs`` in ``world`` gloo
+    processes on a free localhost port, started at construction: the caller
+    goes on (a JAX compile) while they run. :meth:`results` waits for them
+    and returns each rank's results."""
+
+    def __init__(self, jobs, tmp_path, world=2):
+        self.tmp_path, self.world = tmp_path, world
+        torch.save(jobs, tmp_path / "jobs.pt")
+        port = free_port()
+        self.procs, self.logs, self._results = [], [], None
+        for rank in range(world):
+            env = ranks_env(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                            MASTER_ADDR="localhost", MASTER_PORT=str(port))
+            self.logs.append(tmp_path / f"rank{rank}.log")
+            with open(self.logs[-1], "w") as out:  # files, not pipes: a full pipe would stall a rank
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, str(RANKS_SCRIPT), "steps", str(tmp_path / "jobs.pt"),
+                     str(tmp_path)], env=env, stdout=out, stderr=subprocess.STDOUT))
+
+    def results(self, timeout=300):
+        if self._results is None:
+            try:
+                for p in self.procs:
+                    p.wait(timeout=timeout)
+            finally:
+                for p in self.procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for rank, p in enumerate(self.procs):
+                assert p.returncode == 0, f"rank {rank}:\n{self.logs[rank].read_text()[-3000:]}"
+            paths = [self.tmp_path / f"rank{r}.pt" for r in range(self.world)]
+            self._results = [torch.load(path, weights_only=False) for path in paths]
+            for path in paths + [self.tmp_path / "jobs.pt"]:  # hundreds of MB: not kept on disk
+                path.unlink()
+        return self._results
