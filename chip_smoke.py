@@ -82,8 +82,10 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -669,7 +671,246 @@ def phase_serve(device, clips, jreg):
           "see the f32 phase): " + ", ".join(
               f"{k} {err:.3e}" for k, err in worst_err(outs, plains).items()))
     del model
-    return launches, outs, plains
+    return launches, outs, plains, times
+
+
+# phase_export: the artifacts of utils/export.py (file name, batch, weights baked)
+ARTIFACTS = (("maed_b8.pt2", N_CLIPS, True), (f"maed_b8.pt2.b2", 2, True),
+             ("maed_args_b8.pt2", N_CLIPS, False))
+
+
+def equal_answers(label, got, want):
+    """Raise unless the answers ``got`` (tensors or numpy arrays) equal
+    ``want`` bit for bit."""
+    for key in ("theta", "verts", "kp_2d", "kp_3d", "rotmat"):
+        g = torch.as_tensor(got[key]).to(want[key].device)
+        if g.shape != want[key].shape or not torch.equal(g, want[key]):
+            raise AssertionError(f"{label}: {key} differs from the eager answer "
+                                 f"(max abs {max_abs_err(g, want[key]):.3e})")
+
+
+def phase_export(device, workdir: Path, clips, jreg, outs, eager_ms):
+    """The bf16 flagship of phase_serve (the same seed) exported by
+    ``utils.export.export_eval_forward``: baked with uint8 input at batch 8,
+    its batch-2 bucket, and in args mode at batch 8, each one's seconds and
+    MB. Then, the eager model deleted, the batch-8 artifact loaded and run
+    on phase_serve's requests: each answer equals phase_serve's bit for
+    bit, and each request launches what an eager one does; an f32 request
+    is refused; the args-mode artifact with its weights from the .npz gives
+    the first answer bit for bit. Returns the record."""
+    from maed_tpu_torch import kernels
+    from maed_tpu_torch.utils.export import export_eval_forward, load_exported
+
+    model, smpl = build_flagship(device, torch.bfloat16)
+    record = {"card": card_identity()}
+    for name, batch, bake in ARTIFACTS:
+        t0 = time.perf_counter()
+        result = export_eval_forward(model, smpl, batch, SEQLEN, IMG, IMG, J_regressor=jreg,
+                                     bake_params=bake)
+        blob = result if bake else result[0]
+        (workdir / name).write_bytes(blob)
+        if not bake:
+            np.savez(workdir / f"{name}.params.npz", **result[1])
+        key = name.split(".pt2")[0] + ("_b2" if name.endswith(".b2") else "")
+        record[key] = dict(export_s=time.perf_counter() - t0, mb=len(blob) / 2**20)
+        print(f"exported {name} (batch {batch}, {'baked' if bake else 'args mode'}): "
+              f"{record[key]['export_s']:.1f} s, {record[key]['mb']:.1f} MB"
+              + ("" if bake else f" + {(workdir / f'{name}.params.npz').stat().st_size / 2**20:.1f}"
+                                 " MB of .npz"))
+    del model, smpl, result, blob
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fwd = load_exported(workdir / ARTIFACTS[0][0])
+    record["load_s"] = time.perf_counter() - t0
+    fwd(clips[0])  # warmup
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    served, times = [], []
+    for clip in clips:
+        t0 = time.perf_counter()
+        served.append(fwd(clip))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.LAUNCHES)
+    expect_launches(launches, "parallel", REQUESTS)
+    for i, (got, want) in enumerate(zip(served, outs)):
+        equal_answers(f"served request {i}", got, want)
+    print(f"loaded the batch-8 artifact in {record['load_s']:.1f} s; its {REQUESTS} requests equal "
+          f"phase_serve's bit for bit, launches as an eager request's: {launches}")
+    print(f"request ms ({record['card']}), bf16 8x16x224^2 uint8: served "
+          + ", ".join(f"{t:.2f}" for t in times) + "; eager " + ", ".join(f"{t:.2f}" for t in eager_ms))
+    try:
+        fwd(clips[0].float())
+    except ValueError as e:
+        print(f"an f32 request is refused: {e}")
+    else:
+        raise AssertionError("the uint8 artifact took an f32 request")
+    del fwd, served
+
+    args = load_exported(workdir / ARTIFACTS[2][0])
+    with np.load(workdir / f"{ARTIFACTS[2][0]}.params.npz") as npz:
+        params = args.place_params(dict(npz))
+    equal_answers("args-mode artifact", args(params, clips[0]), outs[0])
+    print("the args-mode artifact's answer equals phase_serve's bit for bit")
+    del args, params
+    torch.cuda.empty_cache()
+    record.update(served_ms=times, eager_ms=eager_ms, launches=launches)
+    return record
+
+
+SERVE_CHILD = """
+import atexit, json, runpy, sys
+atexit.register(lambda: print("PORT_MODULES " + json.dumps(sorted(
+    m for m in sys.modules if m.startswith("maed_tpu_torch"))), flush=True))
+sys.argv = ["maed_tpu_torch.serve", *sys.argv[1:]]
+runpy.run_module("maed_tpu_torch.serve", run_name="__main__")
+"""
+
+
+def post_npy(conn, images: np.ndarray):
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, images)
+    t0 = time.perf_counter()
+    conn.request("POST", "/predict", body=buf.getvalue())
+    r = conn.getresponse()
+    body = r.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    if r.status != 200:
+        return r.status, body, ms
+    with np.load(io.BytesIO(body)) as npz:
+        return r.status, dict(npz), ms
+
+
+def phase_http(device, workdir: Path, clips, outs, plains, wants, record):
+    """``python -m maed_tpu_torch.serve`` over the batch-8 artifact and its
+    batch-2 bucket in a child process on a free port: 8 clips and then 3
+    (padded into the batch of 8) give phase_serve's answers bit for bit, 2
+    clips take the bucket, whose answers are held by BF16_RATIO to the f32
+    answers (another batch may round otherwise); an f32 request is a 400.
+    The child loads no module of maed_tpu_torch.models or .core. Then
+    tools/bench_serve.py against it, and a SIGTERM, after which it exits 0."""
+    import http.client
+    import signal
+    import threading
+
+    env = dict(os.environ, PYTHONUNBUFFERED="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    cmd = [sys.executable, "-c", SERVE_CHILD, "--artifact", str(workdir / ARTIFACTS[0][0]),
+           str(workdir / ARTIFACTS[1][0]), "--port", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, ready = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if "ready" in line:
+                ready.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not ready.wait(300):
+            raise AssertionError("the serving child was not ready in 300 s:\n" + "".join(lines)[-3000:])
+        port = int(re.search(r"serving on http://[\d.]+:(\d+)", "".join(lines)).group(1))
+        print(f"serving child ready in {time.perf_counter() - t0:.1f} s on port {port}")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request("GET", "/healthz")
+        spec = json.loads(conn.getresponse().read())
+        if spec.get("buckets") != [2, N_CLIPS] or not spec.get("ready"):
+            raise AssertionError(f"/healthz {spec}")
+        host = [c.cpu().numpy() for c in clips]
+        ms = {}
+        status, got, ms["8 clips"] = post_npy(conn, host[0])
+        equal_answers("HTTP 8 clips", got, outs[0])
+        status, got, ms["3 clips"] = post_npy(conn, host[2][:3])
+        equal_answers("HTTP 3 clips (padded to 8)", got, {k: v[:3] for k, v in outs[2].items()})
+        status, bucket, ms["2 clips"] = post_npy(conn, host[1][:2])
+        bucket = {k: torch.from_numpy(v).to(device) for k, v in bucket.items()}
+        same = all(torch.equal(bucket[k], outs[1][k][:2]) for k in bucket)
+        print(f"HTTP: 8 and 3 clips equal phase_serve's answers bit for bit; the batch-2 bucket "
+              f"{'equals them bit for bit too' if same else 'differs from them'}; request ms "
+              + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+        check_bf16_ratio("batch-2 bucket", [bucket], [{k: v[:2] for k, v in plains[1].items()}],
+                         [{k: v[:2] for k, v in wants[1].items()}])
+        status, body, _ = post_npy(conn, host[0].astype(np.float32))
+        if status != 400 or b"uint8" not in body:
+            raise AssertionError(f"an f32 request: {status} {body[:200]!r}")
+        conn.close()
+        bench = subprocess.run(
+            [sys.executable, "-m", "maed_tpu_torch.tools.bench_serve", "--url",
+             f"http://127.0.0.1:{port}", "--iters", "10", "--warmup", "2"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        if bench.returncode != 0:
+            raise AssertionError("bench_serve failed:\n" + bench.stderr[-3000:])
+        line = json.loads(bench.stdout.strip().splitlines()[-1])
+        print(f"bench_serve ({line['card']}): {line['value']:.2f} clips/s over HTTP, median "
+              f"{line['median_latency_ms']:.1f} ms, p90 {line['p90_latency_ms']:.1f} ms a request "
+              f"of {line['batch']} clips ({line['request_bytes'] / 2**20:.1f} MB)")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(lines)
+    if rc != 0 or "shut down" not in text:
+        raise AssertionError(f"the serving child exited {rc} after SIGTERM:\n{text[-3000:]}")
+    modules = json.loads(text.split("PORT_MODULES ", 1)[1].splitlines()[0])
+    model_code = [m for m in modules if m.startswith(("maed_tpu_torch.models",
+                                                       "maed_tpu_torch.core"))]
+    if model_code:
+        raise AssertionError(f"the serving child loaded model code: {model_code}")
+    print(f"the serving child shut down on SIGTERM; it loaded {len(modules)} modules of the "
+          "port, none of maed_tpu_torch.models or .core")
+    record.update(http_ms=ms, bucket_bit_equal=same, bench=line)
+    print(json.dumps({"serve": record}))
+
+
+def phase_device_crop(device):
+    """DATASET.DEVICE_CROP on the card: 8 clips x 16 frames of the fixture
+    JPEGs (480 x 360), packed by the eval transform (raw frames and each
+    frame's affine for a seeded box), cropped and normalized to 224^2 by
+    ``ops.image.apply_device_preproc`` on the card; against the same
+    function on the CPU (1e-4) and against the host's uint8 crop of the
+    default path (0.05, tests/test_device_preproc.py's bound)."""
+    from maed_tpu_torch import native
+    from maed_tpu_torch.data.transforms import build_eval_transforms
+    from maed_tpu_torch.ops.image import apply_device_preproc, device_normalize
+
+    rng = np.random.RandomState(12)
+    frames = [native.decode(p.read_bytes()) for p in sorted(FIXTURE_DIR.glob("frame_*.jpg"))]
+    pack_tf = build_eval_transforms(IMG, IMG, device_crop=True)
+    host_tf = build_eval_transforms(IMG, IMG, device_normalize=True)
+    packs, crops = [], []
+    for _ in range(N_CLIPS):
+        inst = {"clip": [frames[i] for i in rng.randint(0, len(frames), SEQLEN)],
+                "bbox": rng.uniform([180, 130, 140, 140], [300, 230, 260, 260], (SEQLEN, 4))}
+        packs.append(pack_tf(dict(inst)))
+        crops.append(host_tf(dict(inst))["clip"])
+    raw = torch.from_numpy(np.stack([p["clip"] for p in packs]))
+    trans = torch.from_numpy(np.stack([p["trans"] for p in packs]))
+    pack = {"frames": raw.to(device), "trans": trans.to(device)}
+    got = apply_device_preproc(pack, IMG, IMG)
+    if got.shape != (N_CLIPS, SEQLEN, IMG, IMG, 3) or got.dtype != torch.float32:
+        raise AssertionError(f"device crop: {got.dtype} {tuple(got.shape)}")
+    check_close("device crop, card vs CPU", got.cpu(),
+                apply_device_preproc({"frames": raw, "trans": trans}, IMG, IMG), 1e-4)
+    host = device_normalize(torch.from_numpy(np.stack(crops)))
+    err = max_abs_err(got.cpu(), host)
+    print(f"  device crop vs the host's uint8 crop: max abs err {err:.3e} (bound 0.05)")
+    if not err < 0.05:
+        raise AssertionError(f"device crop: {err:.3e} from the host's uint8 crop")
+    ms = time_ms(lambda: apply_device_preproc(pack, IMG, IMG), 10)
+    print(f"  device crop of {N_CLIPS}x{SEQLEN} frames of {raw.shape[3]}x{raw.shape[2]} "
+          f"({card_identity()}): {ms:.3f} ms; {raw.numel() / 2**20:.1f} MB of raw frames and "
+          f"{trans.numel() * 4 / 2**10:.1f} KB of affines shipped, against "
+          f"{np.stack(crops).nbytes / 2**20:.1f} MB of uint8 crops")
 
 
 def phase_f32(device, clips, jreg, bf16_outs, bf16_plains):
@@ -694,6 +935,7 @@ def phase_f32(device, clips, jreg, bf16_outs, bf16_plains):
         check_close(f"f32 forward {key}, kernels vs plain", got[key], wants[0][key], atol)
 
     check_bf16_ratio("parallel", bf16_outs, bf16_plains, wants)
+    return wants
 
 
 def check_bf16_ratio(label, bf16_outs, bf16_plains, wants):
@@ -1258,8 +1500,6 @@ def phase_ddp(device):
     gradient within TRAIN_GRAD_RTOL, the BatchNorm statistics after the step
     within STAGE1_STATS_RTOL (phase_stage1's bounds). Prints one JSON
     record."""
-    import shutil
-    import tempfile
 
     from maed_tpu_torch.core.builder import build_train_model
 
@@ -1690,8 +1930,6 @@ def phase_trainer(device):
     whose last checkpoint and losses must equal the first run's; the eval
     CLI on model_best.pth.tar against its validation; the decoder against
     cv2's pixels; the 3D loader's rate alone. Prints one JSON record."""
-    import shutil
-    import tempfile
 
     card = card_identity()
     torch.cuda.empty_cache()
@@ -2088,8 +2326,6 @@ def phase_stage1(device):
     configs/config_stage1.yaml, resumed after SIGTERM bit for bit, and the
     eval CLI; the published-backbone import. Prints one JSON record and
     returns A's launches in the steps and in one eval forward."""
-    import shutil
-    import tempfile
 
     from maed_tpu_torch.ops import skinning
 
@@ -2154,9 +2390,16 @@ def main() -> int:
 
     record = timed(phase_kernels, device)
     clips, jreg = make_requests(device)
-    launches, outs, plains = timed(phase_serve, device, clips, jreg)
-    timed(phase_f32, device, clips, jreg, outs, plains)
-    del outs, plains
+    launches, outs, plains, eager_ms = timed(phase_serve, device, clips, jreg)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        served = timed(phase_export, device, workdir, clips, jreg, outs, eager_ms)
+        wants = timed(phase_f32, device, clips, jreg, outs, plains)
+        timed(phase_http, device, workdir, clips, outs, plains, wants, served)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del outs, plains, wants
+    timed(phase_device_crop, device)
     eval_launches = timed(phase_eval, device)
     timed(phase_modes, device, clips[0], jreg)
     train_launches = timed(phase_train, device)
@@ -2172,49 +2415,59 @@ def main() -> int:
              replaces=jax_ops + "smpl_pallas.py:30",
              launches=launches["skinning"],
              launches_train=train_launches["skinning"],
+             launches_served=served["launches"]["skinning"],
              launches_stage1_steps=stage1_step["skinning"],
              launches_stage1_eval=stage1_eval["skinning"], **record["skinning"]),
         dict(name="fast_layernorm", route="triton", source=src + "ops/layernorm.py",
              replaces=jax_ops + "layernorm.py:60",
              launches=launches["layernorm"],
-             launches_train=train_launches["layernorm"], **record["layernorm"]),
+             launches_train=train_launches["layernorm"],
+             launches_served=served["launches"]["layernorm"], **record["layernorm"]),
         dict(name="fused_ln_mlp", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:99",
              launches=launches["ln_mlp_fc1"], launches_fc2=launches["ln_mlp_fc2"],
-             launches_train=train_launches["ln_mlp_fc1"], **record["ln_mlp"]),
+             launches_train=train_launches["ln_mlp_fc1"],
+             launches_served=served["launches"]["ln_mlp_fc1"], **record["ln_mlp"]),
         dict(name="fused_ln_dense", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:157",
              launches=launches["ln_dense"],
-             launches_train=train_launches["ln_dense"], **record["ln_dense"]),
+             launches_train=train_launches["ln_dense"],
+             launches_served=served["launches"]["ln_dense"], **record["ln_dense"]),
         # the bf16 pre-pass of C and D: LN(x) rounded, once a row
         dict(name="ln_rows", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=f"{jax_ops}mlp.py:99, {jax_ops}mlp.py:157",
              launches=launches["ln_rows"],
-             launches_train=train_launches["ln_rows"], **record["ln_rows"]),
+             launches_train=train_launches["ln_rows"],
+             launches_served=served["launches"]["ln_rows"], **record["ln_rows"]),
         # the tail's four bf16 launches: the means, the gate, the blend, the proj GEMM
         dict(name="fused_gate_proj", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:272",
              launches=launches["gate_proj"], launches_means=launches["gate_means"],
              launches_alpha=launches["gate_alpha"], launches_blend=launches["gate_blend"],
-             launches_train=train_launches["gate_proj"], **record["gate_proj"]),
+             launches_train=train_launches["gate_proj"],
+             launches_served=served["launches"]["gate_proj"], **record["gate_proj"]),
         # the cluster kernel in bf16; the strided one takes f32 and larger frames
         dict(name="fused_groupnorm", route="cuda", source=src + "csrc/groupnorm.cu",
              replaces=jax_ops + "groupnorm.py:83",
              launches=launches["groupnorm"], launches_strided=launches["groupnorm_strided"],
-             launches_train=train_launches["groupnorm"], **record["groupnorm"]),
+             launches_train=train_launches["groupnorm"],
+             launches_served=served["launches"]["groupnorm"], **record["groupnorm"]),
         dict(name="spatial_attention", route="cuda", source=src + "csrc/st_attention.cu",
              replaces=f"{jax_ops}attention.py:47, {jax_ops}st_attention.py:96",
              launches=launches["spatial_attention"],
-             launches_train=train_launches["spatial_attention"], **record["spatial"]),
+             launches_train=train_launches["spatial_attention"],
+             launches_served=served["launches"]["spatial_attention"], **record["spatial"]),
         dict(name="temporal_attention", route="cuda", source=src + "csrc/st_attention.cu",
              replaces=f"{jax_ops}st_attention.py:132, {jax_ops}st_attention.py:229",
              launches=launches["temporal_attention"],
-             launches_train=train_launches["temporal_attention"], **record["temporal"]),
+             launches_train=train_launches["temporal_attention"],
+             launches_served=served["launches"]["temporal_attention"], **record["temporal"]),
         # the one kernel whose launches are those of the eval protocol's run
         dict(name="fused_attention_blocked", route="cuda", source=src + "csrc/st_attention.cu",
              replaces=jax_ops + "attention.py:74",
              launches=eval_launches["attention_blocked"],
-             launches_train=train_launches["attention_blocked"], **record["attention_blocked"]),
+             launches_train=train_launches["attention_blocked"],
+             launches_served=served["launches"]["attention_blocked"], **record["attention_blocked"]),
     ]
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,11 @@ device-sized chunks. Joint selection, masking, merging and interpolation are
 host numpy after the fetch.
 
 The forward sees a fixed (batch, seqlen) shape: a ragged last batch is
-zero-padded to ``batch_size`` and the padding dropped after. A sub-clip goes
+zero-padded to ``batch_size`` and the padding dropped after. With
+DATASET.DEVICE_CROP a window batch carries raw frames and their crop
+affines (``trans``); both are strided and padded alike, and the forward is
+handed the pack {'frames', 'trans'} on the device, which it crops there
+(``ops.image.apply_device_preproc``). A sub-clip goes
 to the card through pinned memory without blocking the host, and all forwards
 of a window batch are started before any result is fetched, so the host's
 slicing and the fetches overlap the card's work.
@@ -103,17 +107,19 @@ class Evaluator:
 
     ``forward`` is a callable ``(images, J_regressor) -> dict`` with the
     outputs of ``models.maed.MAED.forward``: the model bound to its SMPL
-    body, e.g. ``lambda x, jreg: model(x, smpl, J_regressor=jreg)``. It and
-    the metrics run on the device that holds ``smpl_model``.
+    body, e.g. ``lambda x, jreg: model(x, smpl, J_regressor=jreg)``; for
+    DEVICE_CROP data ``images`` is a {'frames', 'trans'} pack, which the
+    forward resolves with ``ops.image.apply_device_preproc``. It and the
+    metrics run on the device that holds ``smpl_model``.
     """
 
     def __init__(self, smpl_model: SMPLModel):
         self.smpl_model = smpl_model
         self.device = smpl_model.v_template.device
         self.accumulators = defaultdict(list)
-        self._pinned: Dict[int, torch.Tensor] = {}  # sub-clip slot -> its pinned buffer
+        self._pinned: Dict[tuple, torch.Tensor] = {}  # (sub-clip slot, leaf) -> pinned buffer
 
-    def _to_device(self, clip: np.ndarray, slot: int) -> torch.Tensor:
+    def _to_device(self, clip: np.ndarray, slot: tuple) -> torch.Tensor:
         """The strided sub-clip ``slot`` of a window batch on the device. On a
         card it is sliced straight into that slot's pinned buffer and uploaded
         without blocking the host. The buffer is written again only in the
@@ -164,20 +170,20 @@ class Evaluator:
         start = time.time()
         n_batches = 0
         for target in dataloader:
+            # (N, P, H, W, 3) cropped clips, or with DEVICE_CROP the raw frames
+            # and their (N, P, 2, 3) affines: both leaves share the (N, P)
+            # leading axes and are strided and padded alike
+            leaves = {"frames": np.asarray(target["images"])}
             if "trans" in target:
-                raise NotImplementedError(
-                    "a {'frames', 'trans'} pack of raw frames and crop affines needs "
-                    "batch_crop_normalize, which is not ported yet: see ROADMAP.md")
-            images = np.asarray(target["images"])  # (N, P, H, W, 3) cropped clips
-            N = images.shape[0]
-            pad_n = 0
+                leaves["trans"] = np.asarray(target["trans"])
+            N = leaves["frames"].shape[0]
             if batch_size is not None and N < batch_size:
-                pad_n = batch_size - N
-                images = np.concatenate(
-                    [images, np.zeros((pad_n,) + images.shape[1:], images.dtype)], axis=0)
+                leaves = {k: np.concatenate([a, np.zeros((batch_size - N,) + a.shape[1:],
+                                                         a.dtype)], axis=0)
+                          for k, a in leaves.items()}
 
-            orig_len = images.shape[1]
-            interp_len = images[:, ::interp].shape[1]
+            orig_len = leaves["frames"].shape[1]
+            interp_len = leaves["frames"][:, ::interp].shape[1]
             sample_freq = interp_len // seqlen
 
             # joints with nonzero conf in the first target frame define the
@@ -196,10 +202,12 @@ class Evaluator:
             # launches return before the card is done, so the (large: verts
             # alone is ~21 MB per flagship sub-clip) fetches and the host-side
             # merge below overlap the remaining sub-clips' device work
-            pending = [
-                forward(self._to_device(images[:, ::interp][:, i::sample_freq], i), jreg_dev)
-                for i in range(sample_freq)
-            ]
+            def sub_clip(i):
+                on_device = {k: self._to_device(a[:, ::interp][:, i::sample_freq], (i, k))
+                             for k, a in leaves.items()}
+                return on_device if "trans" in on_device else on_device["frames"]
+
+            pending = [forward(sub_clip(i), jreg_dev) for i in range(sample_freq)]
             per_clip = defaultdict(list)
             for dev_preds in pending:
                 preds = {k: v[:N].cpu().numpy() for k, v in dev_preds.items()}

@@ -187,6 +187,10 @@ class VideoDataset:
         # uint8 clips ride to the device as-is (DEVICE_PREPROC: the model
         # normalizes on the device and the host ships 1/4 the bytes)
         target["images"] = clip if clip.dtype == np.uint8 else clip.astype(np.float32)
+        if "trans" in out:
+            # DEVICE_CROP pack: raw frames and their affines; the crop runs on
+            # the device (the forward calls ops.image.apply_device_preproc)
+            target["trans"] = np.asarray(out["trans"], np.float32)
         target["kp_2d"] = np.asarray(out["kp_2d"], np.float32)
         target["kp_3d"] = np.asarray(out["kp_3d"], np.float32)
         target["theta"] = np.concatenate(

@@ -35,6 +35,13 @@ class ConcatDataset:
 def collate(samples):
     """Stack a list of sample dicts into a batch dict (numpy)."""
     out = {}
+    if "trans" in samples[0]:
+        # DEVICE_CROP: the samples' raw frames stack into one device array
+        sizes = {s["images"].shape[-3:] for s in samples}
+        if len(sizes) != 1:
+            raise ValueError(f"DEVICE_CROP needs uniform source frame sizes within a batch, "
+                             f"got {sorted(sizes)}; use DEVICE_PREPROC (host uint8 crop) for "
+                             "mixed-size sources")
     for k in samples[0]:
         vals = [s[k] for s in samples]
         if isinstance(vals[0], (str, bytes)) or (

@@ -8,7 +8,8 @@ package's fused path), :func:`gen_crop_trans` solves its 3-point affine in
 numpy with the elimination cv2.getAffineTransform runs (the same bits), and
 :class:`FusedCropNormalize` takes JPEG bytes straight to the native decode +
 crop. The photometric ops, the erase, the flip and :class:`StackNormalize`
-are numpy copies. ``DeviceCropPack`` (DATASET.DEVICE_CROP) is not ported.
+are numpy copies. :class:`DeviceCropPack` (DATASET.DEVICE_CROP) leaves the
+crop to the device (``ops.image.apply_device_preproc``).
 
 Everything operates on dicts of numpy arrays: {'clip': [HWC uint8 frames],
 'kp_2d': (T, 49, 3), 'kp_3d': (T, 49, 4), 'pose': (T, 72), ...}. One
@@ -475,6 +476,49 @@ class FusedCropNormalize:
         return out
 
 
+class DeviceCropPack:
+    """DATASET.DEVICE_CROP: the raw uint8 frames and each frame's eval affine
+    instead of the crop: the crop and the normalize then run on the device
+    (``ops.image.apply_device_preproc`` -> ``batch_crop_normalize``, the
+    separable warp).
+
+    The host's work a frame drops to the decode and 6 floats of affine; the
+    keypoints still move on the host (they are targets, not device inputs).
+    A batch needs one source frame size (a device array is rectangular):
+    true of single-video footage and fixed-camera datasets; a dataset of
+    mixed resolutions takes the host uint8 crop (DEVICE_PREPROC, the
+    default) instead, which ``data.loaders.collate`` says when it meets one.
+    """
+
+    def __init__(self, height=224, width=224):
+        self.h, self.w = height, width
+
+    def __call__(self, inst, rng: np.random.RandomState):
+        if "bbox" not in inst:
+            raise ValueError("DEVICE_CROP needs per-frame bboxes")
+        clip = inst["clip"]
+        if clip and isinstance(clip[0], (bytes, bytearray)):
+            clip = [native.decode(b) for b in clip]
+        shapes = {f.shape for f in clip}
+        if len(shapes) != 1:
+            raise ValueError(f"DEVICE_CROP needs uniform source frame sizes, got {shapes}; "
+                             "use DEVICE_PREPROC (host uint8 crop) for mixed-size sources")
+        trans = np.stack([
+            gen_crop_trans(bbox, (1.3, 1.3), 0.0, (0.0, 0.0), self.w, self.h)
+            for bbox in inst["bbox"]
+        ]).astype(np.float32)
+        out = dict(inst)
+        out["clip"] = np.stack(clip, axis=0)  # (T, Hs, Ws, 3) raw uint8
+        out["trans"] = trans
+        if "kp_2d" in inst:
+            kps = np.stack([
+                apply_trans_points(kp, m) for kp, m in zip(inst["kp_2d"], trans)
+            ])
+            kps[..., :2] = 2.0 * kps[..., :2] / self.w - 1.0
+            out["kp_2d"] = kps.astype(np.float32)
+        return out
+
+
 class Compose:
     def __init__(self, transforms):
         self.transforms = transforms
@@ -525,9 +569,7 @@ def build_eval_transforms(width=224, height=224, fused: bool = True,
                           device_normalize: bool = False,
                           device_crop: bool = False) -> Compose:
     if device_crop:
-        raise NotImplementedError(
-            "DATASET.DEVICE_CROP (raw frames + crop affines, the crop on the device) is not "
-            "ported yet: see ROADMAP.md, queue 1, item 6")
+        return Compose([DeviceCropPack(height, width)])
     if fused:
         return Compose([FusedCropNormalize(height, width,
                                            device_normalize=device_normalize)])

@@ -33,6 +33,7 @@ def main(argv=None):
     from maed_tpu_torch.data.dataset import VideoDataset
     from maed_tpu_torch.data.loaders import ShardedLoader
     from maed_tpu_torch.data.transforms import build_eval_transforms
+    from maed_tpu_torch.ops.image import apply_device_preproc
 
     args, cfg, _ = parse_args(argv)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
@@ -59,6 +60,9 @@ def main(argv=None):
     loader = ShardedLoader(dataset, cfg.EVAL.BATCH_SIZE, shuffle=False, drop_last=False)
 
     def forward(images, J_regressor=None):
+        # uint8 crops normalize in the model, f32 crops pass through, and a
+        # DEVICE_CROP pack of raw frames and affines is cropped here, on the device
+        images = apply_device_preproc(images, d.HEIGHT, d.WIDTH)
         return model(images, smpl, J_regressor=J_regressor)
 
     return Evaluator(smpl).run(

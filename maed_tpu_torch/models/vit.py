@@ -112,8 +112,8 @@ class StAttention(nn.Module):
       a norm), then temporal attention.
 
     ``forward`` returns x + proj(attention(norm(x))). ``last_gate`` holds the
-    parallel mode's gate weights (BT, 1, C, 2) of the latest call, detached,
-    for ``core.evaluate.Evaluator.count_attn``.
+    parallel mode's gate weights (BT, 1, C, 2) of the latest eager call,
+    detached, for ``core.evaluate.Evaluator.count_attn``.
     """
 
     def __init__(self, dim: int, num_heads: int, st_mode: str = "parallel",
@@ -171,7 +171,8 @@ class StAttention(nn.Module):
         """Attention over the T*N tokens of each clip: q, k, v are (B, h,
         T*N, d) views of the projection and the kernel writes a view of the
         (BT, N, h*d) result, so nothing is transposed on either side (under
-        grad the kernel returns its own tensor, which is transposed)."""
+        grad, and in an export, whose graph holds no write into a view, the
+        kernel returns its own tensor, which is transposed)."""
         BT, N, _, h, d = qkv.shape
         B = BT // seqlen
         q, k, v = (a.transpose(1, 2) for a in qkv.view(B, seqlen * N, 3, h, d).unbind(2))
@@ -180,7 +181,7 @@ class StAttention(nn.Module):
         elif plain:
             reference = attention_blocked_reference if seqlen * N > MAX_TOKENS else _xla_attention
             y = reference(q, k, v, d ** -0.5)
-        elif torch.is_grad_enabled() and qkv.requires_grad:
+        elif torch.is_grad_enabled() and qkv.requires_grad or torch.compiler.is_exporting():
             y = fused_attention(q, k, v, d ** -0.5)
         else:
             y = torch.empty((BT, N, h * d), dtype=qkv.dtype, device=qkv.device)
@@ -194,8 +195,13 @@ class StAttention(nn.Module):
         BT, _, C = y_s.shape
         alpha = torch.cat([y_s.mean(dim=1, keepdim=True), y_t.mean(dim=1, keepdim=True)], dim=-1)
         alpha = torch.softmax(dense(alpha, self.ts_attn, self.dtype).reshape(BT, 1, C, 2), dim=-1)
-        self.last_gate = alpha.detach()
+        self._keep_gate(alpha)
         return y_t * alpha[..., 1] + y_s * alpha[..., 0]
+
+    def _keep_gate(self, alpha):
+        """``last_gate`` of an eager call; an exported program keeps no state."""
+        if not torch.compiler.is_exporting():
+            self.last_gate = alpha.detach()
 
     def forward(self, x: torch.Tensor, seqlen: int, norm: FastLayerNorm, plain: bool = False,
                 train: bool = False, generator: torch.Generator | None = None,
@@ -219,7 +225,7 @@ class StAttention(nn.Module):
                 out, alpha = (gate_proj_reference if plain else fused_gate_proj)(
                     y_s, y_t, x, self.ts_attn.weight.to(dt), self.ts_attn.bias,
                     self.proj.weight.to(dt), self.proj.bias)
-                self.last_gate = alpha.detach()
+                self._keep_gate(alpha)
                 return out
         elif mode in ("vanilla", "spatial"):
             y = self._spatial(self._qkv(x, norm, plain), plain, drop)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from maed_tpu_torch.ops import library
 from maed_tpu_torch.ops.recompute import differentiable, needs_grad
 from maed_tpu_torch.ops.st_attention import MAX_TOKENS, _attend, launch_bhsd
 
@@ -94,9 +95,16 @@ def _oneshot(q, k, v, scale):
     return _launch("fused_attention", q, k, v, scale)
 
 
+library.define("attention_blocked(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
+               _blocked, attention_blocked_reference)
+library.define("attention(Tensor q, Tensor k, Tensor v, float scale) -> Tensor", _oneshot,
+               _xla_attention)
+
+
 def _call(name, kernel, reference, q, k, v, scale, out):
     """kernel(q, k, v, scale) with its gradient; with ``out``, which
-    autograd cannot track, the kernel or the plain version writes there."""
+    autograd cannot track, the kernel or the plain version writes there (an
+    eager call: an export traces the form that returns its own tensor)."""
     if out is None:
         return differentiable(kernel, reference, q, k, v, scale)
     if needs_grad(q, k, v):

@@ -29,6 +29,7 @@ import math
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.ops import library
 from maed_tpu_torch.ops.recompute import differentiable
 
 
@@ -195,3 +196,7 @@ def _groupnorm_kernel(x, scale, bias, num_groups, eps, relu, residual):
             torch.cuda.current_stream().cuda_stream), "maed_groupnorm")
     kernels.LAUNCHES["groupnorm_strided"] += 1
     return out
+
+
+library.define("groupnorm(Tensor x, Tensor scale, Tensor bias, int num_groups, float eps, "
+               "bool relu, Tensor? residual) -> Tensor", _groupnorm_kernel, groupnorm_reference)

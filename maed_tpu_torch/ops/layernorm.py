@@ -24,6 +24,7 @@ import os
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.ops import library
 from maed_tpu_torch.ops.recompute import differentiable
 
 
@@ -92,3 +93,7 @@ def _layernorm_kernel(x, scale, bias, eps):
                                BLOCK_C=triton.next_power_of_2(C), num_warps=4)
     kernels.LAUNCHES["layernorm"] += 1
     return out.reshape(x.shape)
+
+
+library.define("layernorm(Tensor x, Tensor scale, Tensor bias, float eps) -> Tensor",
+               _layernorm_kernel, layernorm_reference)

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.ops import library
 from maed_tpu_torch.ops.recompute import differentiable
 
 
@@ -409,3 +410,12 @@ def _gate_proj_kernel(y_s, y_t, x_res, w_ts, b_ts, w_p, b_p):
             ("gate_means", "gate_alpha", "gate_proj"):
         kernels.LAUNCHES[name] += 1
     return out, alpha
+
+
+library.define("ln_mlp(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w1, Tensor b1, "
+               "Tensor w2, Tensor b2, float eps) -> Tensor", _ln_mlp_kernel, ln_mlp_reference)
+library.define("ln_dense(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w, Tensor b, "
+               "float eps) -> Tensor", _ln_dense_kernel, ln_dense_reference)
+library.define("gate_proj(Tensor y_s, Tensor y_t, Tensor x_res, Tensor w_ts, Tensor b_ts, "
+               "Tensor w_p, Tensor b_p) -> (Tensor, Tensor)", _gate_proj_kernel,
+               gate_proj_reference)

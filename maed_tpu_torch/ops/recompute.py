@@ -12,12 +12,18 @@ runs the plain version on those inputs under ``torch.enable_grad()`` and
 returns ``torch.autograd.grad`` of it, so the backward launches no kernel.
 With no grad (eval, ``torch.inference_mode``, ``torch.no_grad``) or no input
 that requires one, :func:`differentiable` calls the forward directly, as the
-wrappers did before they had a backward.
+wrappers did before they had a backward. While ``torch.export`` traces, it
+calls the kernel's registered operator instead (``ops.library``), which the
+exported program keeps as one node; the eager calls skip the operator's
+dispatch, which would add several ms of host time to a request of the
+flagship (PERF.md).
 """
 
 from __future__ import annotations
 
 import torch
+
+from maed_tpu_torch.ops import library
 
 
 def needs_grad(*args) -> bool:
@@ -61,7 +67,10 @@ def differentiable(kernel, plain, *args, n_diff: int = 1):
     """``kernel(*args)`` with a gradient: autograd through ``plain(*args)``
     in the backward. The forward is ``plain`` itself where the first
     argument lies on the CPU. Only tensors among ``args`` get gradients;
-    ``n_diff`` counts the differentiable outputs of a tuple result."""
+    ``n_diff`` counts the differentiable outputs of a tuple result. In an
+    export, the kernel's registered operator."""
+    if torch.compiler.is_exporting():
+        return library.operator(kernel)(*args)
     forward = plain if args[0].device.type == "cpu" else kernel
     if needs_grad(*args):
         return _Recompute.apply(forward, plain, n_diff, *args)

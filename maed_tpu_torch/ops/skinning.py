@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.ops import library
 from maed_tpu_torch.ops.recompute import differentiable
 
 NUM_JOINTS = 24
@@ -61,3 +62,7 @@ def _skinning_kernel(v_posed, lbs_weights, A):
             out.data_ptr(), B, V, stream), "maed_skinning_f32")
     kernels.LAUNCHES["skinning"] += 1
     return out
+
+
+library.define("skinning(Tensor v_posed, Tensor lbs_weights, Tensor A) -> Tensor",
+               _skinning_kernel, skinning_reference)

@@ -30,6 +30,7 @@ import functools
 import torch
 
 from maed_tpu_torch import kernels
+from maed_tpu_torch.ops import library
 from maed_tpu_torch.ops.recompute import differentiable
 
 MAX_HEAD_DIM = 128   # the kernels keep 4 output columns per lane
@@ -168,6 +169,10 @@ def _spatial(name, qkv, scale, btc: bool):
 
 _spatial_heads = functools.partial(_spatial, "spatial_attention", btc=False)
 _spatial_btc = functools.partial(_spatial, "spatial_attention_btc", btc=True)
+library.define("spatial_attention(Tensor qkv, float scale) -> Tensor", _spatial_heads,
+               spatial_reference)
+library.define("spatial_attention_btc(Tensor qkv, float scale) -> Tensor", _spatial_btc,
+               spatial_reference_btc)
 
 
 def spatial_attention(qkv, scale):
@@ -207,6 +212,10 @@ def _temporal(name, qkv, seqlen, scale, btc: bool):
 
 _temporal_heads = functools.partial(_temporal, "temporal_attention", btc=False)
 _temporal_btc = functools.partial(_temporal, "temporal_attention_fused", btc=True)
+library.define("temporal_attention(Tensor qkv, int seqlen, float scale) -> Tensor",
+               _temporal_heads, temporal_reference)
+library.define("temporal_attention_btc(Tensor qkv, int seqlen, float scale) -> Tensor",
+               _temporal_btc, temporal_reference_btc)
 
 
 def temporal_attention(qkv, seqlen, scale):

@@ -48,6 +48,7 @@ def main(argv=None):
     from maed_tpu_torch.core.loss import LossWeights
     from maed_tpu_torch.core.trainer import Trainer
     from maed_tpu_torch.data.loaders import get_data_loaders
+    from maed_tpu_torch.ops.image import apply_device_preproc
     from maed_tpu_torch.parallel import dist
     from maed_tpu_torch.parallel.train_step import make_optimizer, make_train_step
     from maed_tpu_torch.utils.checkpoint import load_pretrained_state
@@ -105,6 +106,8 @@ def main(argv=None):
     train_step = make_train_step(model, optimizer, smpl, weights, generator)
 
     def eval_forward(images, J_regressor=None):
+        # a DEVICE_CROP pack (raw frames and affines) is cropped on the device
+        images = apply_device_preproc(images, cfg.DATASET.HEIGHT, cfg.DATASET.WIDTH)
         return model(images, smpl, J_regressor=J_regressor)
 
     trainer = Trainer(

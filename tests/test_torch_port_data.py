@@ -276,9 +276,43 @@ def test_fused_crop_normalize_bit_equal_jax(dbs, as_bytes, device_normalize):
     assert np.array_equal(got["clip"], want["clip"])
 
 
-def test_device_crop_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.build_eval_transforms(32, 32, device_crop=True)
+def test_device_crop_pack_schema_matches_jax(dbs):
+    """DATASET.DEVICE_CROP: an eval item of the dataset carries the raw uint8
+    source frames and their crop affines (``trans``), equal to JAX's (the
+    frames bit for bit, the rest at 1e-6); its keypoints are those of the
+    host-cropped item, whose crop took the same affines; a loader batch
+    stacks the pack."""
+    kw = dict(seqlen=4, sample_pool=4, overlap=0, random_sample=False, random_start=False,
+              db=dbs["video"], verbose=False)
+    got_ds = TD.VideoDataset("3dpw", "test", TT.build_eval_transforms(32, 32, device_crop=True),
+                             **kw)
+    want_ds = JD.VideoDataset("3dpw", "test", JT.build_eval_transforms(32, 32, device_crop=True),
+                              **kw)
+    cropped = TD.VideoDataset("3dpw", "test", TT.build_eval_transforms(32, 32), **kw)
+    for index in range(0, len(want_ds), 2):
+        got = got_ds.__getitem__(index, rng=np.random.RandomState(index))
+        want = want_ds.__getitem__(index, rng=np.random.RandomState(index))
+        assert got["images"].shape == (4, 48, 48, 3) and got["trans"].shape == (4, 2, 3)
+        assert_items(got, want)
+        host = cropped.__getitem__(index, rng=np.random.RandomState(index))
+        assert host["images"].shape == (4, 32, 32, 3)
+        np.testing.assert_allclose(got["kp_2d"], host["kp_2d"], atol=1e-5)
+    batch = next(iter(TL.ShardedLoader(got_ds, 2, shuffle=False, drop_last=False)))
+    assert batch["images"].shape == (2, 4, 48, 48, 3) and batch["trans"].shape == (2, 4, 2, 3)
+
+
+def test_collate_names_device_crop_for_mixed_frame_sizes():
+    """A DEVICE_CROP batch whose samples come from sources of two sizes
+    cannot stack into one device array: the collate says so, and which mode
+    takes such data, instead of numpy's ragged-shape error."""
+    sample = {"images": np.zeros((4, 48, 64, 3), np.uint8), "trans": np.zeros((4, 2, 3))}
+    other = dict(sample, images=np.zeros((4, 40, 64, 3), np.uint8))
+    assert TL.collate([sample, dict(sample)])["images"].shape == (2, 4, 48, 64, 3)
+    with pytest.raises(ValueError, match="DEVICE_CROP needs uniform source frame sizes.*"
+                                         "DEVICE_PREPROC"):
+        TL.collate([sample, other])
+    # cropped clips (no affines) are stacked as before
+    assert TL.collate([{"images": np.zeros((2, 3))}] * 2)["images"].shape == (2, 2, 3)
 
 
 # --------------------------------------------------------------------------- #

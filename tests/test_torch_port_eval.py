@@ -27,12 +27,14 @@ from maed_tpu.core import config as j_config
 from maed_tpu.core import evaluate as JE
 from maed_tpu.models import MAED as JMAED
 from maed_tpu.ops import metrics as JM
+from maed_tpu.ops.image import apply_device_preproc as j_apply_device_preproc
 from maed_tpu.ops import smpl as JS
 from maed_tpu.ops.procrustes import batch_similarity_transform as j_similarity
 from maed_tpu.utils.smpl_io import synthetic_smpl_model as j_synthetic_smpl
 from maed_tpu_torch.core import evaluate as TE
 from maed_tpu_torch.models.maed import MAED
 from maed_tpu_torch.ops import metrics as TM
+from maed_tpu_torch.ops.image import apply_device_preproc, device_normalize
 from maed_tpu_torch.ops.joints import H36M_TO_J14, J49_TO_J14
 from maed_tpu_torch.ops.procrustes import batch_similarity_transform as t_similarity
 from maed_tpu_torch.utils.smpl_io import synthetic_smpl_model as t_synthetic_smpl
@@ -169,10 +171,12 @@ class Windows:
     batch), uint8 frames that carry a running frame index in pixel (0, 0, 0);
     some frames are off in ``valid``; GT theta random, GT joints from the JAX
     SMPL on that theta: ``joints`` of them ('49', 'j14' through ``jreg`` and
-    the protocol's selection, or 'native14' from the 49), confidence 1."""
+    the protocol's selection, or 'native14' from the 49), confidence 1.
+    With ``raw``, DATASET.DEVICE_CROP's windows instead: uint8 source frames
+    of raw x raw and each frame's eval affine to IMG x IMG (``trans``)."""
 
-    def __init__(self, joints, jreg=None, seed=6):
-        self.joints, self.jreg, self.seed = joints, jreg, seed
+    def __init__(self, joints, jreg=None, seed=6, raw=None):
+        self.joints, self.jreg, self.seed, self.raw = joints, jreg, seed, raw
 
     def __iter__(self):
         rng = np.random.RandomState(self.seed)
@@ -196,10 +200,33 @@ class Windows:
             valid = np.ones((n, POOL), bool)
             valid[0, :2] = False
             valid[-1, -3:] = False
-            yield {"images": images, "kp_3d": kp3d, "kp_2d": kp3d[..., :3].copy(), "theta": theta,
-                   "valid": valid, "instance_id": first + np.arange(n * POOL).reshape(n, POOL),
-                   "bbox": rng.rand(n, POOL, 4).astype(np.float32)}
+            batch = {"images": images, "kp_3d": kp3d, "kp_2d": kp3d[..., :3].copy(),
+                     "theta": theta, "valid": valid,
+                     "instance_id": first + np.arange(n * POOL).reshape(n, POOL),
+                     "bbox": rng.rand(n, POOL, 4).astype(np.float32)}
+            if self.raw:
+                batch["images"] = rng.randint(0, 256, (n, POOL, self.raw, self.raw, 3)
+                                              ).astype(np.uint8)
+                batch["trans"] = exact_crops(rng, (n, POOL), self.raw)
+            yield batch
             first += n * POOL
+
+
+def exact_crops(rng, lead, raw):
+    """Axis-aligned crop affines to IMG x IMG whose warp every side computes
+    exactly: scale 0.5, 1 or 2 and a source offset of whole pixels, so every
+    bilinear tap weight is 0, 0.5 or 1 and every sum of taps is exact. Then
+    the two packages' forwards see the same crops, and the protocol is held
+    as tightly as on cropped clips (the warps' own f32 rounding, which the
+    random-weight model would amplify, is held in
+    tests/test_torch_port_image.py)."""
+    scale = rng.choice([0.5, 1.0, 2.0], lead)
+    span = raw - IMG / scale  # room for the source window
+    offset = np.floor(rng.rand(2, *lead) * (span + 1))
+    trans = np.zeros(lead + (2, 3), np.float32)
+    trans[..., 0, 0] = trans[..., 1, 1] = scale
+    trans[..., 0, 2], trans[..., 1, 2] = -offset * scale
+    return trans
 
 
 def echo(images, xp):
@@ -290,23 +317,43 @@ def regressor17(seed=7):
     return (jreg / jreg.sum(axis=1, keepdims=True)).astype(np.float32)
 
 
-@pytest.mark.parametrize("case, interp", [("j14", 1), ("j14", 2), ("native14", 1), ("49", 1)])
+@pytest.mark.parametrize("case, interp", [("j14", 1), ("j14", 2), ("native14", 1), ("49", 1),
+                                         ("j14_device_crop", 1)])
 def test_evaluator_run_matches_jax(tiny_models, j_evaluator, tmp_path, monkeypatch, capsys,
                                    case, interp):
     """``Evaluator.run`` on both sides over the same windows (ragged last
     batch, a valid mask): '3dpw' with an h36m-style (17, V) regressor and the
     J14 selection, at interp 1 and 2; '3dpw' without its regressor file
     (``allow_missing_regressor``) and a 14-joint GT, which takes the native
-    bank's J49_TO_J14; a dataset without a protocol and the 49-joint GT."""
+    bank's J49_TO_J14; a dataset without a protocol and the 49-joint GT.
+    'j14_device_crop': the 'j14' protocol over DEVICE_CROP windows (72 x 72
+    raw frames and their affines, :func:`exact_crops`), each side's forward
+    cropping on its device as the CLIs do (JAX's at the highest matmul
+    precision)."""
     ((j_apply, variables), _), (t_forward, t_smpl) = tiny_models
     monkeypatch.setattr(j_config, "DATA_DIR", str(tmp_path))  # no regressor file there
+    crop = case == "j14_device_crop"
+    case = "j14" if crop else case
     jreg = regressor17() if case == "j14" else None
     kw = dict(seqlen=2, interp=interp, batch_size=2, verbose=False, J_regressor=jreg,
               dataset_name="testset" if case == "49" else "3dpw",
               allow_missing_regressor=case == "native14")
+    if crop:
+        def j_forward(variables, pack, jreg):
+            with jax.default_matmul_precision("highest"):
+                images = j_apply_device_preproc(pack, IMG, IMG)
+            return j_apply(variables, images, jreg)
+
+        def forward(pack, jreg):
+            return t_forward(apply_device_preproc(pack, IMG, IMG), jreg)
+    else:
+        j_forward, forward = j_apply, t_forward
     j_ev, t_ev = j_evaluator, TE.Evaluator(t_smpl)
-    want_metrics, want_n = j_ev.run(j_apply, Windows(case, jreg), variables=variables, **kw)
-    got_metrics, got_n = t_ev.run(t_forward, Windows(case, jreg), data_dir=str(tmp_path), **kw)
+    raw = 72 if crop else None
+    want_metrics, want_n = j_ev.run(j_forward, Windows(case, jreg, raw=raw), variables=variables,
+                                    **kw)
+    got_metrics, got_n = t_ev.run(forward, Windows(case, jreg, raw=raw), data_dir=str(tmp_path),
+                                  **kw)
     if case == "native14":
         assert "NOT comparable" in capsys.readouterr().err
     assert got_n == want_n == N_VALID
@@ -341,9 +388,26 @@ def test_evaluator_errors_and_what_is_not_ported(tiny_models, tmp_path):
     (_, _), (t_forward, t_smpl) = tiny_models
     ev = TE.Evaluator(t_smpl)
     windows = list(Windows("49"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ev.inference(t_forward, [dict(windows[0], trans=np.zeros((2, POOL, 2, 3)))], seqlen=2,
-                     dataset_name="testset", verbose=False)
+    # a DEVICE_CROP pack runs through the protocol: the forward is handed
+    # {'frames', 'trans'} sub-clips, crops them (here a full-frame identity
+    # crop) and answers as it does on the cropped clips
+    packs = []
+
+    def crop_forward(pack, jreg):
+        packs.append({k: tuple(v.shape) for k, v in pack.items()})
+        return t_forward(apply_device_preproc(pack, IMG, IMG), jreg)
+
+    identity = np.tile(np.array([[1, 0, 0], [0, 1, 0]], np.float32), (2, POOL, 1, 1))
+    ev.inference(crop_forward, [dict(windows[0], trans=identity)], seqlen=2,
+                 dataset_name="testset", verbose=False)
+    assert packs == [{"frames": (2, 2, IMG, IMG, 3), "trans": (2, 2, 2, 3)}] * (POOL // 2)
+    via_pack = concatenated(ev)
+    ev.inference(lambda x, jreg: t_forward(device_normalize(x), jreg), [windows[0]], seqlen=2,
+                 dataset_name="testset", verbose=False)
+    cropped = concatenated(ev)
+    assert set(via_pack) == set(cropped)
+    for key in cropped:
+        assert_close(via_pack[key], cropped[key], 1e-5, what=key)
     assert ev.sync_metrics({"mpjpe": 1.0}, 3) == ({"mpjpe": 1.0}, 3)
     # GT-free input: predictions accumulate, evaluate has nothing to score
     blind = dict(windows[0])

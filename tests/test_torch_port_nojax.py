@@ -13,7 +13,9 @@ iterations, 1 epoch) over synthetic DBs written as plain pickles, whose
 frames are the JPEGs of tests/torch_port_data, and
 ``python -m maed_tpu_torch.eval`` on its model_best.pth.tar, which writes
 inference.pkl. A second interpreter, with the same modules blocked, runs
-stage 1 (``test_stage1_runs_without_jax``). In the end no module of
+stage 1 (``test_stage1_runs_without_jax``), a third exports an artifact
+and serves it from a fresh interpreter that loads no model code
+(``test_serving_needs_neither_jax_nor_model_code``). In the end no module of
 maed_tpu, jax, flax, triton, yaml, cv2, joblib or PIL is loaded."""
 
 import os
@@ -275,6 +277,49 @@ assert not [name for name, mod in sys.modules.items()
 print("NOJAX_OK")
 """
 
+SERVE_SCRIPT = """
+import sys
+for name in BLOCKED:
+    sys.modules[name] = None
+import runpy, subprocess
+import numpy as np
+import torch
+torch.set_num_threads(1)
+open("tiny.yaml", "w").write(CONFIG)
+sys.argv = ["maed_tpu_torch.utils.export", "--cfg", "tiny.yaml", "--out", "m.pt2", "--batch", "2",
+            "--device", "cpu", "--dtype", "f32", "--eval_ds", "", "--allow_synthetic_smpl"]
+runpy.run_module("maed_tpu_torch.utils.export", run_name="__main__")
+from maed_tpu_torch.core.builder import build_eval_model  # the CLI's model: the config's seed
+model, smpl = build_eval_model(num_blocks=1, num_heads=2, hidden_dim=32, img_size=32, seed=1,
+                               dtype=torch.float32, device="cpu", allow_synthetic_smpl=True)
+clips = np.random.RandomState(2).randint(0, 256, (2, 4, 32, 32, 3)).astype(np.uint8)
+np.save("clips.npy", clips)
+np.savez("want.npz", **{k: v.numpy() for k, v in model(torch.from_numpy(clips), smpl).items()})
+serving = '''
+import sys
+for name in BLOCKED:
+    sys.modules[name] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)  # as the eager run: the CPU's sums follow the thread count
+from maed_tpu_torch.serve import ModelHost
+host = ModelHost("m.pt2")
+host.warmup()
+got, want = host.predict(np.load("clips.npy")[:1]), np.load("want.npz")
+assert all(np.array_equal(got[k], want[k][:1]) for k in want), "not the eager answer"
+port = sorted(m for m in sys.modules if m.startswith("maed_tpu_torch"))
+assert not [m for m in port if m.startswith(("maed_tpu_torch.models", "maed_tpu_torch.core"))], port
+assert not [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in BLOCKED]
+print("SERVED", port)
+'''
+done = subprocess.run([sys.executable, "-c", f"BLOCKED = {BLOCKED!r}" + serving],
+                      capture_output=True, text=True)
+assert done.returncode == 0 and "SERVED" in done.stdout, done.stderr[-3000:]
+assert not [name for name, mod in sys.modules.items()
+            if mod is not None and name.split(".")[0] in BLOCKED]
+print("NOJAX_OK")
+"""
+
 STAGE1_CONFIG = """\
 DEVICE: cpu
 EXP_NAME: tiny1
@@ -322,7 +367,8 @@ def blocked_runs(tmp_path_factory):
     """The two interpreters, started at once."""
     return {name: start_blocked(tmp_path_factory.mktemp(name), script, config)
             for name, script, config in (("stage2", SCRIPT, CONFIG),
-                                         ("stage1", STAGE1_SCRIPT, STAGE1_CONFIG))}
+                                         ("stage1", STAGE1_SCRIPT, STAGE1_CONFIG),
+                                         ("serve", SERVE_SCRIPT, CONFIG))}
 
 
 def finish_blocked(proc):
@@ -350,3 +396,12 @@ def test_stage1_runs_without_jax(blocked_runs):
 
 def test_port_runs_without_jax(blocked_runs):
     finish_blocked(blocked_runs["stage2"])
+
+
+def test_serving_needs_neither_jax_nor_model_code(blocked_runs):
+    """With the same modules blocked: ``python -m maed_tpu_torch.utils.export``
+    on the tiny config (``--device cpu``), then in a fresh interpreter, also
+    blocked, ``serve.ModelHost`` over the artifact: its answer is the eager
+    model's bit for bit, and no module of ``maed_tpu_torch.models`` or
+    ``maed_tpu_torch.core`` was loaded to give it."""
+    finish_blocked(blocked_runs["serve"])

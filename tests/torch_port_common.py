@@ -121,3 +121,25 @@ class Ranks:
             for path in paths + [self.tmp_path / "jobs.pt"]:  # hundreds of MB: not kept on disk
                 path.unlink()
         return self._results
+
+
+# The port's test models for export: the hybrid stem with one bottleneck a
+# stage (its widths and every kind of GroupNorm site kept) and the narrow
+# stage-1 ResNet-50 of tests/test_torch_port_stage1.py. An export's cost,
+# and its artifact's save and load, grow with the nodes of the graph.
+NARROW_STEM_LAYERS = (1, 1, 1)
+NARROW_RESNET = dict(layers=(1, 1, 1, 1), channels=(16, 32, 64, 128))
+
+
+def narrow_models(monkeypatch):
+    """Build the port's MAEDs with the narrow stem and ResNet-50 while
+    ``monkeypatch`` holds."""
+    import functools
+
+    from maed_tpu_torch.models import maed, vit
+    from maed_tpu_torch.models.resnet import ResNet50
+    from maed_tpu_torch.models.resnetv2 import ResNetV2
+
+    monkeypatch.setattr(vit, "ResNetV2",
+                        lambda **kw: ResNetV2(**dict(kw, layers=NARROW_STEM_LAYERS)))
+    monkeypatch.setattr(maed, "ResNet50", functools.partial(ResNet50, **NARROW_RESNET))
