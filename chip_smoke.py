@@ -70,6 +70,19 @@
    and the
    eval CLI on its model_best.pth.tar; the published-backbone import
    (``--init_backbone``) from a synthetic in21k .npz and a timm .pth.
+10. The demo (``phase_demo``): ``python -m maed_tpu_torch.demo --render``
+   as a user runs it, on configs/config_stage2.yaml (the released model in
+   f32) with a .pth.tar of seeded random weights, over 65 frames of the
+   fixture JPEGs with seeded boxes; its inference.pkl against the same
+   frames through the kernels' plain versions in this process
+   (``demo.infer``), its launches those of the f32 forwards (every kernel
+   but K), an overlay PNG a frame, and ``python -m maed_tpu_torch.visualize``
+   writing the same PNGs byte for byte.
+11. The 3DPW preprocessor (``phase_preprocess``): ``python -m
+   maed_tpu_torch.data.preprocess.threedpw`` on a synthetic raw layout of
+   3 splits x 4 people x 1200 frames, its SMPL forwards through kernel A;
+   each DB's joints3D against the plain version within 1e-4 m, and the
+   port's VideoDataset reading a window of the test DB.
 
 Any failed check raises. On success the last two lines are the kernels'
 record and {"ok": true, "device": {...}}. Needs a CUDA card (and exits
@@ -2357,6 +2370,238 @@ def phase_stage1(device):
     return step_launches, eval_launches
 
 
+# phase_demo and phase_preprocess: the host tools' paths that reach the
+# kernels. Each runs its CLI as a child process that zeroes the launch counts
+# before the module runs and prints them after it.
+COUNTED_CHILD = """
+import json, runpy, sys
+from maed_tpu_torch import kernels
+kernels.reset_launches()
+module = sys.argv[1]
+sys.argv = [module, *sys.argv[2:]]
+runpy.run_module(module, run_name="__main__")
+print("LAUNCHES " + json.dumps(kernels.LAUNCHES), flush=True)
+"""
+# frames of the demo's video: at least 65, so that the 128-frame window pads
+# them by one reflection (a video under 65 frames is reflected more than
+# once, and the protocol's valid mask then keeps the frames of the second
+# reflection too, as in the JAX package: 40 frames give 79 predictions)
+DEMO_FRAMES = 65
+# 2 sequences of 2 people, 1200 frames each, a split: one 3DPW sequence file
+THREEDPW_SEQS, THREEDPW_PEOPLE, THREEDPW_FRAMES = 2, 2, 1200
+
+
+def run_counted(workdir: Path, module: str, args, log: Path, timeout: float = 600):
+    """``python -m <module> <args>`` in ``workdir`` through COUNTED_CHILD:
+    (its output, the launch counts of its run)."""
+    env = dict(os.environ, PYTHONUNBUFFERED="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.run([sys.executable, "-c", COUNTED_CHILD, module, *args], cwd=workdir,
+                              env=env, stdout=out, stderr=subprocess.STDOUT, timeout=timeout)
+    text = log.read_text()
+    print(f"  {module}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n" + text[-4000:])
+    (line,) = [ln for ln in text.splitlines() if ln.startswith("LAUNCHES ")]
+    return text, json.loads(line[len("LAUNCHES "):])
+
+
+def number_after(text: str, pattern: str) -> float:
+    match = re.search(pattern, text)
+    if match is None:
+        raise AssertionError(f"no line matches {pattern!r} in:\n{text[-2000:]}")
+    return float(match.group(1))
+
+
+def phase_demo(device):
+    """``python -m maed_tpu_torch.demo`` as a user runs it, on the card: the
+    released stage-2 MAED at full width and depth in f32 from a .pth.tar of
+    seeded random weights, over DEMO_FRAMES frames copied in turn from the
+    fixture JPEGs with seeded boxes, then ``--render``. Its inference.pkl is
+    held against the same frames through ``demo.infer`` here with the
+    kernels' plain versions (verts 1e-4 m, theta 1e-3: phase_f32's limits);
+    its launches must be those of the f32 parallel forward, every kernel but
+    K; an overlay PNG a frame, and ``python -m maed_tpu_torch.visualize`` on
+    the same pkl must write the same PNGs, byte for byte. Prints the
+    inference's frames/s and the host rasterizer's s a frame."""
+    from maed_tpu_torch import demo
+    from maed_tpu_torch.core.builder import (build_eval_model, build_train_model, load_weights,
+                                             model_config)
+    from maed_tpu_torch.core.config import update_cfg
+    from maed_tpu_torch.data.dataset import read_pickled
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()  # the child process needs the card's memory too
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_demo_"))
+    try:
+        frames = workdir / "frames"
+        frames.mkdir()
+        fixtures = sorted(FIXTURE_DIR.glob("frame_*.jpg"))
+        for i in range(DEMO_FRAMES):
+            shutil.copy(fixtures[i % len(fixtures)], frames / f"{i:06d}.jpg")
+        rng = np.random.RandomState(17)
+        boxes = np.concatenate([rng.uniform([200, 150], [280, 210], (DEMO_FRAMES, 2)),
+                                rng.uniform(140, 200, (DEMO_FRAMES, 1)).repeat(2, 1)], 1)
+        np.save(workdir / "boxes.npy", boxes.astype(np.float32))
+        model, _ = build_train_model(device=device, seed=23, allow_synthetic_smpl=True)
+        torch.save({"state_dict": model.state_dict()}, workdir / "weights.pth.tar")
+        del model
+        cfg_path = ROOT / "configs" / "config_stage2.yaml"
+        common = ["--image_folder", str(frames), "--cfg", str(cfg_path), "--checkpoint",
+                  str(workdir / "weights.pth.tar"), "--allow_synthetic_smpl"]
+        text, launches = run_counted(
+            workdir, "maed_tpu_torch.demo",
+            [*common, "--bbox_file", str(workdir / "boxes.npy"), "--output_folder",
+             str(workdir / "out"), "--render"], workdir / "demo.log")
+        fps = number_after(text, r"inference: \d+ frames in [0-9.]+ s \(([0-9.]+) frames/s")
+        raster_s = number_after(text, r"the rasterizer ([0-9.]+) s a frame")
+
+        cfg = update_cfg(str(cfg_path))
+        forwards = launches["layernorm"]  # one final LayerNorm a forward
+        want_forwards = cfg.EVAL.SAMPLE_POOL // cfg.EVAL.SEQLEN  # one window batch of sub-clips
+        if forwards != want_forwards:
+            raise AssertionError(f"the demo ran {forwards} forwards, want {want_forwards}")
+        for name, per in per_forward("parallel", dtype=torch.float32).items():
+            if launches[name] != per * forwards:
+                raise AssertionError(f"demo: {name} launched {launches[name]} times, want "
+                                     f"{per} per forward x {forwards}")
+        if launches["attention_blocked"] != 0:
+            raise AssertionError("the demo's parallel model launched K")
+
+        got = read_pickled(str(workdir / "out" / "inference.pkl"))
+        model, smpl = build_eval_model(**model_config(cfg), dtype=torch.float32, device=device,
+                                       state_dict=load_weights(str(workdir / "weights.pth.tar")),
+                                       allow_synthetic_smpl=True)
+        paths = [str(frames / f"{i:06d}.jpg") for i in range(DEMO_FRAMES)]
+        plain = demo.infer(model, smpl, cfg, paths, boxes.astype(np.float32), plain=True)
+        want = {k: np.concatenate(plain.accumulators[k]) for k in ("pred_theta", "pred_verts")}
+        record = dict(card=card_identity(), frames=DEMO_FRAMES, forwards=forwards,
+                      frames_per_s=fps, raster_s_per_frame=raster_s, launches=launches)
+        for key, atol in (("pred_verts", 1e-4), ("pred_theta", 1e-3)):
+            g = torch.from_numpy(np.asarray(got[key]))
+            check_close(f"demo {key}, kernels vs plain", g, torch.from_numpy(want[key]), atol)
+            record[f"{key}_max_abs_err"] = max_abs_err(g, torch.from_numpy(want[key]))
+        if got["pred_verts"].shape != (DEMO_FRAMES, NUM_VERTS, 3):
+            raise AssertionError(f"pred_verts {got['pred_verts'].shape}")
+
+        overlays = sorted(os.listdir(workdir / "out" / "overlay"))
+        if overlays != [f"{i:06d}_{i:06d}.png" for i in range(DEMO_FRAMES)]:
+            raise AssertionError(f"overlays: {overlays[:3]}... ({len(overlays)})")
+        run_counted(workdir, "maed_tpu_torch.visualize",
+                    ["--input_file", str(workdir / "out" / "inference.pkl"), "--output_folder",
+                     str(workdir / "vis"), "--allow_synthetic_smpl"], workdir / "vis.log")
+        for name in overlays:
+            demo_png = (workdir / "out" / "overlay" / name).read_bytes()
+            if (workdir / "vis" / name).read_bytes() != demo_png:
+                raise AssertionError(f"visualize wrote another {name} than the demo")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"  demo ({record['card']}): {DEMO_FRAMES} frames, {forwards} f32 forwards of "
+          f"{cfg.EVAL.BATCH_SIZE} clips x {cfg.EVAL.SEQLEN}: {fps} frames/s; the host "
+          f"rasterizer {raster_s} s a frame; verts {record['pred_verts_max_abs_err']:.3e}, "
+          f"theta {record['pred_theta_max_abs_err']:.3e} from the plain versions")
+    print(json.dumps({"demo": record}))
+    return record
+
+
+def write_threedpw_raw(root: Path, seed: int = 19):
+    """The 3DPW raw layout at the size of real sequence files: for each
+    split THREEDPW_SEQS sequences of THREEDPW_PEOPLE people over
+    THREEDPW_FRAMES frames (poses (T, 72), betas (10,), poses2d (T, 3, 18)
+    in a 1080 x 1920 frame, campose_valid, cam_poses (T, 4, 4),
+    img_frame_ids); the test split's frames link to the fixture JPEGs."""
+    import pickle
+
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.RandomState(seed)
+    fixtures = sorted(FIXTURE_DIR.glob("frame_*.jpg"))
+    T = THREEDPW_FRAMES
+    for split in ("train", "validation", "test"):
+        (root / "sequenceFiles" / split).mkdir(parents=True)
+        for s in range(THREEDPW_SEQS):
+            cam = np.tile(np.eye(4), (T, 1, 1))
+            cam[:, :3, :3] = Rotation.random(T, random_state=rng).as_matrix()
+            cam[:, :3, 3] = rng.randn(T, 3)
+            centre = rng.uniform([300, 400], [800, 1500], (THREEDPW_PEOPLE, T, 1, 2))
+            xy = centre.transpose(0, 1, 3, 2) + rng.randn(THREEDPW_PEOPLE, T, 2, 18) * 60
+            p2d = np.concatenate([xy, rng.uniform(0.0, 1.0, (THREEDPW_PEOPLE, T, 1, 18))], axis=2)
+            seq = {"poses": [rng.randn(T, 72) * 0.3 for _ in range(THREEDPW_PEOPLE)],
+                   "betas": [rng.randn(10) * 0.5 for _ in range(THREEDPW_PEOPLE)],
+                   "poses2d": list(p2d),
+                   "campose_valid": [rng.rand(T) > 0.05 for _ in range(THREEDPW_PEOPLE)],
+                   "cam_poses": cam, "img_frame_ids": np.arange(T)}
+            name = f"{split}_{s:02d}"
+            with open(root / "sequenceFiles" / split / f"{name}.pkl", "wb") as f:
+                pickle.dump(seq, f)
+            if split == "test":
+                images = root / "imageFiles" / name
+                images.mkdir(parents=True)
+                for i in range(T):
+                    (images / f"image_{i:05d}.jpg").symlink_to(fixtures[i % len(fixtures)])
+
+
+def phase_preprocess(device):
+    """``python -m maed_tpu_torch.data.preprocess.threedpw`` on the card over
+    a synthetic raw layout (write_threedpw_raw: 4 people x 1200 frames a
+    split); each DB's joints3D held against the same split read here through
+    the skinning's plain version (1e-4 m), every other field equal; A's
+    launches (one a person's sequence); the port's VideoDataset reads a
+    window of the test DB. Prints the preprocessor's rate: a DB's frames
+    over the seconds of its split."""
+    from maed_tpu_torch.data.dataset import VideoDataset, read_pickled
+    from maed_tpu_torch.data.preprocess import threedpw
+    from maed_tpu_torch.data.transforms import build_eval_transforms
+    from maed_tpu_torch.utils.smpl_io import synthetic_smpl_model
+
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_preprocess_"))
+    try:
+        write_threedpw_raw(workdir / "3dpw")
+        text, launches = run_counted(
+            workdir, "maed_tpu_torch.data.preprocess.threedpw",
+            ["--inp_dir", str(workdir / "3dpw"), "--out_dir", str(workdir / "db"),
+             "--allow_synthetic_smpl"], workdir / "threedpw.log")
+        rates = [float(r) for r in re.findall(r"\(([0-9.]+) frames/s\)", text)]
+        people = THREEDPW_SEQS * THREEDPW_PEOPLE
+        if launches["skinning"] != 3 * people:
+            raise AssertionError(f"3DPW: skinning launched {launches['skinning']} times, want "
+                                 f"{3 * people} (a person's sequence each)")
+        smpl = synthetic_smpl_model(NUM_VERTS, device=device)
+        errs = {}
+        for split, name in (("validation", "val"), ("train", "train"), ("test", "test")):
+            got = read_pickled(str(workdir / "db" / f"3dpw_{name}_db.pt"))
+            want = threedpw.read_data(str(workdir / "3dpw"), split, smpl, plain=True)
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"3DPW {split}: keys {sorted(got)}")
+            for key in want:
+                if key == "joints3D":
+                    errs[split] = float(np.abs(got[key] - want[key]).max())
+                    if not errs[split] <= 1e-4:
+                        raise AssertionError(f"3DPW {split} joints3D: {errs[split]} m from the "
+                                             "plain version, beyond 1e-4")
+                elif not np.array_equal(got[key], want[key]):
+                    raise AssertionError(f"3DPW {split}: {key} differs from the plain read")
+        ds = VideoDataset("3dpw", "test", build_eval_transforms(IMG, IMG), seqlen=0,
+                          sample_pool=POOL, overlap=0, random_sample=False,
+                          db_dir=str(workdir / "db"), verbose=False)
+        item = ds[0]
+        if item["images"].shape != (POOL, IMG, IMG, 3) or not np.isfinite(item["images"]).all():
+            raise AssertionError(f"the test DB's first window: {item['images'].shape}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    record = dict(card=card_identity(), people_frames=3 * people * THREEDPW_FRAMES,
+                  frames_per_s=rates, joints3d_max_abs_err=errs, windows=len(ds),
+                  launches=launches)
+    print(f"  3DPW ({record['card']}): {record['people_frames']} input frames of 3 splits, the "
+          f"DBs' frames at {rates} frames/s a split; joints3D {errs} m from the plain version; "
+          f"{len(ds)} test windows")
+    print(json.dumps({"preprocess": record}))
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
@@ -2406,6 +2651,8 @@ def main() -> int:
     timed(phase_ddp, device)
     timed(phase_trainer, device)
     stage1_step, stage1_eval = timed(phase_stage1, device)
+    demo = timed(phase_demo, device)["launches"]
+    preprocess = timed(phase_preprocess, device)["launches"]
     print(json.dumps({"phase_seconds": seconds, "card": card_identity(),
                       "total_s": round(time.perf_counter() - t_start, 1)}))
 
@@ -2417,57 +2664,79 @@ def main() -> int:
              launches_train=train_launches["skinning"],
              launches_served=served["launches"]["skinning"],
              launches_stage1_steps=stage1_step["skinning"],
-             launches_stage1_eval=stage1_eval["skinning"], **record["skinning"]),
+             launches_stage1_eval=stage1_eval["skinning"],
+             launches_demo=demo["skinning"],
+             launches_preprocess=preprocess["skinning"],
+             **record["skinning"]),
         dict(name="fast_layernorm", route="triton", source=src + "ops/layernorm.py",
              replaces=jax_ops + "layernorm.py:60",
              launches=launches["layernorm"],
              launches_train=train_launches["layernorm"],
-             launches_served=served["launches"]["layernorm"], **record["layernorm"]),
+             launches_served=served["launches"]["layernorm"],
+             launches_demo=demo["layernorm"],
+             **record["layernorm"]),
         dict(name="fused_ln_mlp", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:99",
              launches=launches["ln_mlp_fc1"], launches_fc2=launches["ln_mlp_fc2"],
              launches_train=train_launches["ln_mlp_fc1"],
-             launches_served=served["launches"]["ln_mlp_fc1"], **record["ln_mlp"]),
+             launches_served=served["launches"]["ln_mlp_fc1"],
+             launches_demo=demo["ln_mlp_fc1"],
+             **record["ln_mlp"]),
         dict(name="fused_ln_dense", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:157",
              launches=launches["ln_dense"],
              launches_train=train_launches["ln_dense"],
-             launches_served=served["launches"]["ln_dense"], **record["ln_dense"]),
+             launches_served=served["launches"]["ln_dense"],
+             launches_demo=demo["ln_dense"],
+             **record["ln_dense"]),
         # the bf16 pre-pass of C and D: LN(x) rounded, once a row
         dict(name="ln_rows", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=f"{jax_ops}mlp.py:99, {jax_ops}mlp.py:157",
              launches=launches["ln_rows"],
              launches_train=train_launches["ln_rows"],
-             launches_served=served["launches"]["ln_rows"], **record["ln_rows"]),
+             launches_served=served["launches"]["ln_rows"],
+             launches_demo=demo["ln_rows"],
+             **record["ln_rows"]),
         # the tail's four bf16 launches: the means, the gate, the blend, the proj GEMM
         dict(name="fused_gate_proj", route="cuda", source=src + "csrc/ln_mlp.cu",
              replaces=jax_ops + "mlp.py:272",
              launches=launches["gate_proj"], launches_means=launches["gate_means"],
              launches_alpha=launches["gate_alpha"], launches_blend=launches["gate_blend"],
              launches_train=train_launches["gate_proj"],
-             launches_served=served["launches"]["gate_proj"], **record["gate_proj"]),
+             launches_served=served["launches"]["gate_proj"],
+             launches_demo=demo["gate_proj"],
+             **record["gate_proj"]),
         # the cluster kernel in bf16; the strided one takes f32 and larger frames
         dict(name="fused_groupnorm", route="cuda", source=src + "csrc/groupnorm.cu",
              replaces=jax_ops + "groupnorm.py:83",
              launches=launches["groupnorm"], launches_strided=launches["groupnorm_strided"],
              launches_train=train_launches["groupnorm"],
-             launches_served=served["launches"]["groupnorm"], **record["groupnorm"]),
+             launches_served=served["launches"]["groupnorm"],
+             launches_demo=demo["groupnorm"],
+             launches_demo_strided=demo["groupnorm_strided"],
+             **record["groupnorm"]),
         dict(name="spatial_attention", route="cuda", source=src + "csrc/st_attention.cu",
              replaces=f"{jax_ops}attention.py:47, {jax_ops}st_attention.py:96",
              launches=launches["spatial_attention"],
              launches_train=train_launches["spatial_attention"],
-             launches_served=served["launches"]["spatial_attention"], **record["spatial"]),
+             launches_served=served["launches"]["spatial_attention"],
+             launches_demo=demo["spatial_attention"],
+             **record["spatial"]),
         dict(name="temporal_attention", route="cuda", source=src + "csrc/st_attention.cu",
              replaces=f"{jax_ops}st_attention.py:132, {jax_ops}st_attention.py:229",
              launches=launches["temporal_attention"],
              launches_train=train_launches["temporal_attention"],
-             launches_served=served["launches"]["temporal_attention"], **record["temporal"]),
+             launches_served=served["launches"]["temporal_attention"],
+             launches_demo=demo["temporal_attention"],
+             **record["temporal"]),
         # the one kernel whose launches are those of the eval protocol's run
         dict(name="fused_attention_blocked", route="cuda", source=src + "csrc/st_attention.cu",
              replaces=jax_ops + "attention.py:74",
              launches=eval_launches["attention_blocked"],
              launches_train=train_launches["attention_blocked"],
-             launches_served=served["launches"]["attention_blocked"], **record["attention_blocked"]),
+             launches_served=served["launches"]["attention_blocked"],
+             launches_demo=demo["attention_blocked"],
+             **record["attention_blocked"]),
     ]
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import os
 import os.path as osp
-import pickle
 import sys
 import time
 from collections import defaultdict
@@ -36,6 +35,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from maed_tpu_torch.data.dataset import save_db
 from maed_tpu_torch.ops.joints import J49_TO_H36M, J49_TO_J14, JID_DICT, REGRESSOR_DICT
 from maed_tpu_torch.ops.metrics import eval_metrics, vert_error
 from maed_tpu_torch.ops.smpl import SMPLModel, smpl_forward
@@ -358,11 +358,4 @@ class Evaluator:
         os.makedirs(save_path, exist_ok=True)
         acc = {k: np.concatenate(v, axis=0) for k, v in self.accumulators.items()
                if k in SAVE_FIELDS}
-        path = osp.join(save_path, "inference.pkl")
-        try:
-            import joblib
-        except ImportError:
-            with open(path, "wb") as f:
-                pickle.dump(acc, f, protocol=pickle.HIGHEST_PROTOCOL)
-        else:
-            joblib.dump(acc, path)
+        save_db(acc, osp.join(save_path, "inference.pkl"))

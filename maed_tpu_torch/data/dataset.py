@@ -38,32 +38,51 @@ def read_img(path: str) -> np.ndarray:
         raise IOError(f"File error: {path}: {e} (the port decodes JPEG frames only)") from e
 
 
-def load_db(dataset_name: str, set_name: str, db_dir: str | None = None):
-    """The DB ``<db_dir>/<dataset>_<set>_db.pt``: joblib where it is
-    installed (it also reads plain pickles), else a plain pickle."""
-    db_file = osp.join(db_dir or cfg_mod.DB_DIR, f"{dataset_name}_{set_name}_db.pt")
-    if not osp.isfile(db_file):
-        raise ValueError(f"{db_file} does not exist")
+def read_pickled(path: str):
+    """A file written by ``joblib.dump`` or ``pickle.dump``: read by joblib
+    where it is installed (it also reads plain pickles), else as a plain
+    pickle, with a message that says what to do where that cannot work."""
     try:
         import joblib
     except ImportError:
         joblib = None
     if joblib is not None:
-        return joblib.load(db_file)
-    with open(db_file, "rb") as f:
+        return joblib.load(path)
+    with open(path, "rb") as f:
         try:
             return pickle.load(f)
         except ModuleNotFoundError as e:
             if e.name and e.name.split(".")[0] == "joblib":
                 raise RuntimeError(
-                    f"{db_file} was written by joblib.dump and joblib is not installed: "
-                    "install joblib, or rewrite the DB as a plain pickle "
+                    f"{path} was written by joblib.dump and joblib is not installed: "
+                    "install joblib, or rewrite it as a plain pickle "
                     "(pickle.dump(joblib.load(path), f)) where joblib is") from e
             raise
         except pickle.UnpicklingError as e:
             raise RuntimeError(
-                f"{db_file} is not a plain pickle (a compressed joblib file?) and joblib "
+                f"{path} is not a plain pickle (a compressed joblib file?) and joblib "
                 "is not installed to read it") from e
+
+
+def save_db(db: dict, path: str) -> None:
+    """Write a DB (or any dict of arrays) with joblib where it is installed,
+    as the JAX package's preprocessors do, else as a plain pickle; both
+    :func:`read_pickled` and ``joblib.load`` read either."""
+    try:
+        import joblib
+    except ImportError:
+        with open(path, "wb") as f:
+            pickle.dump(db, f, protocol=pickle.HIGHEST_PROTOCOL)
+    else:
+        joblib.dump(db, path)
+
+
+def load_db(dataset_name: str, set_name: str, db_dir: str | None = None):
+    """The DB ``<db_dir>/<dataset>_<set>_db.pt`` (:func:`read_pickled`)."""
+    db_file = osp.join(db_dir or cfg_mod.DB_DIR, f"{dataset_name}_{set_name}_db.pt")
+    if not osp.isfile(db_file):
+        raise ValueError(f"{db_file} does not exist")
+    return read_pickled(db_file)
 
 
 class VideoDataset:

@@ -112,6 +112,18 @@ def _as_bytes(blob) -> np.ndarray:
     return buf
 
 
+def jpeg_size(blob) -> tuple[int, int]:
+    """(height, width) of one JPEG (its bytes), from its header alone.
+    Raises IOError if the header does not decode."""
+    buf = _as_bytes(blob)
+    h, w = ctypes.c_int(0), ctypes.c_int(0)
+    rc = library().jpeg_decode_rgb(buf.ctypes.data_as(_u8_p), buf.size, None, 0,
+                                   ctypes.byref(h), ctypes.byref(w))
+    if rc != -3:
+        raise IOError("JPEG header does not decode (corrupt, or larger than 8192 px)")
+    return h.value, w.value
+
+
 def decode(blob) -> np.ndarray:
     """One JPEG (its bytes) -> (H, W, 3) uint8 RGB. Raises IOError if it
     does not decode."""
@@ -119,10 +131,7 @@ def decode(blob) -> np.ndarray:
     buf = _as_bytes(blob)
     h, w = ctypes.c_int(0), ctypes.c_int(0)
     src = buf.ctypes.data_as(_u8_p)
-    rc = lib.jpeg_decode_rgb(src, buf.size, None, 0, ctypes.byref(h), ctypes.byref(w))
-    if rc != -3:
-        raise IOError("JPEG header does not decode (corrupt, or larger than 8192 px)")
-    out = np.empty((h.value, w.value, 3), np.uint8)
+    out = np.empty(jpeg_size(buf) + (3,), np.uint8)
     rc = lib.jpeg_decode_rgb(src, buf.size, out.ctypes.data_as(_u8_p), out.nbytes,
                              ctypes.byref(h), ctypes.byref(w))
     if rc != 0:

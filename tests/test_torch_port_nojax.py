@@ -15,8 +15,10 @@ frames are the JPEGs of tests/torch_port_data, and
 inference.pkl. A second interpreter, with the same modules blocked, runs
 stage 1 (``test_stage1_runs_without_jax``), a third exports an artifact
 and serves it from a fresh interpreter that loads no model code
-(``test_serving_needs_neither_jax_nor_model_code``). In the end no module of
-maed_tpu, jax, flax, triton, yaml, cv2, joblib or PIL is loaded."""
+(``test_serving_needs_neither_jax_nor_model_code``), a fourth, with
+matplotlib blocked too, runs the demo, visualize and a preprocessor
+(``test_demo_visualize_and_preprocess_run_without_jax``). In the end no
+module of maed_tpu, jax, flax, triton, yaml, cv2, joblib or PIL is loaded."""
 
 import os
 import subprocess
@@ -320,6 +322,72 @@ assert not [name for name, mod in sys.modules.items()
 print("NOJAX_OK")
 """
 
+DEMO_SCRIPT = """
+import sys
+for name in BLOCKED + ("matplotlib",):
+    sys.modules[name] = None
+import glob, json, os, pickle, runpy, shutil
+import numpy as np
+import torch
+torch.set_num_threads(1)
+os.makedirs("frames")
+for i, src in enumerate(sorted(glob.glob(os.path.join(FIXTURES, "frame_*.jpg")))):
+    shutil.copy(src, f"frames/{i:06d}.jpg")
+np.save("boxes.npy", np.tile([240.0, 180.0, 200.0, 200.0], (4, 1)))
+open("tiny.yaml", "w").write(CONFIG)
+def run(module, *argv):
+    sys.argv = [module, *argv]
+    runpy.run_module(module, run_name="__main__")
+run("maed_tpu_torch.demo", "--image_folder", "frames", "--cfg", "tiny.yaml", "--bbox_file",
+    "boxes.npy", "--output_folder", "out", "--render", "--allow_synthetic_smpl")
+with open("out/inference.pkl", "rb") as f:
+    pred = pickle.load(f)
+assert pred["pred_verts"].shape == (4, 6890, 3) and np.isfinite(pred["pred_theta"]).all()
+overlays = sorted(os.listdir("out/overlay"))
+assert overlays == [f"{i:06d}_{i:06d}.png" for i in range(4)], overlays
+run("maed_tpu_torch.visualize", "--input_file", "out/inference.pkl", "--output_folder", "vis",
+    "--allow_synthetic_smpl")
+assert all(open(f"vis/{n}", "rb").read() == open(f"out/overlay/{n}", "rb").read()
+           for n in overlays)
+ann = "posetrack/posetrack_data/annotations/train"
+os.makedirs(ann)
+names = ["nose", "head_bottom", "head_top", "left_ear", "right_ear", "left_shoulder",
+         "right_shoulder", "left_elbow", "right_elbow", "left_wrist", "right_wrist", "left_hip",
+         "right_hip", "left_knee", "right_knee", "left_ankle", "right_ankle"]
+rng = np.random.RandomState(0)
+json.dump({"images": [{"frame_id": i, "file_name": f"{i}.jpg", "is_labeled": True}
+                      for i in range(9)],
+           "annotations": [{"track_id": 1, "image_id": i, "bbox": [10.0, 20.0, 50.0, 90.0],
+                            "keypoints": rng.uniform(1, 100, 51).tolist()} for i in range(9)],
+           "categories": [{"keypoints": names}]}, open(f"{ann}/000001_mpii.json", "w"))
+run("maed_tpu_torch.data.preprocess.posetrack", "--inp_dir", "posetrack", "--out_dir", ".")
+with open("posetrack_train_db.pt", "rb") as f:
+    db = pickle.load(f)
+assert db["joints2D"].shape == (9, 49, 3) and db["bbox"].shape == (9, 4)
+assert not [name for name, mod in sys.modules.items()
+            if mod is not None and name.split(".")[0] in BLOCKED + ("matplotlib",)]
+print("NOJAX_OK")
+"""
+
+DEMO_CONFIG = """\
+DEVICE: cpu
+NUM_WORKERS: 0
+DATASET:
+  WIDTH: 32
+  HEIGHT: 32
+EVAL:
+  SEQLEN: 2
+  SAMPLE_POOL: 4
+  BATCH_SIZE: 2
+MODEL:
+  ENCODER:
+    NUM_BLOCKS: 1
+    NUM_HEADS: 2
+  DECODER:
+    HIDDEN_DIM: 32
+"""
+
+
 STAGE1_CONFIG = """\
 DEVICE: cpu
 EXP_NAME: tiny1
@@ -364,11 +432,12 @@ def start_blocked(tmp_path, script, config):
 
 @pytest.fixture(scope="module")
 def blocked_runs(tmp_path_factory):
-    """The two interpreters, started at once."""
+    """The interpreters, started at once."""
     return {name: start_blocked(tmp_path_factory.mktemp(name), script, config)
             for name, script, config in (("stage2", SCRIPT, CONFIG),
                                          ("stage1", STAGE1_SCRIPT, STAGE1_CONFIG),
-                                         ("serve", SERVE_SCRIPT, CONFIG))}
+                                         ("serve", SERVE_SCRIPT, CONFIG),
+                                         ("demo", DEMO_SCRIPT, DEMO_CONFIG))}
 
 
 def finish_blocked(proc):
@@ -405,3 +474,13 @@ def test_serving_needs_neither_jax_nor_model_code(blocked_runs):
     model's bit for bit, and no module of ``maed_tpu_torch.models`` or
     ``maed_tpu_torch.core`` was loaded to give it."""
     finish_blocked(blocked_runs["serve"])
+
+
+def test_demo_visualize_and_preprocess_run_without_jax(blocked_runs):
+    """With the same modules and matplotlib blocked: ``python -m
+    maed_tpu_torch.demo --render`` on the fixture JPEGs and a tiny ``DEVICE
+    cpu`` config (inference.pkl as a plain pickle, an overlay PNG a frame),
+    ``python -m maed_tpu_torch.visualize`` on its inference.pkl (the same
+    PNGs, byte for byte) and ``python -m
+    maed_tpu_torch.data.preprocess.posetrack`` on a one-track fixture."""
+    finish_blocked(blocked_runs["demo"])
