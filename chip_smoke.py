@@ -611,7 +611,159 @@ def phase_kernels(device):
         raise AssertionError("a 3.2 MB bf16 frame did not go to the strided GroupNorm kernel")
     del x, res, gargs
     torch.cuda.synchronize()
+    record.update(general_attention_checks(device))
     return record
+
+
+# The head dims of csrc/attention_general.cu held in phase_kernels (the stock
+# ViTs' 80 and 96, the tools' 2-head 384, one head's 768, and 24), and the
+# ones also timed at the flagship's tokens (197 a frame, 16 frames, the 768
+# channels in 768 / d heads).
+GENERAL_DIMS = (24, 80, 96, 384, 768)
+GENERAL_TIMED = (96, 384)
+
+
+def general_attention_checks(device):
+    """The spatial, temporal and blocked attention at every head dim of
+    GENERAL_DIMS in f32 and bf16 against their plain versions, at small
+    token and frame counts: 2 clips of 16 frames of 37 tokens, 2 heads;
+    blocked over 1100 keys (through fused_attention's dispatch). Tolerances
+    as the older kernels' at the flagship (bf16 1e-2 + 1e-2 rel; blocked f32
+    2e-5, bf16 2e-3 + 1e-2 rel: the general kernel's 32-key tiles move the
+    running max at other keys than the plain version's 512-key blocks).
+    Then, at GENERAL_TIMED, each timed at the flagship's tokens beside its
+    bound and scaled_dot_product_attention; and the general kernels through
+    a model (general_attention_model). Returns the records of the kernels
+    line: d 384 bf16 at the top, every (d, dtype) under ``by_head_dim``."""
+    import torch.nn.functional as F
+
+    from maed_tpu_torch import kernels
+    from maed_tpu_torch.ops import attention, st_attention
+
+    rng = np.random.RandomState(3)
+    T = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)  # noqa: E731
+    f32, bf16 = torch.float32, torch.bfloat16
+    kinds = {f32: "f32", bf16: "bf16"}
+    tol = {f32: (1e-5, 0.0), bf16: (1e-2, 1e-2)}
+    blocked_tol = {f32: (2e-5, 0.0), bf16: (2e-3, 1e-2)}
+    general = ("spatial_attention_general", "temporal_attention_general",
+               "attention_blocked_general")
+    print(f"general attention kernels at head dims {GENERAL_DIMS}")
+    for d in GENERAL_DIMS:
+        att = d ** -0.5
+        for dt in (f32, bf16):
+            before = {k: kernels.LAUNCHES[k] for k in general}
+            qkv = T(rng.randn(2 * SEQLEN, 37, 3, 2, d), dt)
+            compare(f"spatial d {d} {dt}", lambda: st_attention.spatial_attention_btc(qkv, att),
+                    lambda: st_attention.spatial_reference_btc(qkv, att), *tol[dt])
+            compare(f"temporal d {d} {dt}",
+                    lambda: st_attention.temporal_attention_fused(qkv, SEQLEN, att),
+                    lambda: st_attention.temporal_reference_btc(qkv, SEQLEN, att), *tol[dt])
+            q, k, v = (a.transpose(1, 2) for a in T(rng.randn(2, 1100, 3, 2, d), dt).unbind(2))
+            compare(f"blocked d {d}, S 1100 {dt}", lambda: attention.fused_attention(q, k, v, att),
+                    lambda: attention.attention_blocked_reference(q, k, v, att),
+                    *blocked_tol[dt])
+            is_bf16 = dt == bf16
+            want = (st_attention.general_head_dim(d, is_bf16),
+                    st_attention.general_head_dim(d, is_bf16, temporal=True),
+                    st_attention.general_head_dim(d, is_bf16))
+            got = tuple(kernels.LAUNCHES[k] > before[k] for k in general)
+            if got != want:
+                raise AssertionError(f"d {d} {dt}: the general kernels launched {got}, want {want}")
+    del qkv, q, k, v
+
+    B, N, S = N_CLIPS * SEQLEN, 197, SEQLEN * 197
+    records = {name: {"by_head_dim": {}} for name in ("spatial_general", "temporal_general",
+                                                      "attention_blocked_general")}
+    for d in GENERAL_TIMED:
+        heads, att = 768 // d, d ** -0.5
+        qkv_np = rng.randn(B, N, 3, heads, d)
+        print(f"general attention at the flagship's tokens: qkv {qkv_np.shape}")
+        for dt in (f32, bf16):
+            qkv = T(qkv_np, dt)
+            q4, k4, v4 = (a.transpose(1, 2) for a in qkv.unbind(2))
+            sp = compare(f"spatial d {d} (BT, N, C) {dt}",
+                         lambda: st_attention.spatial_attention_btc(qkv, att),
+                         lambda: st_attention.spatial_reference_btc(qkv, att), *tol[dt],
+                         moved=(qkv,), flops=4.0 * B * heads * N * N * d, kind=kinds[dt],
+                         library=lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=att),
+                         iters=5)
+            q5, k5, v5 = (a.reshape(N_CLIPS, SEQLEN, N, heads, d).permute(0, 2, 3, 1, 4)
+                          for a in qkv.unbind(2))
+            tp = compare(f"temporal d {d} (BT, N, C) {dt}",
+                         lambda: st_attention.temporal_attention_fused(qkv, SEQLEN, att),
+                         lambda: st_attention.temporal_reference_btc(qkv, SEQLEN, att), *tol[dt],
+                         moved=(qkv,), flops=4.0 * B * N * heads * SEQLEN * d, kind=kinds[dt],
+                         library=lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=att),
+                         iters=5)
+            qv, kv, vv = (a.transpose(1, 2) for a in qkv.view(N_CLIPS, S, 3, heads, d).unbind(2))
+
+            def blocked_in_place():
+                y = torch.empty((B, N, 768), dtype=dt, device=device)
+                attention.fused_attention(qv, kv, vv, att,
+                                          out=y.view(N_CLIPS, S, heads, d).transpose(1, 2))
+                return y
+
+            bk = compare(f"blocked d {d}, in place {dt}", blocked_in_place,
+                         lambda: attention.attention_blocked_reference(qv, kv, vv, att)
+                         .transpose(1, 2).reshape(B, N, 768), *blocked_tol[dt],
+                         moved=(qkv,), flops=4.0 * N_CLIPS * heads * S * S * d, kind=kinds[dt],
+                         library=lambda: F.scaled_dot_product_attention(qv, kv, vv, scale=att),
+                         iters=3)
+            for name, rec, temporal in (("spatial_general", sp, False),
+                                        ("temporal_general", tp, True),
+                                        ("attention_blocked_general", bk, False)):
+                # which kernel the dispatch took at this (d, dtype)
+                rec["general_kernel"] = st_attention.general_head_dim(d, dt == bf16, temporal)
+                records[name]["by_head_dim"][f"d{d}_{kinds[dt]}"] = rec
+                if d == 384 and dt == bf16:
+                    records[name].update(rec)
+            del qkv, q4, k4, v4, q5, k5, v5, qv, kv, vv
+    torch.cuda.synchronize()
+    records["general_model_launches"] = general_attention_model(device)
+    return records
+
+
+def general_attention_model(device):
+    """The general kernels through the model: one f32 request of 2 clips x
+    16 frames at 224 px through ``build_eval_model`` with 1 block of 2 heads
+    (head dim 384), parallel (spatial and temporal) and coupling (16 x 197 =
+    3152 tokens a clip: the blocked kernel), each against the same request
+    through the plain versions (phase_f32's limits); the count of every
+    kernel launched from 0 just before to just after the two requests
+    through the kernels. At 64 px the random weights' near-degenerate 6D
+    outputs turned the kernels' ~1e-7 into 4.9e-4 m of verts (chip run 2 of
+    PR 14), as PR 13's demo test saw at 96 px; the flagship's 224 px."""
+    from maed_tpu_torch import kernels
+    from maed_tpu_torch.core.builder import build_eval_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(5)
+    runs = []
+    for mode, px in (("parallel", IMG), ("coupling", IMG)):
+        model, smpl = build_eval_model(st_mode=mode, num_blocks=1, num_heads=2, img_size=px,
+                                       dtype=torch.float32, device=device, seed=4,
+                                       allow_synthetic_smpl=True)
+        clip = torch.randint(0, 256, (2, SEQLEN, px, px, 3), dtype=torch.uint8, device=device,
+                             generator=gen)
+        runs.append((mode, model, smpl, clip))
+    kernels.reset_launches()
+    outs = [model(clip, smpl) for _, model, smpl, clip in runs]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for (mode, model, smpl, clip), got in zip(runs, outs):
+        check_outputs(got, clips=2, joints=49)
+        want = model(clip, smpl, plain=True)
+        for key, atol in (("verts", 1e-4), ("kp_3d", 1e-4), ("theta", 1e-3)):
+            check_close(f"{mode} 1 x 2 heads f32 {key}, kernels vs plain", got[key], want[key],
+                        atol)
+    print(f"  general kernels through the model: {launches}")
+    for name in ("spatial_attention_general", "temporal_attention_general",
+                 "attention_blocked_general"):
+        if not launches[name]:
+            raise AssertionError(f"the 2-head models did not launch {name}: {launches}")
+    return launches
 
 
 def make_requests(device):
@@ -2602,6 +2754,140 @@ def phase_preprocess(device):
     return record
 
 
+def csrc_kernel_names() -> set:
+    """The names of the __global__ functions of maed_tpu_torch/csrc."""
+    names = set()
+    for src in (ROOT / "maed_tpu_torch" / "csrc").glob("*.cu"):
+        names |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                                src.read_text()))
+    return names
+
+
+def phase_accept(device):
+    """``python -m maed_tpu_torch.tools.accept_synthetic all`` as a user runs
+    it, at the JAX tool's defaults on the card (tools.accept_synthetic's
+    functions, in this process, with the CLIs as subprocesses through
+    COUNTED_CHILD): 6 + 2 videos of 96 frames at 64 px through the port's
+    SMPL forward (kernel A) and JPEG encoder, the GT oracle through the
+    eval protocol (every metric below 0.1 mm), then the eval CLI on the
+    untrained init, the train CLI (1 block, 2 heads: head dim 384, the
+    general spatial kernel; 6 epochs of 50 iterations) and the eval CLI on
+    its model_best: trained PA-MPJPE below 0.7 x untrained. The train CLI
+    runs with MAED_PROFILE_DIR over its first 3 steps: the Chrome trace
+    must name the port's kernels; its logdir's event file must parse with
+    the port's reader and hold the train tags and eval/pa-mpjpe."""
+    from maed_tpu_torch import kernels
+    from maed_tpu_torch.tools import accept_synthetic as acc
+    from maed_tpu_torch.utils.summary import read_events
+
+    torch.cuda.empty_cache()  # the CLIs need the card's memory too
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_accept_"))
+    profile = workdir / "profile"
+    saved = {k: os.environ.get(k) for k in ("MAED_PROFILE_DIR", "MAED_PROFILE_STEPS")}
+    os.environ.update(MAED_PROFILE_DIR=str(profile), MAED_PROFILE_STEPS="3")
+    try:
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        acc.generate(str(workdir), device=device)
+        t1 = time.perf_counter()
+        oracle = acc.oracle(str(workdir), tol_mm=0.1, device=device)
+        t2 = time.perf_counter()
+        launches = dict(kernels.LAUNCHES)  # generate's and the oracle's forwards
+        logs = []
+        result = acc.train_and_eval(str(workdir), margin=0.7, device=device.type,
+                                    launcher=[sys.executable, "-c", COUNTED_CHILD], logs=logs)
+        t3 = time.perf_counter()
+        for text in logs:  # each CLI's own counts, from 0 at its start to its end
+            (line,) = [ln for ln in text.splitlines() if ln.startswith("LAUNCHES ")]
+            for k, n in json.loads(line[len("LAUNCHES "):]).items():
+                launches[k] += n
+        (trace,) = profile.glob("maed_trace_*.json")
+        events = json.loads(trace.read_text())["traceEvents"]
+        ran = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+        ours = sorted(k for k in csrc_kernel_names() if any(k in name for name in ran))
+        annotated = {e.get("name") for e in events} & {"train_step", "data"}
+        print(f"  the trace of the train CLI's first 3 steps: {len(ran)} kernels, the port's "
+              f"{ours}; annotations {sorted(annotated)}")
+        if "general_attention_f32_kernel" not in ours or not any("skinning" in k for k in ours) \
+                or annotated != {"train_step", "data"}:
+            raise AssertionError(f"accept: the trace does not name the port's kernels: {ours}")
+
+        (run,) = (workdir / "results").iterdir()
+        (event_file,) = run.glob("events.out.tfevents.*")
+        read = read_events(str(event_file))
+        tags = {tag for e in read for tag, _ in e["scalars"]}
+        if read[0].get("file_version") != "brain.Event:2" or not {
+                "train_loss/loss", "train_loss/loss_kp_3d", "eval/pa-mpjpe"} <= tags:
+            raise AssertionError(f"accept: the event file lacks the expected scalars: {tags}")
+        if not launches["spatial_attention_general"] or not launches["skinning"]:
+            raise AssertionError(f"accept: the general spatial kernel or A did not run: {launches}")
+        record = dict(card=card_identity(), oracle_mm=oracle,
+                      untrained_pa_mpjpe=result["untrained"]["pa-mpjpe"],
+                      trained_pa_mpjpe=result["trained"]["pa-mpjpe"],
+                      ratio=result["trained"]["pa-mpjpe"] / result["untrained"]["pa-mpjpe"],
+                      generate_s=t1 - t0, oracle_s=t2 - t1, clis_s=t3 - t2,
+                      event_scalars=sum(len(e["scalars"]) for e in read),
+                      trace_kernels=ours, launches=launches)
+        print(f"  accept ({record['card']}): oracle PA-MPJPE {oracle['pa-mpjpe']:.2e} mm, "
+              f"untrained {record['untrained_pa_mpjpe']:.2f} -> trained "
+              f"{record['trained_pa_mpjpe']:.2f} mm ({record['ratio']:.3f}x); generate "
+              f"{t1 - t0:.1f} s, oracle {t2 - t1:.1f} s, the three CLIs {t3 - t2:.1f} s; "
+              f"{record['event_scalars']} scalars in the event file")
+        print(json.dumps({"accept": record}))
+        return record
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_bench_train(device):
+    """``python -m maed_tpu_torch.tools.bench_train`` as a user runs it, in
+    this process (its ``main``): the timing mode at the flagship in bf16 (5
+    timed steps) and at stage 1 (3), then ``--learn 20 --smoke`` in bf16 and
+    f32 (1 block, 2 heads at 64 px: head dim 384, the general spatial and
+    temporal kernels), whose losses must be finite. Prints ms a step,
+    frames/s and the trajectories' head and tail; the launches of the whole
+    phase, counted from 0."""
+    from maed_tpu_torch import kernels
+    from maed_tpu_torch.tools import bench_train
+
+    record = {"card": card_identity()}
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_bench_train_"))
+    try:
+        kernels.reset_launches()
+        record["flagship_bf16"] = bench_train.main(["--iters", "5"])
+        torch.cuda.empty_cache()
+        record["stage1_bf16"] = bench_train.main(["--stage1", "--iters", "3"])
+        torch.cuda.empty_cache()
+        for dt in ("bf16", "f32"):
+            out = workdir / f"soak_{dt}.json"
+            soak = bench_train.main(["--learn", "20", "--smoke", "--dtype", dt, "--out", str(out)])
+            if not np.isfinite(soak["losses"]).all() or json.loads(out.read_text())["steps"] != 20:
+                raise AssertionError(f"bench_train --smoke {dt}: {soak}")
+            record[f"smoke_{dt}"] = {k: soak[k] for k in ("head_mean", "tail_mean", "ratio",
+                                                          "wall_s")}
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for name in ("spatial_attention_general", "temporal_attention_general", "spatial_attention",
+                 "temporal_attention", "skinning"):
+        if not launches[name]:
+            raise AssertionError(f"bench_train: {name} was not launched: {launches}")
+    record["launches"] = launches
+    print(f"  bench_train ({record['card']}): flagship bf16 {record['flagship_bf16']['ms']:.1f} "
+          f"ms a step ({record['flagship_bf16']['frames_per_s']:.0f} frames/s), stage 1 "
+          f"{record['stage1_bf16']['ms']:.1f} ms ({record['stage1_bf16']['frames_per_s']:.0f} "
+          f"frames/s); --smoke soaks " + ", ".join(
+              f"{dt} {record[f'smoke_{dt}']['head_mean']:.4f} -> "
+              f"{record[f'smoke_{dt}']['tail_mean']:.4f}" for dt in ("bf16", "f32")))
+    print(json.dumps({"bench_train": record}))
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
@@ -2653,6 +2939,8 @@ def main() -> int:
     stage1_step, stage1_eval = timed(phase_stage1, device)
     demo = timed(phase_demo, device)["launches"]
     preprocess = timed(phase_preprocess, device)["launches"]
+    accept = timed(phase_accept, device)["launches"]
+    bench = timed(phase_bench_train, device)["launches"]
     print(json.dumps({"phase_seconds": seconds, "card": card_identity(),
                       "total_s": round(time.perf_counter() - t_start, 1)}))
 
@@ -2737,6 +3025,30 @@ def main() -> int:
              launches_served=served["launches"]["attention_blocked"],
              launches_demo=demo["attention_blocked"],
              **record["attention_blocked"]),
+        # the head dims the three above do not take (csrc/attention_general.cu):
+        # launches in phase_accept's run (its CLIs included) and phase_bench_train's,
+        # and through the 2-head models of phase_kernels (the blocked one's path)
+        dict(name="spatial_attention_general", route="cuda",
+             source=src + "csrc/attention_general.cu",
+             replaces=f"{jax_ops}attention.py:47, {jax_ops}st_attention.py:96",
+             launches=accept["spatial_attention_general"],
+             launches_bench_train=bench["spatial_attention_general"],
+             launches_model=record["general_model_launches"]["spatial_attention_general"],
+             **record["spatial_general"]),
+        dict(name="temporal_attention_general", route="cuda",
+             source=src + "csrc/attention_general.cu",
+             replaces=f"{jax_ops}st_attention.py:132, {jax_ops}st_attention.py:229",
+             launches=bench["temporal_attention_general"],
+             launches_accept=accept["temporal_attention_general"],
+             launches_model=record["general_model_launches"]["temporal_attention_general"],
+             **record["temporal_general"]),
+        dict(name="fused_attention_blocked_general", route="cuda",
+             source=src + "csrc/attention_general.cu",
+             replaces=jax_ops + "attention.py:74",
+             launches=record["general_model_launches"]["attention_blocked_general"],
+             launches_accept=accept["attention_blocked_general"],
+             launches_bench_train=bench["attention_blocked_general"],
+             **record["attention_blocked_general"]),
     ]
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -35,7 +35,12 @@ which gather the ranks' generators. It also appends one JSON object a line
 to ``<logdir>/train_metrics.jsonl``: each step's metrics; the timing of each
 log boundary's iteration (the data and the step, on the host clock) and the
 device's peak memory so far; each validation's metrics and seconds, each
-checkpoint write's seconds and bytes.
+checkpoint write's seconds and bytes. Beside it, a TensorBoard event file
+(``utils.summary``) takes the JAX trainer's scalars: ``train_loss/<k>``, the
+epoch's running means at each log boundary at the global step, and
+``eval/<k>`` at each validation at the epoch. With MAED_PROFILE_DIR set,
+the first MAED_PROFILE_STEPS steps are traced (``utils.profiling``; the
+data fetch and the step are annotated as 'data' and 'train_step').
 """
 
 from __future__ import annotations
@@ -59,6 +64,8 @@ from maed_tpu_torch.utils.checkpoint import (find_auto_resume, load_checkpoint,
                                              prune_epoch_checkpoints, save_checkpoint,
                                              wait_pending_saves)
 from maed_tpu_torch.utils.logging_utils import AverageMeter, StepTimer
+from maed_tpu_torch.utils.profiling import annotate, maybe_trace, stop_trace
+from maed_tpu_torch.utils.summary import SummaryWriter
 
 # what a checkpoint must hold for TRAIN.RESUME
 RESUME_FIELDS = ("state_dict", "epoch", "performance", "optimizer", "scheduler",
@@ -118,6 +125,7 @@ class Trainer:
             if self.valid_loader is not None else None)
         self._allow_missing_regressor = allow_missing_regressor
         self._records_lock = threading.Lock()
+        self.writer = SummaryWriter(logdir) if logdir and self.rank == 0 else None
 
         self._preempt_requested = False
         self.preempted = False
@@ -273,14 +281,20 @@ class Trainer:
                 self._read(pending, meters)
                 break
             timer.start()
-            vid_batch, img_batch = self.device_batches(i)
+            with annotate("data"):
+                vid_batch, img_batch = self.device_batches(i)
             timer.mark("data")
-            pending.append((i, self.train_global_step, self.train_step(vid_batch, img_batch)))
+            with maybe_trace(self.train_global_step), annotate("train_step"):
+                metrics = self.train_step(vid_batch, img_batch)
+            pending.append((i, self.train_global_step, metrics))
             self.train_global_step += 1
 
             if (i + 1) % self.log_freq == 0 or i == self.num_iters - 1:
                 timer.mark("step", block_on=pending[-1][2]["loss"])
                 self._read(pending, meters)
+                if self.writer is not None:
+                    for k, m in meters.items():
+                        self.writer.add_scalar(f"train_loss/{k}", m.avg, self.train_global_step)
                 peak = (torch.cuda.max_memory_allocated(self.device)
                         if self.device.type == "cuda" else None)
                 self._record(epoch=self.epoch, iter=i, data_s=timer.times["data"],
@@ -314,6 +328,9 @@ class Trainer:
             self.model.train()
         self._record(epoch=self.epoch, eval=eval_dict, poses=num_pred,
                      eval_s=time.perf_counter() - t0, window_batches=len(self.valid_loader))
+        if self.writer is not None:
+            for k, v in eval_dict.items():
+                self.writer.add_scalar(f"eval/{k}", v, self.epoch)
         return eval_dict
 
     # ------------------------------------------------------------------ #
@@ -355,6 +372,11 @@ class Trainer:
             wait_pending_saves()
             dist.barrier()
         finally:
+            # a run that ends inside the profiled window still exports its trace
+            stop_trace()
+            if self.writer is not None:
+                self.writer.close()
+                self.writer = None
             # never unwind with a checkpoint write in flight; re-raises a
             # failed background write
             wait_pending_saves()

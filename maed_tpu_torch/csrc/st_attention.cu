@@ -20,6 +20,9 @@
 //       `_temporal_pallas`, public entry `temporal_attention`)
 //     maed_tpu/ops/st_attention.py::_temporal_v2_kernel (pallas_call in
 //       `_temporal_v2_pallas`, public entry `temporal_attention_fused`)
+// These kernels take head dims up to 128 (bf16 spatial and blocked: 16, 32,
+// 64 or 128); every other multiple of 8 up to 768 runs on
+// attention_general.cu, which the wrappers (ops/st_attention.py) pick.
 // The TPU pairs differ only in the layouts they read and write, so here q, k, v
 // and the output are addressed by strides (head dim contiguous): one kernel
 // reads the qkv projection's natural (BT, N, 3, h, d) or a (B, h, S, d) triple

@@ -47,6 +47,10 @@ LAUNCHES: dict[str, int] = {
     "spatial_attention": 0,   # csrc/st_attention.cu, attention over tokens
     "temporal_attention": 0,  # csrc/st_attention.cu, attention over frames
     "attention_blocked": 0,   # csrc/st_attention.cu, online softmax over a clip's tokens
+    # csrc/attention_general.cu, the head dims the three above do not take
+    "spatial_attention_general": 0,
+    "temporal_attention_general": 0,
+    "attention_blocked_general": 0,
 }
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -86,6 +90,10 @@ _SIGNATURES = {
     # o_frame, o_token, o_head, scale, stream
     "maed_temporal_attention": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
                                 _c_int, _c_int, _c_int, *(_c_i64,) * 6, _c_float, _c_ptr),
+    # is_bf16, online, q, k, v, out, n0, n1, n2, S, d, s0, s1, s2, srow,
+    # o0, o1, o2, orow, scale, stream
+    "maed_general_attention": (_c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
+                               _c_int, _c_int, _c_int, *(_c_i64,) * 8, _c_float, _c_ptr),
 }
 
 _lib = None

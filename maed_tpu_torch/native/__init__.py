@@ -1,5 +1,5 @@
 """ctypes bindings of the native (C++) host data path: JPEG decode, the
-affine crop and the ImageNet normalize of a clip.
+affine crop and the ImageNet normalize of a clip, and a JPEG encoder.
 
 Port of ``maed_tpu/native``. The library is built from ``clip_ops.cc`` with
 g++ (``build.sh``) at first use, into ``maed_tpu_torch/kernels/_build/``
@@ -7,7 +7,8 @@ under a name keyed on a hash of the two sources, beside the CUDA kernels.
 Unlike the JAX package's bindings it has no fallback: a failed build, a
 missing decoder or a frame that does not decode raises, and says what is
 missing. The decoder is libjpeg where it is installed and nvJPEG from the
-CUDA toolkit otherwise (:func:`decoder` says which).
+CUDA toolkit otherwise (:func:`decoder` says which); :func:`encode` uses
+the same library's encoder.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ _SIGNATURES = {
                              _u8_p, ctypes.c_int), ctypes.c_int),
     "jpeg_decode_rgb": ((_u8_p, ctypes.c_int64, _u8_p, ctypes.c_int64, _i32_p, _i32_p),
                         ctypes.c_int),
+    "jpeg_encode_rgb": ((_u8_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u8_p,
+                         ctypes.c_int64, _i64_p), ctypes.c_int),
     "jpeg_decoder_name": ((), ctypes.c_char_p),
     "jpeg_decoder_device_live": ((), ctypes.c_int),
 }
@@ -137,6 +140,28 @@ def decode(blob) -> np.ndarray:
     if rc != 0:
         raise IOError(f"JPEG does not decode with {decoder()} (rc {rc})")
     return out
+
+
+def encode(rgb, quality: int = 95) -> bytes:
+    """(H, W, 3) uint8 RGB -> the bytes of a baseline JPEG at ``quality``
+    with 4:2:0 chroma, cv2.imwrite's defaults. Raises IOError if the
+    encoder fails."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode takes (H, W, 3) uint8 RGB, got {rgb.dtype} {rgb.shape}")
+    h, w = rgb.shape[:2]
+    lib = library()
+    size = ctypes.c_int64(0)
+    out = np.empty(rgb.nbytes + (1 << 16), np.uint8)  # past any JPEG of these pixels
+    while True:
+        rc = lib.jpeg_encode_rgb(rgb.ctypes.data_as(_u8_p), h, w, int(quality),
+                                 out.ctypes.data_as(_u8_p), out.size, ctypes.byref(size))
+        if rc != -3:
+            break
+        out = np.empty(size.value, np.uint8)
+    if rc != 0:
+        raise IOError(f"JPEG encoding of a {h} x {w} image failed with {decoder()} (rc {rc})")
+    return out[:size.value].tobytes()
 
 
 def _inv_affines(trans) -> np.ndarray:

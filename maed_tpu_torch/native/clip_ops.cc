@@ -5,18 +5,20 @@
 //
 // A copy of maed_tpu/native/clip_ops.cc (the fused equivalent of the
 // original MAED's cv2.warpAffine + ToTensor + Normalize chain) whose crop
-// arithmetic is unchanged, with two differences: the decoder is required
+// arithmetic is unchanged, with three differences: the decoder is required
 // (libjpeg, or nvJPEG from the CUDA toolkit with host output where libjpeg
-// is absent; build.sh picks one and fails when it finds neither), and one
-// more entry point, jpeg_decode_rgb, decodes a single image for the paths
-// that augment before they crop. Exposed to Python through ctypes
-// (maed_tpu_torch/native/__init__.py).
+// is absent; build.sh picks one and fails when it finds neither); one more
+// entry point, jpeg_decode_rgb, decodes a single image for the paths that
+// augment before they crop; and jpeg_encode_rgb writes one (libjpeg's
+// compressor, or nvJPEG's encoder), for the tools that write JPEG frames.
+// Exposed to Python through ctypes (maed_tpu_torch/native/__init__.py).
 
 #include <algorithm>
 #include <atomic>
 #include <cmath>
 #include <csetjmp>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <new>
 #include <thread>
@@ -264,6 +266,40 @@ bool decode_jpeg(const uint8_t* buf, size_t len, std::vector<uint8_t>& out,
 }
 
 bool decoder_device_live() { return false; }
+
+// Encode h x w interleaved RGB as a baseline JPEG with libjpeg's defaults
+// (4:2:0 chroma, the ISLOW DCT, the standard Huffman tables), which is what
+// cv2.imwrite writes at the same quality. False on any failure.
+bool encode_jpeg(const uint8_t* rgb, int h, int w, int quality, std::vector<uint8_t>& out) {
+  jpeg_compress_struct cinfo;
+  JpegErr jerr;
+  unsigned char* mem = nullptr;
+  unsigned long size = 0;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = jpeg_err_exit;
+  if (setjmp(jerr.jb)) {
+    jpeg_destroy_compress(&cinfo);
+    return false;
+  }
+  jpeg_create_compress(&cinfo);
+  jpeg_mem_dest(&cinfo, &mem, &size);
+  cinfo.image_width = static_cast<JDIMENSION>(w);
+  cinfo.image_height = static_cast<JDIMENSION>(h);
+  cinfo.input_components = 3;
+  cinfo.in_color_space = JCS_RGB;
+  jpeg_set_defaults(&cinfo);
+  jpeg_set_quality(&cinfo, quality, TRUE);
+  jpeg_start_compress(&cinfo, TRUE);
+  while (cinfo.next_scanline < cinfo.image_height) {
+    JSAMPROW row = const_cast<uint8_t*>(rgb) + static_cast<size_t>(cinfo.next_scanline) * w * 3;
+    jpeg_write_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_compress(&cinfo);
+  out.assign(mem, mem + size);
+  jpeg_destroy_compress(&cinfo);
+  std::free(mem);
+  return true;
+}
 
 #else  // HAVE_NVJPEG
 
@@ -525,6 +561,54 @@ bool decode_jpeg(const uint8_t* buf, size_t len, std::vector<uint8_t>& out,
 // did must not fork.
 bool decoder_device_live() { return g_nv_live.load(); }
 
+// Encode h x w interleaved RGB as a baseline JPEG on the card with nvJPEG's
+// encoder: 4:2:0 chroma (cv2.imwrite's default), the standard Huffman
+// tables, the quality's scaled standard quantization tables. False on any
+// failure.
+bool encode_jpeg(const uint8_t* rgb, int h, int w, int quality, std::vector<uint8_t>& out) {
+  nvjpegHandle_t handle = nv_handle();
+  if (handle == nullptr) return false;
+  const size_t bytes = static_cast<size_t>(h) * w * 3;
+  cudaStream_t stream = nullptr;
+  nvjpegEncoderState_t state = nullptr;
+  nvjpegEncoderParams_t params = nullptr;
+  uint8_t* dev = nullptr;
+  bool ok =
+      cudaStreamCreateWithFlags(&stream, cudaStreamNonBlocking) == cudaSuccess &&
+      nvjpegEncoderStateCreate(handle, &state, stream) == NVJPEG_STATUS_SUCCESS &&
+      nvjpegEncoderParamsCreate(handle, &params, stream) == NVJPEG_STATUS_SUCCESS &&
+      nvjpegEncoderParamsSetQuality(params, quality, stream) == NVJPEG_STATUS_SUCCESS &&
+      nvjpegEncoderParamsSetSamplingFactors(params, NVJPEG_CSS_420, stream) ==
+          NVJPEG_STATUS_SUCCESS &&
+      nvjpegEncoderParamsSetOptimizedHuffman(params, 0, stream) == NVJPEG_STATUS_SUCCESS &&
+      cudaMalloc(reinterpret_cast<void**>(&dev), bytes) == cudaSuccess &&
+      cudaMemcpyAsync(dev, rgb, bytes, cudaMemcpyHostToDevice, stream) == cudaSuccess;
+  if (ok) {
+    nvjpegImage_t img;
+    std::memset(&img, 0, sizeof(img));
+    img.channel[0] = dev;
+    img.pitch[0] = static_cast<size_t>(w) * 3;
+    size_t length = 0;
+    ok = nvjpegEncodeImage(handle, state, params, &img, NVJPEG_INPUT_RGBI, w, h, stream) ==
+             NVJPEG_STATUS_SUCCESS &&
+         nvjpegEncodeRetrieveBitstream(handle, state, nullptr, &length, stream) ==
+             NVJPEG_STATUS_SUCCESS &&
+         cudaStreamSynchronize(stream) == cudaSuccess;
+    if (ok) {
+      out.resize(length);
+      ok = nvjpegEncodeRetrieveBitstream(handle, state, out.data(), &length, stream) ==
+               NVJPEG_STATUS_SUCCESS &&
+           cudaStreamSynchronize(stream) == cudaSuccess;
+      out.resize(length);
+    }
+  }
+  if (dev != nullptr) cudaFree(dev);
+  if (params != nullptr) nvjpegEncoderParamsDestroy(params);
+  if (state != nullptr) nvjpegEncoderStateDestroy(state);
+  if (stream != nullptr) cudaStreamDestroy(stream);
+  return ok;
+}
+
 #endif  // HAVE_LIBJPEG / HAVE_NVJPEG
 
 // Threaded JPEG-decode + crop driver shared by the f32/u8 entry points.
@@ -616,6 +700,22 @@ int jpeg_decode_rgb(const uint8_t* jpeg, int64_t len, uint8_t* out,
     return -2;
   }
   std::memcpy(out, pixels.data(), static_cast<size_t>(need));
+  return 0;
+}
+
+// Encode h x w x 3 interleaved RGB as a baseline JPEG at `quality` (1 to
+// 100) with 4:2:0 chroma into out (cap bytes). Writes the encoded size to
+// *len. Returns 0 on success, -2 when the encoder fails or the size is out of
+// range, -3 when cap is too small (nothing written; *len says what is needed).
+int jpeg_encode_rgb(const uint8_t* rgb, int h, int w, int quality, uint8_t* out, int64_t cap,
+                    int64_t* len) {
+  if (h < 1 || w < 1 || h > kMaxJpegDim || w > kMaxJpegDim || quality < 1 || quality > 100)
+    return -2;
+  std::vector<uint8_t> jpeg;
+  if (!encode_jpeg(rgb, h, w, quality, jpeg) || jpeg.empty()) return -2;
+  *len = static_cast<int64_t>(jpeg.size());
+  if (out == nullptr || cap < *len) return -3;
+  std::memcpy(out, jpeg.data(), jpeg.size());
   return 0;
 }
 

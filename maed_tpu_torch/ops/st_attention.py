@@ -13,9 +13,13 @@ projection's natural (BT, N, 3, h, d) layout:
   ``temporal_attention_fused`` (BT, N, h*d) as ``_temporal_v2_kernel`` does.
 
 One CUDA kernel serves each branch, addressed by strides, so no layout is
-copied. In f32 the spatial kernel takes any head dim that is a multiple of 8
-up to 128; in bf16 it runs on the tensor cores alone, with a head dim of 16,
-32, 64 or 128, and raises for another. ``*_reference*`` are the plain versions with the kernels' rounding
+copied. Every kernel takes a head dim d that is a multiple of 8 from 8 to
+768 (768: embed 768 in one head, the widest the JAX encoder forms), in f32
+and bf16, and raises for another. The kernels of ``csrc/st_attention.cu``
+take the head dims they were built for (f32 up to 128; bf16 spatial 16, 32,
+64 or 128 on the TMA + wgmma kernel; bf16 temporal up to 128); every other
+d goes to ``csrc/attention_general.cu``, counted apart in
+``kernels.LAUNCHES`` (``*_general``). ``*_reference*`` are the plain versions with the kernels' rounding
 points: scores of x-dtype operands accumulated in promote(dtype, f32), times
 scale, softmax there, p rounded to v's dtype, the p v product accumulated in
 promote(dtype, f32). The four entry points have a gradient: autograd through
@@ -33,10 +37,31 @@ from maed_tpu_torch import kernels
 from maed_tpu_torch.ops import library
 from maed_tpu_torch.ops.recompute import differentiable
 
-MAX_HEAD_DIM = 128   # the kernels keep 4 output columns per lane
+MAX_HEAD_DIM = 768   # the general kernel (csrc/attention_general.cu) walks d in chunks
+FAST_HEAD_DIM = 128  # st_attention.cu's kernels keep 4 output columns per lane
 MAX_TOKENS = 1024    # spatial: a row's scores in shared memory (f32), 4 key chunks (bf16)
 MAX_FRAMES = 32      # temporal: two 16-frame tiles (bf16), a warp's shared memory (f32)
-MMA_HEAD_DIMS = (16, 32, 64, 128)  # spatial in bf16: the tensor-core kernel's head dims
+MMA_HEAD_DIMS = (16, 32, 64, 128)  # spatial and blocked in bf16: the wgmma kernels' head dims
+
+
+def general_head_dim(d: int, is_bf16: int, temporal: bool = False) -> bool:
+    """Whether head dim ``d`` runs on the general kernel: beyond FAST_HEAD_DIM,
+    or, for spatial and blocked attention in bf16, outside MMA_HEAD_DIMS."""
+    return d > FAST_HEAD_DIM or (bool(is_bf16) and not temporal and d not in MMA_HEAD_DIMS)
+
+
+def launch_general(name: str, count: str, is_bf16: int, online: bool, q, k, v, out,
+                   sizes, strides, o_strides, S: int, scale) -> None:
+    """One launch of ``csrc/attention_general.cu``: batch items of ``sizes``
+    (n0, n1, n2), S rows each, q, k, v at ``strides`` (s0, s1, s2, srow) and
+    out at ``o_strides`` (o0, o1, o2, orow), all in elements."""
+    lib = kernels.library()
+    with torch.cuda.device(q.device):
+        kernels.check(lib.maed_general_attention(
+            is_bf16, int(online), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *sizes, S, q.shape[-1], *strides, *o_strides, scale,
+            torch.cuda.current_stream().cuda_stream), f"{name} (maed_general_attention)")
+    kernels.LAUNCHES[count] += 1
 
 
 def _attend(q, k, v, scale, scores: str, mix: str, drop=None) -> torch.Tensor:
@@ -113,8 +138,8 @@ def check_operands(name: str, q, k, v) -> int:
                              f"beside {q.dtype} {tuple(q.shape)} {q.stride()} on {q.device}")
     d = q.shape[-1]
     if d % 8 or not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: the kernel takes a head dim that is a multiple of 8 and "
-                         f"at most {MAX_HEAD_DIM}, got {d}")
+        raise ValueError(f"{name}: the kernels take a head dim that is a multiple of 8 from 8 "
+                         f"to {MAX_HEAD_DIM}, got {d}")
     per16 = 16 // q.element_size()
     if q.stride(-1) != 1 or any(s % per16 for s in q.stride()[:-1]) \
             or any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -138,6 +163,12 @@ def launch_bhsd(name: str, q, k, v, out, scale, blocked: bool = False) -> None:
         raise ValueError(f"{name}: {B} x {h} x {S} exceeds the grid")
     if out.shape != q.shape or out.stride(-1) != 1 or out.dtype != q.dtype:
         raise ValueError(f"{name}: bad output view {tuple(out.shape)} {out.stride()}")
+    if general_head_dim(d, is_bf16):
+        launch_general(name, "attention_blocked_general" if blocked else
+                       "spatial_attention_general", is_bf16, blocked, q, k, v, out, (B, h, 1),
+                       (*q.stride()[:2], 0, q.stride(2)), (*out.stride()[:2], 0, out.stride(2)),
+                       S, scale)
+        return
     if is_bf16 and (d not in MMA_HEAD_DIMS or any(s % 2 for s in out.stride()[:3])
                     or out.data_ptr() % 4):
         raise ValueError(f"{name}: bf16 runs on the tensor cores alone, which take a head dim "
@@ -200,6 +231,13 @@ def _temporal(name, qkv, seqlen, scale, btc: bool):
     else:
         out = torch.empty((h, BT, N, d), dtype=qkv.dtype, device=qkv.device)
         o_strides = (N * d, d, BT * N * d)
+    if general_head_dim(d, is_bf16, temporal=True):
+        # batch items (clip, token, head), a clip's frames its rows
+        s_frame, s_token, s_head = q.stride()[:3]
+        launch_general(name, "temporal_attention_general", is_bf16, False, q, k, v, out,
+                       (BT // seqlen, N, h), (seqlen * s_frame, s_token, s_head, s_frame),
+                       (seqlen * o_strides[0], *o_strides[1:], o_strides[0]), seqlen, scale)
+        return out
     lib = kernels.library()
     with torch.cuda.device(qkv.device):
         kernels.check(lib.maed_temporal_attention(

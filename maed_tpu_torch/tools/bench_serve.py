@@ -23,23 +23,13 @@ import argparse
 import http.client
 import io
 import json
-import subprocess
 import threading
 import time
 from urllib.parse import urlparse
 
 import numpy as np
 
-
-def card_identity():
-    """nvidia-smi's "name, power.limit" of the first card, or None."""
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             check=True, timeout=60)
-    except (OSError, subprocess.SubprocessError):
-        return None
-    return out.stdout.strip().splitlines()[0]
+from maed_tpu_torch.utils.timing import card_identity
 
 
 def request_body(spec: dict, seed: int = 0) -> bytes:

@@ -7,9 +7,12 @@
   JPEG frames only.
 - :func:`image_size` reads (height, width) from a JPEG's header alone.
 - :func:`write_png` writes 8-bit RGB as PNG with ``zlib`` and ``struct`` from
-  the standard library. The machine with the card has no JPEG encoder the
-  port may use, so the port writes its overlays as PNG where the JAX
+  the standard library. The port writes its overlays as PNG where the JAX
   package keeps the source frame's extension.
+- :func:`write_jpeg` writes 8-bit RGB as a baseline JPEG through the native
+  library's encoder (libjpeg's, or nvJPEG's on the card's machine), at
+  cv2.imwrite's quality 95 and 4:2:0 chroma by default, for the frames the
+  port must read back. A failed encode raises; nothing else writes it.
 """
 
 from __future__ import annotations
@@ -75,3 +78,10 @@ def write_png(path: str, rgb: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes())) + _chunk(b"IEND", b""))
+
+
+def write_jpeg(path: str, rgb: np.ndarray, quality: int = 95) -> None:
+    """Write (H, W, 3) uint8 RGB as a JPEG (:func:`native.encode`)."""
+    blob = native.encode(rgb, quality)
+    with open(path, "wb") as f:
+        f.write(blob)

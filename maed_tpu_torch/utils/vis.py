@@ -9,7 +9,9 @@ Bresenham walk, the clipping and, for a thick line, the filled polygon with
 round caps, in the fixed-point arithmetic cv2 uses), checked equal to
 OpenCV 5.0's, bit for bit, at thickness 1 and 2 and at radii 1 to 7, with
 end points and centres inside and outside the image
-(``tests/test_torch_port_demo.py``). :func:`visualize_sequence` needs
+(``tests/test_torch_port_demo.py``); :func:`hsv_to_bgr_u8` is
+``cv2.cvtColor(..., COLOR_HSV2BGR)`` on uint8 images, equal to OpenCV 5.0's
+on every HSV triple (``tests/test_torch_port_tools.py``). :func:`visualize_sequence` needs
 matplotlib, imported in the function: where it is absent it raises and
 names it.
 """
@@ -202,6 +204,57 @@ def _fill_convex_poly(img, v, color):
         y += 1
         if y > ymax:
             break
+
+
+# cv2's uint8 HSV -> BGR: each row's first whole blocks of HSV_VECTOR_PIXELS
+# pixels take its vector path (sector by truncation, no grey special case,
+# the result truncated), the rest its scalar path (sector by floor, grey
+# where s = 0, the result rounded); both form 1 - s h and 1 - s (1 - h) with
+# one rounding (a fused multiply-add). 32: a row of AVX2's 32-byte vectors.
+HSV_VECTOR_PIXELS = 32
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def _fused_one_minus(s: np.ndarray, h: np.ndarray) -> np.ndarray:
+    """f32(1 - s h) with one rounding: the f32 product is exact in f64."""
+    return (1.0 - s.astype(np.float64) * h.astype(np.float64)).astype(np.float32)
+
+
+def _hsv_to_bgr_path(hsv: np.ndarray, vector: bool) -> np.ndarray:
+    f32 = np.float32
+    h = hsv[..., 0].astype(f32) * f32(6.0 / 180.0)
+    s = hsv[..., 1].astype(f32) * f32(1.0 / 255.0)
+    v = hsv[..., 2].astype(f32) * f32(1.0 / 255.0)
+    if vector:
+        sector = np.trunc(h)
+        frac = h - sector
+        sector = (sector - np.trunc(sector * f32(1.0 / 6.0)) * f32(6.0)).astype(np.int64)
+    else:
+        h = np.fmod(h, f32(6.0))
+        sector = np.floor(h)
+        frac = h - sector
+        sector = sector.astype(np.int64)
+    tab = np.stack([v, v * (f32(1.0) - s), v * _fused_one_minus(s, frac),
+                    v * _fused_one_minus(s, f32(1.0) - frac)], -1).astype(f32)
+    bgr = np.take_along_axis(tab, _HSV_SECTORS[sector], -1)
+    if not vector:
+        bgr = np.where((s == 0)[..., None], v[..., None], bgr)
+    x = bgr.astype(f32) * f32(255.0)
+    return np.clip(np.trunc(x) if vector else np.rint(x), 0, 255).astype(np.uint8)
+
+
+def hsv_to_bgr_u8(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)`` for an (H, W, 3) uint8 image
+    (hue 0 to 179), OpenCV 5.0's arithmetic bit for bit (see
+    HSV_VECTOR_PIXELS)."""
+    hsv = np.asarray(hsv, np.uint8)
+    if hsv.ndim != 3 or hsv.shape[2] != 3:
+        raise ValueError(f"hsv_to_bgr_u8 takes (H, W, 3) uint8, got {hsv.shape}")
+    cut = hsv.shape[1] // HSV_VECTOR_PIXELS * HSV_VECTOR_PIXELS
+    out = np.empty_like(hsv)
+    out[:, :cut] = _hsv_to_bgr_path(hsv[:, :cut], vector=True)
+    out[:, cut:] = _hsv_to_bgr_path(hsv[:, cut:], vector=False)
+    return out
 
 
 def draw_disk(img: np.ndarray, center, radius: int, color) -> np.ndarray:

@@ -1,9 +1,11 @@
 """The port's kernels against their plain versions on the card, at small and
-ragged shapes (chip_smoke.py checks them at the flagship shapes), also
+ragged shapes (chip_smoke.py checks them at the flagship shapes), the
+attention kernels at every head dim the JAX models form, also
 inside the stage-1 model (the ResNet-50 with BatchNorm, whose only kernel
 is SMPL's skinning); the native
 JPEG decoder of the card's machine against cv2's pixels of the fixture
-frames, and the loader's workers under a live CUDA context.
+frames and its encoder's round trip, the accept tool's oracle, and the
+loader's workers under a live CUDA context.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 The machine with the card has no JAX, and tests/conftest.py imports it, so
@@ -449,25 +451,21 @@ def test_spatial_attention_kernel(cuda, dtype, atol, rtol, BT, N, h, d):
     64-row query tiles and TMA boxes and against the 8-column score steps
     (197, 65, 37); one token; a full tile (64) and a full 256-key chunk; and
     the two-pass range past one chunk (257 = a last chunk of one key, 577,
-    1024 = 4 chunks). bf16 is the tensor-core kernel, which takes head dims
-    16, 32, 64, 128 and raises for 24 and 8; f32 takes them all. bf16 at 1e-2
-    abs + 1e-2 rel: a probability or an output (below 1) rounding to the
-    neighbouring value."""
-    if dtype == torch.bfloat16 and d not in TST.MMA_HEAD_DIMS:
-        before = dict(kernels.LAUNCHES)
-        with pytest.raises(ValueError, match="tensor cores"):
-            TST.spatial_attention_btc(qkv_input(10, BT, N, h, d, dtype, cuda), d ** -0.5)
-        assert kernels.LAUNCHES == before
-        return
+    1024 = 4 chunks). bf16 is the tensor-core kernel at head dims 16, 32, 64,
+    128, and the general kernel (csrc/attention_general.cu) at 24 and 8; f32
+    takes them all. bf16 at 1e-2 abs + 1e-2 rel: a probability or an output
+    (below 1) rounding to the neighbouring value."""
     qkv = qkv_input(10, BT, N, h, d, dtype, cuda)
     scale = d ** -0.5
-    before = kernels.LAUNCHES["spatial_attention"]
+    count = ("spatial_attention_general" if TST.general_head_dim(d, dtype == torch.bfloat16)
+             else "spatial_attention")
+    before = kernels.LAUNCHES[count]
     btc = TST.spatial_attention_btc(qkv, scale)
     lead = TST.spatial_attention(qkv, scale)
     q, k, v = (a.transpose(1, 2).contiguous() for a in qkv.unbind(2))
     bhsd = TA.fused_attention(q, k, v)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["spatial_attention"] == before + 3
+    assert kernels.LAUNCHES[count] == before + 3
     assert btc.shape == (BT, N, h * d) and lead.shape == (h, BT, N, d) and bhsd.shape == q.shape
     assert_close(btc.float(), TST.spatial_reference_btc(qkv, scale).float(), atol, rtol)
     assert_close(lead.float(), TST.spatial_reference(qkv, scale).float(), atol, rtol)
@@ -557,16 +555,16 @@ def test_blocked_attention_kernel_small(cuda, dtype, atol, rtol, B, h, S, d):
     """The blocked kernel called directly below the dispatch limit: one tile,
     a full 64-row TMA box, S ragged against the 128-row and 128-key tiles
     (130: a second key tile of 2 keys and a second query block of 2 rows),
-    one token; head dim 24 runs in f32 and raises in bf16 (tensor cores
-    alone)."""
+    one token; head dim 24 runs on the f32 kernel, and in bf16 on the
+    general kernel."""
     rng = np.random.RandomState(30)
     q, k, v = (to_torch(rng.randn(B, h, S, d), dtype).to(cuda) for _ in range(3))
-    if dtype == torch.bfloat16 and d not in TST.MMA_HEAD_DIMS:
-        with pytest.raises(ValueError, match="tensor cores"):
-            TA.attention_blocked(q, k, v)
-        return
+    count = ("attention_blocked_general" if TST.general_head_dim(d, dtype == torch.bfloat16)
+             else "attention_blocked")
+    before = kernels.LAUNCHES[count]
     got = TA.attention_blocked(q, k, v)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES[count] == before + 1
     assert_close(got.float(), TA.attention_blocked_reference(q, k, v, d ** -0.5).float(),
                  atol, rtol)
     # the two kernels compute one function: in f32 they agree to rounding
@@ -592,6 +590,100 @@ def test_blocked_attention_raises_on_what_the_kernel_does_not_take(cuda):
         TA.fused_attention(q, q, q, out=torch.zeros(1, 2, 1030, 8, device=cuda))
     with pytest.raises(ValueError):  # (B, S, d)
         TA.fused_attention(q[0], q[0], q[0])
+    assert kernels.LAUNCHES == launches
+
+
+GENERAL_HEAD_DIMS = (8, 24, 80, 96, 384, 768)
+
+
+def _general_count(name, d, dtype):
+    """The LAUNCHES key of the kernel that takes head dim d in dtype."""
+    temporal = name == "temporal_attention"
+    general = TST.general_head_dim(d, dtype == torch.bfloat16, temporal=temporal)
+    return f"{name}_general" if general else name
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-5, 0.0),
+                                               (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("d", GENERAL_HEAD_DIMS)
+@pytest.mark.parametrize("BT, N, h", [(3, 37, 2), (2, 197, 1)])
+def test_spatial_attention_any_head_dim(cuda, dtype, atol, rtol, d, BT, N, h):
+    """Every head dim the JAX models form (a multiple of 8 up to 768): 80 and
+    96 of the stock ViTs, 384 of the tools' 2-head model, 768 of one head;
+    the general kernel takes the ones the older kernels do not (all but 8
+    and 24 in f32, all in bf16). Tolerances as test_spatial_attention_kernel."""
+    qkv = qkv_input(40 + d, BT, N, h, d, dtype, cuda)
+    scale = d ** -0.5
+    count = _general_count("spatial_attention", d, dtype)
+    before = kernels.LAUNCHES[count]
+    btc = TST.spatial_attention_btc(qkv, scale)
+    lead = TST.spatial_attention(qkv, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[count] == before + 2
+    assert_close(btc.float(), TST.spatial_reference_btc(qkv, scale).float(), atol, rtol)
+    assert_close(lead.float(), TST.spatial_reference(qkv, scale).float(), atol, rtol)
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-5, 0.0),
+                                               (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("d", GENERAL_HEAD_DIMS)
+@pytest.mark.parametrize("BT, T, N, h", [(32, 16, 5, 2), (34, 17, 3, 1)])
+def test_temporal_attention_any_head_dim(cuda, dtype, atol, rtol, d, BT, T, N, h):
+    """As test_spatial_attention_any_head_dim over frames: T 16 (one
+    16-row query tile) and 17 (a second tile of one row), the projection
+    sliced so that no stride is the natural one."""
+    qkv = qkv_input(50 + d, BT, N + 1, 2 * h, d, dtype, cuda)[:, 1:, :, ::2]
+    scale = d ** -0.5
+    count = _general_count("temporal_attention", d, dtype)
+    before = kernels.LAUNCHES[count]
+    btc = TST.temporal_attention_fused(qkv, T, scale)
+    lead = TST.temporal_attention(qkv, T, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[count] == before + 2
+    assert_close(btc.float(), TST.temporal_reference_btc(qkv, T, scale).float(), atol, rtol)
+    assert_close(lead.float(), TST.temporal_reference(qkv, T, scale).float(), atol, rtol)
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 2e-5, 0.0),
+                                               (torch.bfloat16, 2e-3, 1e-2)])
+@pytest.mark.parametrize("d", GENERAL_HEAD_DIMS)
+@pytest.mark.parametrize("S", [70, 1025])
+def test_blocked_attention_any_head_dim(cuda, dtype, atol, rtol, d, S):
+    """The blocked kernel's online softmax at every head dim, called
+    directly (S 70: three key tiles of the general kernel, the last of 6
+    keys) and through fused_attention's dispatch with the output written
+    in place (S 1025). Tolerances as test_blocked_attention_kernel: the
+    general kernel's 32-key tiles and the plain version's 512-key blocks
+    move the running max at other keys."""
+    h = 2
+    qkv = qkv_input(60 + d, 2, S, h, d, dtype, cuda)
+    q, k, v = coupling_views(qkv, 1)
+    scale = d ** -0.5
+    count = _general_count("attention_blocked", d, dtype)
+    before = kernels.LAUNCHES[count]
+    if S > TST.MAX_TOKENS:
+        result = torch.empty(2, S, h * d, dtype=dtype, device=cuda)
+        got = TA.fused_attention(q, k, v, scale, out=result.view(2, S, h, d).transpose(1, 2))
+        assert got.data_ptr() == result.data_ptr()
+    else:
+        got = TA.attention_blocked(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[count] == before + 1
+    assert_close(got.float(), TA.attention_blocked_reference(q, k, v, scale).float(), atol, rtol)
+
+
+@pytest.mark.parametrize("d", [12, 776, 1024])
+def test_attention_refuses_head_dims_outside_the_rule(cuda, d):
+    """A head dim that is not a multiple of 8, or above 768, raises in both
+    dtypes and every kernel, and the message says what the kernels take."""
+    launches = dict(kernels.LAUNCHES)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.zeros(4, 5, 3, 1, d, device=cuda, dtype=dtype)
+        for call in (lambda: TST.spatial_attention(qkv, 0.25),
+                     lambda: TST.temporal_attention_fused(qkv, 2, 0.25),
+                     lambda: TA.attention_blocked(*coupling_views(qkv, 4))):
+            with pytest.raises(ValueError, match="multiple of 8 from 8 to 768"):
+                call()
     assert kernels.LAUNCHES == launches
 
 
@@ -930,8 +1022,8 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         TST.spatial_attention(qkv.half(), 0.25)
     with pytest.raises(ValueError):  # head dim 12
         TST.spatial_attention_btc(torch.zeros(4, 5, 3, 2, 12, device=cuda), 0.25)
-    with pytest.raises(ValueError):  # head dim 136
-        TST.temporal_attention_fused(torch.zeros(4, 5, 3, 1, 136, device=cuda), 2, 0.25)
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 768"):  # head dim 776
+        TST.temporal_attention_fused(torch.zeros(4, 5, 3, 1, 776, device=cuda), 2, 0.25)
     with pytest.raises(ValueError):  # 33 frames
         TST.temporal_attention(torch.zeros(33, 5, 3, 2, 16, device=cuda), 33, 0.25)
     with pytest.raises(ValueError):  # 4 frames do not split into clips of 3
@@ -1111,6 +1203,55 @@ def test_native_decoder_against_cv2s_pixels(cuda):
     assert all(native.decode(b).shape == (360, 480, 3) for b in blobs)
     with pytest.raises(IOError):
         native.decode(blobs[0][:100])
+
+
+def test_native_jpeg_encoder_round_trip(cuda):
+    """The native library's encoder on this machine (nvJPEG's where libjpeg
+    is absent) at quality 95, 4:2:0: the fixture frames (blurred noise)
+    decode within 4 levels of luma (1.0 on average) and 2.5 on average a
+    channel of the pixels encoded (libjpeg's encoder: 1.82, 0.24, 1.56;
+    nvJPEG's: 2.60, 0.597, 2.08); a frame of the accept tool's coloured
+    disks, whose chroma 4:2:0 halves, within 24 levels of luma (1.5 on
+    average) and 12 on average a channel (libjpeg: 18.1, 0.41, 3.6;
+    nvJPEG's chroma loses more there: 10.4, 1.13, 10.07). A refused encode
+    raises."""
+    from maed_tpu_torch import native
+    from maed_tpu_torch.tools import accept_synthetic as PA
+
+    luma = np.array([0.299, 0.587, 0.114])
+    frames = [native.decode(p.read_bytes()) for p in sorted(FIXTURE_DIR.glob("frame_*.jpg"))]
+    rng = np.random.RandomState(8)
+    disks = PA.render_frame(rng.uniform(0, 64, (49, 2)), rng.randn(49), 64,
+                            PA.joint_palette(49), 2)[..., ::-1]
+    for rgb, luma_max, luma_mean, mean in ((np.stack(frames), 4.0, 1.0, 2.5),
+                                           (disks[None], 24.0, 1.5, 12.0)):
+        err = np.stack([native.decode(native.encode(x, 95)).astype(np.int32) - x for x in rgb])
+        y = np.abs(err @ luma)
+        print(f"{native.decoder()} q95: luma max {y.max():.2f} mean {y.mean():.3f}, "
+              f"channel mean {np.abs(err).mean():.3f}")
+        assert y.max() <= luma_max and y.mean() <= luma_mean and np.abs(err).mean() <= mean
+    blob = native.encode(frames[0])
+    assert blob[:3] == b"\xff\xd8\xff" and native.jpeg_size(blob) == frames[0].shape[:2]
+    with pytest.raises(IOError):
+        native.encode(frames[0], quality=0)
+    with pytest.raises(ValueError):
+        native.encode(frames[0][..., :2])
+
+
+def test_accept_oracle_on_the_card(cuda, tmp_path):
+    """The port's accept tool on the card: generate (1 + 2 videos of 40
+    frames at 48 px; the SMPL forwards through kernel A, the frames through
+    the native encoder) and the GT oracle through the eval protocol, every
+    metric below 0.01 mm as on the CPU."""
+    from maed_tpu_torch.tools import accept_synthetic as PA
+
+    kernels.reset_launches()
+    PA.generate(str(tmp_path), n_videos=1, frames_per_video=40, size=48, device=cuda)
+    assert kernels.LAUNCHES["skinning"] == 3
+    metrics = PA.oracle(str(tmp_path), tol_mm=0.1, device=cuda)
+    for k in ("mpjpe", "pa-mpjpe", "pve"):
+        assert metrics[k] < 0.01, (k, metrics)
+    assert kernels.LAUNCHES["skinning"] > 3
 
 
 def test_loader_workers_under_a_live_cuda_context(cuda, monkeypatch):

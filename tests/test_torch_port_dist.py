@@ -133,7 +133,9 @@ def test_two_ranks_rank0_writes_the_global_metrics(two_ranks):
     ranks' own (which differ: each rank trains on its shard), and the
     validation's are the count-weighted mean of the ranks' pairs."""
     logdir = two_ranks["u"]
-    assert sorted(p.name for p in logdir.iterdir()) == [
+    names = sorted(p.name for p in logdir.iterdir())
+    events = [n for n in names if n.startswith("events.out.tfevents.")]  # the TensorBoard file
+    assert len(events) == 1 and [n for n in names if n not in events] == [
         "best.txt", "config.yaml", "epoch_0.pth.tar", "model_best.pth.tar", "train_log.txt",
         "train_metrics.jsonl"]
     steps = step_records(logdir)

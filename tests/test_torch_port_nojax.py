@@ -16,7 +16,8 @@ inference.pkl. A second interpreter, with the same modules blocked, runs
 stage 1 (``test_stage1_runs_without_jax``), a third exports an artifact
 and serves it from a fresh interpreter that loads no model code
 (``test_serving_needs_neither_jax_nor_model_code``), a fourth, with
-matplotlib blocked too, runs the demo, visualize and a preprocessor
+matplotlib blocked too, runs the demo, visualize, a preprocessor and the
+tools ``accept_synthetic`` and ``bench_train``
 (``test_demo_visualize_and_preprocess_run_without_jax``). In the end no
 module of maed_tpu, jax, flax, triton, yaml, cv2, joblib or PIL is loaded."""
 
@@ -125,8 +126,11 @@ def cli(module, *argv):
     runpy.run_module(module, run_name="__main__")
 cli("maed_tpu_torch.train")
 (logdir,) = glob.glob("results/*_tiny")
-assert sorted(os.listdir(logdir)) == ["best.txt", "config.yaml", "epoch_0.pth.tar",
-                                      "model_best.pth.tar", "train_log.txt", "train_metrics.jsonl"]
+names = sorted(os.listdir(logdir))
+events = [n for n in names if n.startswith("events.out.tfevents.")]  # the TensorBoard file
+assert len(events) == 1 and [n for n in names if n not in events] == [
+    "best.txt", "config.yaml", "epoch_0.pth.tar", "model_best.pth.tar", "train_log.txt",
+    "train_metrics.jsonl"]
 cli("maed_tpu_torch.eval", "--checkpoint", os.path.join(logdir, "model_best.pth.tar"),
     "--eval_ds", "3dpw", "--eval_set", "val", "--output_path", "out")
 with open("out/inference.pkl", "rb") as f:
@@ -364,6 +368,14 @@ run("maed_tpu_torch.data.preprocess.posetrack", "--inp_dir", "posetrack", "--out
 with open("posetrack_train_db.pt", "rb") as f:
     db = pickle.load(f)
 assert db["joints2D"].shape == (9, 49, 3) and db["bbox"].shape == (9, 4)
+for phase in ("generate", "oracle"):
+    run("maed_tpu_torch.tools.accept_synthetic", phase, "--out", "synacc", "--device", "cpu",
+        "--videos", "1", "--frames", "24", "--size", "48")
+with open("synacc/data/database/synacc_val_db.pt", "rb") as f:
+    assert pickle.load(f)["joints3D"].shape == (48, 49, 4)
+run("maed_tpu_torch.tools.bench_train", "--learn", "2", "--smoke", "--device", "cpu", "--dtype",
+    "f32", "--out", "soak.json")
+assert len(json.load(open("soak.json"))["losses"]) == 2
 assert not [name for name, mod in sys.modules.items()
             if mod is not None and name.split(".")[0] in BLOCKED + ("matplotlib",)]
 print("NOJAX_OK")
@@ -481,6 +493,9 @@ def test_demo_visualize_and_preprocess_run_without_jax(blocked_runs):
     maed_tpu_torch.demo --render`` on the fixture JPEGs and a tiny ``DEVICE
     cpu`` config (inference.pkl as a plain pickle, an overlay PNG a frame),
     ``python -m maed_tpu_torch.visualize`` on its inference.pkl (the same
-    PNGs, byte for byte) and ``python -m
-    maed_tpu_torch.data.preprocess.posetrack`` on a one-track fixture."""
+    PNGs, byte for byte), ``python -m
+    maed_tpu_torch.data.preprocess.posetrack`` on a one-track fixture, and
+    the two tools: ``accept_synthetic generate`` and ``oracle`` (1 + 2
+    videos of 24 frames at 48 px: the JPEG encoder, the DBs as plain
+    pickles) and ``bench_train --learn 2 --smoke`` in f32."""
     finish_blocked(blocked_runs["demo"])

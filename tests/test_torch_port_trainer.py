@@ -166,7 +166,9 @@ def test_trainer_records_the_steps_losses(workdir, monkeypatch, uninterrupted):
     ev = [r for r in records(uninterrupted.logdir) if "eval" in r]
     assert len(ev) == 1 and ev[0]["window_batches"] == len(uninterrupted.valid_loader)
     logdir = Path(uninterrupted.logdir)
-    assert sorted(p.name for p in logdir.iterdir()) == [
+    names = sorted(p.name for p in logdir.iterdir())
+    events = [n for n in names if n.startswith("events.out.tfevents.")]  # the TensorBoard file
+    assert len(events) == 1 and [n for n in names if n not in events] == [
         "best.txt", "config.yaml", "epoch_0.pth.tar", "model_best.pth.tar", "train_log.txt",
         "train_metrics.jsonl"]
     assert float((logdir / "best.txt").read_text()) == ev[0]["eval"]["pa-mpjpe"]
