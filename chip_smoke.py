@@ -618,9 +618,15 @@ def phase_kernels(device):
 # The head dims of csrc/attention_general.cu held in phase_kernels (the stock
 # ViTs' 80 and 96, the tools' 2-head 384, one head's 768, and 24), and the
 # ones also timed at the flagship's tokens (197 a frame, 16 frames, the 768
-# channels in 768 / d heads).
+# channels in 768 / d heads; d 80 in vit_huge's 16 heads, 1280 channels,
+# since 768 is no multiple of 80).
 GENERAL_DIMS = (24, 80, 96, 384, 768)
-GENERAL_TIMED = (96, 384)
+GENERAL_TIMED = (80, 96, 384, 768)
+
+
+def general_heads(d: int) -> int:
+    """Heads of head dim d at GENERAL_TIMED's shapes."""
+    return 16 if d == 80 else 768 // d
 
 
 def general_attention_checks(device):
@@ -629,11 +635,12 @@ def general_attention_checks(device):
     token and frame counts: 2 clips of 16 frames of 37 tokens, 2 heads;
     blocked over 1100 keys (through fused_attention's dispatch). Tolerances
     as the older kernels' at the flagship (bf16 1e-2 + 1e-2 rel; blocked f32
-    2e-5, bf16 2e-3 + 1e-2 rel: the general kernel's 32-key tiles move the
-    running max at other keys than the plain version's 512-key blocks).
-    Then, at GENERAL_TIMED, each timed at the flagship's tokens beside its
-    bound and scaled_dot_product_attention; and the general kernels through
-    a model (general_attention_model). Returns the records of the kernels
+    2e-5, bf16 2e-3 + 1e-2 rel: the general kernel's key tiles, 128 keys in
+    bf16 and 64 in f32, move the running max at other keys than the plain
+    version's 512-key blocks). Then, at GENERAL_TIMED, each timed at the
+    flagship's tokens beside its bound and scaled_dot_product_attention,
+    the spatial and temporal calls also on the device (``device_ms``); and the general kernels through a
+    model (general_attention_model). Returns the records of the kernels
     line: d 384 bf16 at the top, every (d, dtype) under ``by_head_dim``."""
     import torch.nn.functional as F
 
@@ -676,49 +683,55 @@ def general_attention_checks(device):
     records = {name: {"by_head_dim": {}} for name in ("spatial_general", "temporal_general",
                                                       "attention_blocked_general")}
     for d in GENERAL_TIMED:
-        heads, att = 768 // d, d ** -0.5
+        heads, att = general_heads(d), d ** -0.5
         qkv_np = rng.randn(B, N, 3, heads, d)
         print(f"general attention at the flagship's tokens: qkv {qkv_np.shape}")
         for dt in (f32, bf16):
             qkv = T(qkv_np, dt)
             q4, k4, v4 = (a.transpose(1, 2) for a in qkv.unbind(2))
-            sp = compare(f"spatial d {d} (BT, N, C) {dt}",
-                         lambda: st_attention.spatial_attention_btc(qkv, att),
+            spatial = lambda: st_attention.spatial_attention_btc(qkv, att)  # noqa: E731
+            temporal = lambda: st_attention.temporal_attention_fused(qkv, SEQLEN, att)  # noqa: E731
+            sp = compare(f"spatial d {d} (BT, N, C) {dt}", spatial,
                          lambda: st_attention.spatial_reference_btc(qkv, att), *tol[dt],
                          moved=(qkv,), flops=4.0 * B * heads * N * N * d, kind=kinds[dt],
                          library=lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=att),
-                         iters=5)
+                         iters=10)
             q5, k5, v5 = (a.reshape(N_CLIPS, SEQLEN, N, heads, d).permute(0, 2, 3, 1, 4)
                           for a in qkv.unbind(2))
-            tp = compare(f"temporal d {d} (BT, N, C) {dt}",
-                         lambda: st_attention.temporal_attention_fused(qkv, SEQLEN, att),
+            tp = compare(f"temporal d {d} (BT, N, C) {dt}", temporal,
                          lambda: st_attention.temporal_reference_btc(qkv, SEQLEN, att), *tol[dt],
                          moved=(qkv,), flops=4.0 * B * N * heads * SEQLEN * d, kind=kinds[dt],
                          library=lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=att),
-                         iters=5)
+                         iters=10)
             qv, kv, vv = (a.transpose(1, 2) for a in qkv.view(N_CLIPS, S, 3, heads, d).unbind(2))
 
             def blocked_in_place():
-                y = torch.empty((B, N, 768), dtype=dt, device=device)
+                y = torch.empty((B, N, heads * d), dtype=dt, device=device)
                 attention.fused_attention(qv, kv, vv, att,
                                           out=y.view(N_CLIPS, S, heads, d).transpose(1, 2))
                 return y
 
             bk = compare(f"blocked d {d}, in place {dt}", blocked_in_place,
                          lambda: attention.attention_blocked_reference(qv, kv, vv, att)
-                         .transpose(1, 2).reshape(B, N, 768), *blocked_tol[dt],
+                         .transpose(1, 2).reshape(B, N, heads * d), *blocked_tol[dt],
                          moved=(qkv,), flops=4.0 * N_CLIPS * heads * S * S * d, kind=kinds[dt],
                          library=lambda: F.scaled_dot_product_attention(qv, kv, vv, scale=att),
                          iters=3)
-            for name, rec, temporal in (("spatial_general", sp, False),
-                                        ("temporal_general", tp, True),
-                                        ("attention_blocked_general", bk, False)):
+            # the short calls also on the device, queued behind a sleep: by
+            # events alone they can time the host's enqueue (the wrapper's
+            # Python, and the TMA forms' three tensor maps a call), not the kernel
+            sp["device_ms"] = time_ms(spatial, 10, queued=True)
+            tp["device_ms"] = time_ms(temporal, 10, queued=True)
+            for name, rec, over_frames in (("spatial_general", sp, False),
+                                           ("temporal_general", tp, True),
+                                           ("attention_blocked_general", bk, False)):
                 # which kernel the dispatch took at this (d, dtype)
-                rec["general_kernel"] = st_attention.general_head_dim(d, dt == bf16, temporal)
+                rec["general_kernel"] = st_attention.general_head_dim(d, dt == bf16, over_frames)
+                rec["heads"] = heads
                 records[name]["by_head_dim"][f"d{d}_{kinds[dt]}"] = rec
                 if d == 384 and dt == bf16:
                     records[name].update(rec)
-            del qkv, q4, k4, v4, q5, k5, v5, qv, kv, vv
+            del qkv, q4, k4, v4, q5, k5, v5, qv, kv, vv, spatial, temporal
     torch.cuda.synchronize()
     records["general_model_launches"] = general_attention_model(device)
     return records
@@ -2808,7 +2821,7 @@ def phase_accept(device):
         annotated = {e.get("name") for e in events} & {"train_step", "data"}
         print(f"  the trace of the train CLI's first 3 steps: {len(ran)} kernels, the port's "
               f"{ours}; annotations {sorted(annotated)}")
-        if "general_attention_f32_kernel" not in ours or not any("skinning" in k for k in ours) \
+        if "general_frames_kernel" not in ours or not any("skinning" in k for k in ours) \
                 or annotated != {"train_step", "data"}:
             raise AssertionError(f"accept: the trace does not name the port's kernels: {ours}")
 

@@ -91,9 +91,11 @@ _SIGNATURES = {
     "maed_temporal_attention": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
                                 _c_int, _c_int, _c_int, *(_c_i64,) * 6, _c_float, _c_ptr),
     # is_bf16, online, q, k, v, out, n0, n1, n2, S, d, s0, s1, s2, srow,
-    # o0, o1, o2, orow, scale, stream
+    # o0, o1, o2, orow, scale, then ops/st_attention.py::GeneralPlan (kind,
+    # width, cols, parts), stream
     "maed_general_attention": (_c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
-                               _c_int, _c_int, _c_int, *(_c_i64,) * 8, _c_float, _c_ptr),
+                               _c_int, _c_int, _c_int, *(_c_i64,) * 8, _c_float,
+                               *(_c_int,) * 4, _c_ptr),
 }
 
 _lib = None

@@ -30,6 +30,7 @@ package's custom VJPs recompute theirs.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -50,16 +51,61 @@ def general_head_dim(d: int, is_bf16: int, temporal: bool = False) -> bool:
     return d > FAST_HEAD_DIM or (bool(is_bf16) and not temporal and d not in MMA_HEAD_DIMS)
 
 
+FRAME_ROWS = 32  # the general kernel's 'frames' form: a warp an item of up to 32 rows
+ROW_KEYS = 256   # its 'rows' form: the exact softmax in one pass over up to 256 keys
+# the 'rows' form's score widths: 197 tokens (224 px) take 200 (bf16) or 208 (f32)
+ROW_WIDTHS = {1: (64, 128, 192, 200, 256), 0: (64, 128, 192, 208, 256)}
+FRAMES, ROWS, TILED = 0, 1, 2
+
+
+class GeneralPlan(NamedTuple):
+    """How ``csrc/attention_general.cu`` runs one call (see its note); the
+    shared memory each form takes is ``csrc/general_layout.cuh``'s."""
+    kind: int   # FRAMES (exact, S <= 32), ROWS (exact, S <= 256) or TILED
+    width: int  # FRAMES: rows padded to 16 or 32; ROWS: the score width; TILED: query rows a CTA
+    cols: int   # output columns of a part (ROWS and FRAMES: all, a 64-column block at a time)
+    parts: int  # CTAs over an item's output columns (TILED beyond 384 columns)
+
+
+def general_plan(S: int, d: int, is_bf16: int, online: bool) -> GeneralPlan:
+    """The form and template instance of a general-kernel call of S rows an
+    item at head dim d. The exact softmax runs as FRAMES up to FRAME_ROWS
+    rows, as ROWS up to ROW_KEYS keys (one pass), else as TILED in two
+    passes; the online softmax always as TILED, whose output columns a CTA
+    holds in registers: at most 384 (six 64-column blocks), the rest in
+    further parts, each forming the scores again. TILED bf16 takes 128 query
+    rows a CTA up to d 128 (each consumer warpgroup 64 rows and every
+    column), else 64 (the two consumers split a part's columns, so a part is
+    a whole number of 128-column pairs)."""
+    blocks = -(-d // 64)  # 64-column blocks of the head dim
+    if not online and S <= FRAME_ROWS:
+        return GeneralPlan(FRAMES, 16 if S <= 16 else 32, 64 * blocks, 1)
+    if not online and S <= ROW_KEYS:
+        width = next(w for w in ROW_WIDTHS[int(is_bf16)] if w >= S)
+        return GeneralPlan(ROWS, width, 64 * blocks, 1)
+    if is_bf16 and blocks <= 2:
+        return GeneralPlan(TILED, 128, 64 * blocks, 1)
+    parts = -(-blocks // 6)
+    per = -(-blocks // parts)  # column blocks a part
+    return GeneralPlan(TILED, 64, 128 * -(-per // 2) if is_bf16 else 64 * per, parts)
+
+
 def launch_general(name: str, count: str, is_bf16: int, online: bool, q, k, v, out,
                    sizes, strides, o_strides, S: int, scale) -> None:
     """One launch of ``csrc/attention_general.cu``: batch items of ``sizes``
     (n0, n1, n2), S rows each, q, k, v at ``strides`` (s0, s1, s2, srow) and
-    out at ``o_strides`` (o0, o1, o2, orow), all in elements."""
+    out at ``o_strides`` (o0, o1, o2, orow), all in elements, run as
+    :func:`general_plan` says."""
+    per16 = 16 // out.element_size()
+    if out.data_ptr() % 16 or any(s % per16 for s in o_strides):
+        raise ValueError(f"{name}: the kernel writes 16-byte rows: the output's rows must be "
+                         f"16-byte aligned (strides {out.stride()})")
+    plan = general_plan(S, q.shape[-1], is_bf16, online)
     lib = kernels.library()
     with torch.cuda.device(q.device):
         kernels.check(lib.maed_general_attention(
             is_bf16, int(online), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *sizes, S, q.shape[-1], *strides, *o_strides, scale,
+            *sizes, S, q.shape[-1], *strides, *o_strides, scale, *plan,
             torch.cuda.current_stream().cuda_stream), f"{name} (maed_general_attention)")
     kernels.LAUNCHES[count] += 1
 

@@ -593,7 +593,7 @@ def test_blocked_attention_raises_on_what_the_kernel_does_not_take(cuda):
     assert kernels.LAUNCHES == launches
 
 
-GENERAL_HEAD_DIMS = (8, 24, 80, 96, 384, 768)
+GENERAL_HEAD_DIMS = (8, 24, 56, 80, 96, 120, 384, 768)
 
 
 def _general_count(name, d, dtype):
@@ -606,12 +606,17 @@ def _general_count(name, d, dtype):
 @pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-5, 0.0),
                                                (torch.bfloat16, 1e-2, 1e-2)])
 @pytest.mark.parametrize("d", GENERAL_HEAD_DIMS)
-@pytest.mark.parametrize("BT, N, h", [(3, 37, 2), (2, 197, 1)])
+@pytest.mark.parametrize("BT, N, h", [(4, 1, 2), (3, 17, 2), (3, 37, 2), (2, 197, 1),
+                                      (1, 1024, 2)])
 def test_spatial_attention_any_head_dim(cuda, dtype, atol, rtol, d, BT, N, h):
     """Every head dim the JAX models form (a multiple of 8 up to 768): 80 and
-    96 of the stock ViTs, 384 of the tools' 2-head model, 768 of one head;
+    96 of the stock ViTs, 384 of the tools' 2-head model, 768 of one head,
+    56 and 120 (a last column block of 3 and 4 k-steps in bf16);
     the general kernel takes the ones the older kernels do not (all but 8
-    and 24 in f32, all in bf16). Tolerances as test_spatial_attention_kernel."""
+    and 24 in f32, all in bf16). Tokens: 1 and 17 (the general kernel's
+    warp-an-item form, 17 the accept tool's 64 px), 37 and 197 (its one-pass
+    form), 1024 (its two-pass form). Tolerances as
+    test_spatial_attention_kernel."""
     qkv = qkv_input(40 + d, BT, N, h, d, dtype, cuda)
     scale = d ** -0.5
     count = _general_count("spatial_attention", d, dtype)
@@ -627,12 +632,17 @@ def test_spatial_attention_any_head_dim(cuda, dtype, atol, rtol, d, BT, N, h):
 @pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-5, 0.0),
                                                (torch.bfloat16, 1e-2, 1e-2)])
 @pytest.mark.parametrize("d", GENERAL_HEAD_DIMS)
-@pytest.mark.parametrize("BT, T, N, h", [(32, 16, 5, 2), (34, 17, 3, 1)])
-def test_temporal_attention_any_head_dim(cuda, dtype, atol, rtol, d, BT, T, N, h):
+@pytest.mark.parametrize("BT, T, N, h, natural", [(32, 16, 5, 2, False), (34, 17, 3, 1, False),
+                                                   (32, 16, 5, 2, True)])
+def test_temporal_attention_any_head_dim(cuda, dtype, atol, rtol, d, BT, T, N, h, natural):
     """As test_spatial_attention_any_head_dim over frames: T 16 (one
     16-row query tile) and 17 (a second tile of one row), the projection
-    sliced so that no stride is the natural one."""
-    qkv = qkv_input(50 + d, BT, N + 1, 2 * h, d, dtype, cuda)[:, 1:, :, ::2]
+    sliced so that no stride is the natural one, and T 16 in the qkv
+    projection's natural (BT, N, 3, h, d) layout."""
+    qkv = qkv_input(50 + d, BT, N + 1, 2 * h, d, dtype, cuda)
+    qkv = qkv[:, :N, :, :h] if natural else qkv[:, 1:, :, ::2]
+    if natural:
+        qkv = qkv.contiguous()
     scale = d ** -0.5
     count = _general_count("temporal_attention", d, dtype)
     before = kernels.LAUNCHES[count]
@@ -647,14 +657,15 @@ def test_temporal_attention_any_head_dim(cuda, dtype, atol, rtol, d, BT, T, N, h
 @pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 2e-5, 0.0),
                                                (torch.bfloat16, 2e-3, 1e-2)])
 @pytest.mark.parametrize("d", GENERAL_HEAD_DIMS)
-@pytest.mark.parametrize("S", [70, 1025])
+@pytest.mark.parametrize("S", [70, 1025, 3152])
 def test_blocked_attention_any_head_dim(cuda, dtype, atol, rtol, d, S):
     """The blocked kernel's online softmax at every head dim, called
-    directly (S 70: three key tiles of the general kernel, the last of 6
-    keys) and through fused_attention's dispatch with the output written
-    in place (S 1025). Tolerances as test_blocked_attention_kernel: the
-    general kernel's 32-key tiles and the plain version's 512-key blocks
-    move the running max at other keys."""
+    directly (S 70: a partial key tile of the general kernel) and through
+    fused_attention's dispatch with the output written in place, a strided
+    view of a (B, S, h * d) result (S 1025 and the coupling mode's 3152).
+    Tolerances as test_blocked_attention_kernel: the general kernel's key
+    tiles (128 keys in bf16, 64 in f32) and the plain version's 512-key
+    blocks move the running max at other keys."""
     h = 2
     qkv = qkv_input(60 + d, 2, S, h, d, dtype, cuda)
     q, k, v = coupling_views(qkv, 1)

@@ -8,6 +8,12 @@ device's busy share of the traced window. ``--st-mode coupling`` (or another
 attention mode) traces that model on the same requests instead: a request is
 then one sub-clip forward of the eval protocol.
 
+``--general`` traces the attention kernels of csrc/attention_general.cu
+instead, at chip_smoke.py's timed shapes (GENERAL_TIMED head dims at the
+flagship's tokens), each call beside scaled_dot_product_attention on the same
+inputs: device time by kernel, the rates it reaches against the card's peaks,
+and its device time per work item on an SM.
+
 ``--train`` traces the stage-2 train step instead (chip_smoke.py's
 ``phase_train`` set-up: ``build_train_model`` at full width, 3 + 4 clips of
 16 frames and 7 images at 224^2, uint8, self-consistent targets), 3 steps in
@@ -16,7 +22,7 @@ phase (the forward, the backward's recompute through the kernels' plain
 versions, the rest of the backward, the optimizer) and by kind within each.
 Imports nothing of JAX.
 
-Usage: python tools/profile_port.py [--st-mode parallel] [--train] [--trace trace.json]
+Usage: python tools/profile_port.py [--st-mode parallel] [--train] [--general] [--trace trace.json]
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch  # noqa: E402
 # pre-pass of C and D has a row of its own (C's launches of it are as many as
 # D's on every path that runs D: 12 a forward, half of them C's).
 KINDS = (
+    ("general attention (F/J, G/H, K at other head dims)", ("general_",)),
     ("ln pre-pass (kernels C, D)", ("ln_rows_kernel",)),
     ("ln_dense (kernel D)", ("biasonly",)),
     ("gate_proj (kernel E)", ("projresidual", "gateblend", "gate_means_kernel", "gate_alpha_",
@@ -162,15 +169,113 @@ def profile_train(device, dtype, steps=3) -> None:
     torch.cuda.empty_cache()
 
 
+def device_us(fn, calls=3, tries=3) -> dict:
+    """Device us a call of fn() by kernel name, from a torch.profiler trace
+    of ``calls`` calls after a warmup; a trace that records no device time
+    (CUPTI now and then delivers none) is taken again, up to ``tries``."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = {ev.key: ev.self_device_time_total / calls for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.self_device_time_total > 0}
+        if rows:
+            return rows
+    return {}
+
+
+def profile_general(device) -> None:
+    """The general attention kernels at GENERAL_TIMED's head dims and the
+    flagship's tokens (128 frames x 197 tokens, 768 / d heads, d 80 in 16;
+    blocked: 8 clips x 3152 tokens), f32 and bf16, where the dispatch takes
+    them: each call's kernels and scaled_dot_product_attention's on the same
+    inputs, device us a call; the call's operations (4 S^2 d a head) over the
+    kernel's time against the dtype's peak, its bytes (q, k and v read once,
+    the output written once) against HBM's rate; and its work items (the
+    plan's: a warp's (frames), 128 or 64 query rows (rows, bf16 or f32), the
+    plan's rows of a part (tiled)) with the kernel's time per item on an SM."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from maed_tpu_torch.ops import attention, st_attention
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rng = np.random.RandomState(3)
+    frames, N = chip_smoke.N_CLIPS * chip_smoke.SEQLEN, 197
+    S_clip = chip_smoke.SEQLEN * N
+    for d in chip_smoke.GENERAL_TIMED:
+        heads, att = chip_smoke.general_heads(d), d ** -0.5
+        qkv_np = rng.randn(frames, N, 3, heads, d)
+        for dt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            is_bf16 = int(dt == torch.bfloat16)
+            qkv = torch.from_numpy(qkv_np).to(device, dt)
+            q4, k4, v4 = (a.transpose(1, 2) for a in qkv.unbind(2))
+            q5, k5, v5 = (a.reshape(chip_smoke.N_CLIPS, chip_smoke.SEQLEN, N, heads, d)
+                          .permute(0, 2, 3, 1, 4) for a in qkv.unbind(2))
+            qb, kb, vb = (a.transpose(1, 2)
+                          for a in qkv.view(chip_smoke.N_CLIPS, S_clip, 3, heads, d).unbind(2))
+            forms = (  # name, S, batch items, online, kernel call, library call
+                ("spatial", N, frames * heads, False,
+                 lambda: st_attention.spatial_attention_btc(qkv, att),
+                 lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=att)),
+                ("temporal", chip_smoke.SEQLEN, chip_smoke.N_CLIPS * N * heads, False,
+                 lambda: st_attention.temporal_attention_fused(qkv, chip_smoke.SEQLEN, att),
+                 lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=att)),
+                ("blocked", S_clip, chip_smoke.N_CLIPS * heads, True,
+                 lambda: attention.fused_attention(qb, kb, vb, att),
+                 lambda: F.scaled_dot_product_attention(qb, kb, vb, scale=att)))
+            for name, S, batch, online, kernel, library in forms:
+                if not st_attention.general_head_dim(d, is_bf16, temporal=name == "temporal"):
+                    continue
+                plan = st_attention.general_plan(S, d, is_bf16, online)
+                if plan.kind == st_attention.FRAMES:
+                    items = batch
+                elif plan.kind == st_attention.ROWS:
+                    items = batch * -(-S // (128 if is_bf16 else 64))
+                else:
+                    items = batch * -(-S // plan.width) * plan.parts
+                flops = 4.0 * batch * S * S * d
+                moved = 4 * batch * S * d * qkv.element_size()
+                ours = device_us(kernel)
+                lib = device_us(library)
+                if not ours or not lib:
+                    print(f"{name} d {d} {kind}: the profiler recorded no device time")
+                    continue
+                us = sum(ours.values())
+                print(f"{name} d {d} {kind} ({heads} heads, S {S}, {plan}): kernel {us:.1f} us, "
+                      f"{flops / us / 1e6:.1f} TFLOP/s "
+                      f"({100 * flops / us / 1e6 / (chip_smoke.PEAK_FLOPS[kind] / 1e12):.1f}% of "
+                      f"peak), {moved / us / 1e3:.0f} GB/s "
+                      f"({100 * moved / us / 1e6 / (chip_smoke.HBM_BYTES_PER_S / 1e12):.1f}% of "
+                      f"HBM); {items} items, {us * sms / items:.2f} us an item on an SM; "
+                      f"scaled_dot_product_attention {sum(lib.values()):.1f} us")
+                for key, t in sorted(ours.items(), key=lambda kv: -kv[1]):
+                    print(f"    {t:9.1f} us  {key[:140]}")
+                for key, t in sorted(lib.items(), key=lambda kv: -kv[1])[:3]:
+                    print(f"    {t:9.1f} us  (library) {key[:130]}")
+            del qkv, q4, k4, v4, q5, k5, v5, qb, kb, vb
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--st-mode", default="parallel", help="the model's attention mode")
     ap.add_argument("--train", action="store_true", help="trace the stage-2 train step")
+    ap.add_argument("--general", action="store_true",
+                    help="trace the general attention kernels against the library's")
     ap.add_argument("--trace", default="", help="write a chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: needs a CUDA device", file=sys.stderr)
         return 1
+    if args.general:
+        print(chip_smoke.card_identity())
+        profile_general(torch.device("cuda", 0))
+        return 0
     if args.train:
         print(chip_smoke.card_identity())
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
