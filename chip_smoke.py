@@ -115,7 +115,7 @@ REQUESTS = 3
 # the eval protocol's loader: window batches (the second is ragged and padded
 # to the first's size), frames a window
 EVAL_BATCHES, POOL = (8, 5), 128
-# bf16 kernel launches per forward: the stem's 52 GroupNorms, the MLP's three
+# kernel launches per forward (f32 and bf16): the stem's 52 GroupNorms, the MLP's three
 # launches per block (norm2's rows, fc1, fc2), the final norm and SMPL's
 # skinning; then per block what the attention of each st_mode launches
 # (parallel: norm1's rows and the qkv product, the spatial and the temporal
@@ -135,9 +135,9 @@ def per_forward(mode: str, depth: int = 6, dtype: torch.dtype = torch.bfloat16,
                 seqlen: int = SEQLEN) -> dict:
     """Launches of every kernel in one forward of ``mode`` at ``depth`` blocks
     in ``dtype`` over clips of ``seqlen`` frames. In f32 the GroupNorms go to
-    the strided kernel, and C's, D's and E's GEMMs normalize or blend their
-    own A tiles (no LN pre-pass, no blend launch); clips of one frame take
-    the temporal branch's shortcut."""
+    the strided kernel; C, D and E launch their pre-passes (the LN rows, the
+    blend) in both dtypes; clips of one frame take the temporal branch's
+    shortcut."""
     from maed_tpu_torch import kernels
 
     counts = dict.fromkeys(kernels.LAUNCHES, 0)
@@ -147,17 +147,16 @@ def per_forward(mode: str, depth: int = 6, dtype: torch.dtype = torch.bfloat16,
     counts["groupnorm" if dtype == torch.bfloat16 else "groupnorm_strided"] = 52
     for name in BLOCK_KERNELS[mode]:
         counts[name] += depth
-    if dtype != torch.bfloat16:
-        counts.update(ln_rows=0, gate_blend=0)
     if seqlen == 1:
         counts["temporal_attention"] = 0
     return counts
 
 
-def expect_launches(launches: dict, mode: str, forwards: int, depth: int = 6, extra=None):
+def expect_launches(launches: dict, mode: str, forwards: int, depth: int = 6, extra=None,
+                    dtype: torch.dtype = torch.bfloat16):
     """Raise unless ``launches`` are those of ``forwards`` forwards of ``mode``
-    (plus ``extra``: launches made beside the forwards)."""
-    for name, per in per_forward(mode, depth).items():
+    in ``dtype`` (plus ``extra``: launches made beside the forwards)."""
+    for name, per in per_forward(mode, depth, dtype).items():
         want = per * forwards + (extra or {}).get(name, 0)
         if launches[name] != want:
             raise AssertionError(f"{mode}: {name} launched {launches[name]} times, want {want} "
@@ -300,8 +299,9 @@ def skinning_inputs(rng, B, device):
 
 def phase_kernels(device):
     """Each kernel against its plain version at the flagship shapes, timed in
-    f32 and bf16. The records kept are the bf16 ones (the serving dtype);
-    skinning is f32."""
+    f32 and bf16. The records: each kernel's in bf16 (the serving dtype;
+    skinning is f32) under its name, and in f32 (the eval CLI's, the demo's
+    and the trainer's dtype) under its name + "_f32"."""
     import torch.nn.functional as F
 
     from maed_tpu_torch import kernels
@@ -314,6 +314,9 @@ def phase_kernels(device):
     f32, bf16 = torch.float32, torch.bfloat16
     kinds = {f32: "f32", bf16: "bf16"}  # the peak a product of that dtype is held to
     record = {}
+
+    def key(name, dt):  # the record of a kernel in a dtype
+        return name if dt == bf16 else name + "_f32"
 
     args = skinning_inputs(rng, B, device)
     v_posed = args[0]
@@ -338,7 +341,7 @@ def phase_kernels(device):
                       lambda: layernorm.layernorm_reference(xd, scale, bias, 1e-6), atol, rtol,
                       moved=(xd, scale, bias), flops=8.0 * M * C,
                       kind="f32", library=lambda: F.layer_norm(xd, (C,), sd, bd, 1e-6), iters=50)
-        record["layernorm"] = rec  # the last dtype's, bf16, is the one kept
+        record[key("layernorm", dt)] = rec
 
     # C: LN + MLP, and D: LN + dense (the qkv projection), bf16 and f32.
     # Weights as nn.Linear stores them. In bf16 both are the LN pre-pass and
@@ -358,13 +361,13 @@ def phase_kernels(device):
         rec = compare(f"ln_mlp {dt}", lambda: mlp.fused_ln_mlp(*margs),
                       lambda: mlp.ln_mlp_reference(*margs), atol, rtol,
                       moved=margs[:-1], flops=4.0 * M * C * H, kind=kinds[dt], iters=10)
-        record["ln_mlp"] = rec
+        record[key("ln_mlp", dt)] = rec
         dargs = (xd, scale, bias, T(wq, dt), bq, 1e-6)
         # bf16 at 2e-2 abs + 1e-2 rel: one bf16 rounding of outputs up to ~5
         rec = compare(f"ln_dense {dt}", lambda: mlp.fused_ln_dense(*dargs),
                       lambda: mlp.ln_dense_reference(*dargs), atol_d, rtol_d,
                       moved=dargs[:-1], flops=2.0 * M * C * 3 * C, kind=kinds[dt], iters=10)
-        record["ln_dense"] = rec
+        record[key("ln_dense", dt)] = rec
     # the bf16 pieces: the pre-pass against its plain version within one bf16
     # step of its outputs (f32 statistics summed in another order may move a
     # value across a rounding boundary), each GEMM launch alone, and cuBLAS
@@ -391,6 +394,36 @@ def phase_kernels(device):
     print(f"    C: {c_rec['ms']:.4f} ms, cuBLAS products {c_rec['gemm_library_ms']:.4f}; "
           f"D: {d_rec['ms']:.4f} ms, cuBLAS product {d_rec['gemm_library_ms']:.4f}")
     del margs, dargs, xd, xn, h, products
+    # the f32 pieces (TF32 off): the pre-pass at B's f32 limit (the same
+    # function), each GEMM launch alone at C's and D's f32 limit, and cuBLAS
+    # on the same f32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xf = T(x)
+    xnf = mlp.ln_rows(xf, scale, bias, 1e-6)
+    record["ln_rows_f32"] = compare(
+        "ln_rows f32", lambda: mlp.ln_rows(xf, scale, bias, 1e-6),
+        lambda: mlp.ln_rows_reference(xf, scale, bias, 1e-6), 1e-5, 0.0,
+        moved=(xf, scale, bias), flops=8.0 * M * C, kind="f32",
+        library=lambda: F.layer_norm(xf, (C,), scale, bias, 1e-6), iters=50)
+    w1f, w2f, wqf = T(w1), T(w2), T(wq)
+    hf = mlp.dense(xnf, w1f, b1, "gelu")
+    gemm = {}
+    for name, args, epi, res, flops in (
+            ("fc1", (xnf, w1f, b1), "gelu", None, 2.0 * M * C * H),
+            ("fc2", (hf, w2f, b2), "residual", xf, 2.0 * M * C * H),
+            ("qkv", (xnf, wqf, bq), "bias", None, 2.0 * M * C * 3 * C)):
+        gemm[name] = compare(f"dense {name} f32", lambda: mlp.dense(*args, epi, res),
+                             lambda: mlp.dense_reference(*args, epi, res), 1e-4, 0.0,
+                             moved=(args[0], args[1], args[2]) + ((res,) if res is not None else ()),
+                             flops=flops, kind="f32",
+                             library=lambda: torch.matmul(args[0], args[1].t()), iters=10)
+    record["ln_mlp_f32"].update(
+        gemm_library_ms=gemm["fc1"]["library_ms"] + gemm["fc2"]["library_ms"],
+        fc1_ms=gemm["fc1"]["ms"], fc2_ms=gemm["fc2"]["ms"],
+        fc1_bound_ms=gemm["fc1"]["bound_ms"], fc2_bound_ms=gemm["fc2"]["bound_ms"])
+    record["ln_dense_f32"].update(gemm_library_ms=gemm["qkv"]["library_ms"],
+                                  qkv_ms=gemm["qkv"]["ms"], qkv_bound_ms=gemm["qkv"]["bound_ms"])
+    del xf, xnf, hf, w1f, w2f, wqf
 
     # E: the attention's tail, gate + blend + proj + residual, bf16 and f32.
     # alpha at one bf16 step of a probability (4e-3). The output in bf16 at
@@ -409,7 +442,22 @@ def phase_kernels(device):
                       lambda: mlp.gate_proj_reference(*gargs)[0], atol, rtol,
                       moved=(*gargs, alpha), flops=2.0 * M * C * C + 2.0 * B * (2 * C) ** 2,
                       kind=kinds[dt], iters=10)
-        record["gate_proj"] = rec
+        record[key("gate_proj", dt)] = rec
+        if dt == f32:  # the f32 blend bit for bit, the proj GEMM alone beside cuBLAS
+            ysf, ytf, xrf, _, _, wpf, _ = gargs
+            yf = mlp.gate_blend(ysf, ytf, alpha)
+            check_close("gate_blend f32", yf, mlp.gate_blend_reference(ysf, ytf, alpha), 0.0)
+            check_close("gate proj GEMM f32", mlp.dense(yf, wpf, bp, "proj", xrf),
+                        mlp.dense_reference(yf, wpf, bp, "proj", xrf), 1e-4)
+            rec.update(
+                blend_ms=time_ms(lambda: mlp.gate_blend(ysf, ytf, alpha), 20, queued=True),
+                proj_ms=time_ms(lambda: mlp.dense(yf, wpf, bp, "proj", xrf), 20, queued=True),
+                device_ms=time_ms(lambda: mlp.fused_gate_proj(*gargs), 20, queued=True),
+                gemm_library_ms=time_ms(lambda: torch.matmul(yf, wpf.t()), 20, queued=True))
+            print("    E f32 on the device: " + ", ".join(
+                f"{k} {rec[k]:.4f}" for k in ("blend_ms", "proj_ms", "device_ms",
+                                               "gemm_library_ms")))
+            del ysf, ytf, xrf, wpf, yf
     # the bf16 pieces, each against its plain version and timed on the
     # device: the means within one bf16 step (f32 sums in another order),
     # alpha from the same means at 4e-3, the blend from the same alpha bit
@@ -447,7 +495,7 @@ def phase_kernels(device):
                       lambda: st_attention.spatial_reference_btc(qkv, att), atol, rtol,
                       moved=(qkv,), flops=4.0 * B * heads * N * N * d, kind=kinds[dt],
                       library=lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=att))
-        record["spatial"] = rec
+        record[key("spatial", dt)] = rec
         compare(f"spatial (h, BT, N, d) {dt}", lambda: st_attention.spatial_attention(qkv, att),
                 lambda: st_attention.spatial_reference(qkv, att), atol, rtol)
         qc, kc, vc = (a.contiguous() for a in (q4, k4, v4))
@@ -468,7 +516,7 @@ def phase_kernels(device):
                       lambda: st_attention.temporal_reference_btc(qkv, SEQLEN, att), atol, rtol,
                       moved=(qkv,), flops=4.0 * B * N * heads * SEQLEN * d, kind=kinds[dt],
                       library=lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=att))
-        record["temporal"] = rec
+        record[key("temporal", dt)] = rec
         compare(f"temporal (h, BT, N, d) {dt}", lambda: st_attention.temporal_attention(qkv, SEQLEN, att),
                 lambda: st_attention.temporal_reference(qkv, SEQLEN, att), atol, rtol)
         # both layouts and the library call on the device, the launches
@@ -526,7 +574,7 @@ def phase_kernels(device):
                       moved=(qkv,), flops=4.0 * N_CLIPS * heads * S * S * d, kind=kinds[dt],
                       library=lambda: F.scaled_dot_product_attention(qv, kv, vv, scale=att),
                       iters=10)
-        record["attention_blocked"] = rec
+        record[key("attention_blocked", dt)] = rec
         qc, kc, vc = (a.contiguous() for a in (qv, kv, vv))
         compare(f"blocked attention, contiguous {dt}",
                 lambda: attention.fused_attention(qc, kc, vc, att),
@@ -591,6 +639,16 @@ def phase_kernels(device):
     print("    a forward's 52 GroupNorms: " + ", ".join(
         f"{k} {record['groupnorm'][k]:.4f}"
         for k in ("forward_ms", "forward_bound_ms", "forward_group_norm_ms")))
+    # f32 (the strided kernel) at the site the bf16 record keeps, beside F.group_norm
+    x, gs, gb, _ = gn_inputs(B, 56, 256, False, f32)
+    gargs = (x, gs, gb, 32, 1e-5, False, None)
+    x_nchw = x.permute(0, 3, 1, 2)
+    record["groupnorm_f32"] = compare(
+        "groupnorm 56x56x256 f32", lambda: groupnorm.fused_groupnorm(*gargs),
+        lambda: groupnorm.groupnorm_reference(*gargs), 1e-4, 0.0, moved=(x, gs, gb),
+        flops=8.0 * x.numel(), kind="f32",
+        library=lambda: F.group_norm(x_nchw, 32, gs, gb, 1e-5))
+    del x, gargs, x_nchw
     for side, ch, relu in GROUPNORM_SHAPES:
         for with_res in (False, True):
             for dt, atol, rtol in ((f32, 1e-4, 0.0), (bf16, 2e-2, 1e-2)):
@@ -1092,28 +1150,39 @@ def phase_device_crop(device):
 
 
 def phase_f32(device, clips, jreg, bf16_outs, bf16_plains):
-    """One f32 forward through the kernels and one through their plain
-    versions, TF32 off for both, which must agree. Then the bf16 answers
-    through the kernels must lie about as close to the f32 plain answers as
-    the bf16 answers through the plain versions do (BF16_RATIO)."""
+    """One f32 forward through the kernels (its launches counted from 0, those
+    of an f32 parallel forward) and one through their plain versions, TF32 off
+    for both, which must agree; a second forward through the kernels timed.
+    Then the bf16 answers through the kernels must lie about as close to the
+    f32 plain answers as the bf16 answers through the plain versions do
+    (BF16_RATIO). Returns the f32 plain answers and the launches."""
+    from maed_tpu_torch import kernels
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model, smpl = build_flagship(device, torch.float32)
+    kernels.reset_launches()
     t0 = time.perf_counter()
     got = model(clips[0], smpl, J_regressor=jreg)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    expect_launches(launches, "parallel", 1, dtype=torch.float32)
     wants = [model(clip, smpl, J_regressor=jreg, plain=True) for clip in clips]
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    model(clips[1], smpl, J_regressor=jreg)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t2) * 1e3
     print(f"f32 forward: kernels {(t1 - t0) * 1e3:.1f} ms, plain {(t2 - t1) * 1e3:.1f} ms "
-          f"for {len(clips)} (first calls, host clock)")
+          f"for {len(clips)} (first calls, host clock); kernels again {warm_ms:.1f} ms "
+          f"({card_identity()}); launches as expected")
     check_outputs(got)
     for key, atol in (("verts", 1e-4), ("kp_3d", 1e-4), ("theta", 1e-3)):
         check_close(f"f32 forward {key}, kernels vs plain", got[key], wants[0][key], atol)
 
     check_bf16_ratio("parallel", bf16_outs, bf16_plains, wants)
-    return wants
+    return wants, launches
 
 
 def check_bf16_ratio(label, bf16_outs, bf16_plains, wants):
@@ -1475,14 +1544,14 @@ def remat_check(model, smpl, batch, start, card):
 
 def phase_train(device):
     """The stage-2 train step at full width, f32 and bf16; prints the
-    record of each and returns the bf16 step's launches."""
+    record of each and returns the bf16 and the f32 step's launches."""
     from maed_tpu_torch.core.builder import build_train_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_identity()
     n_vid = TRAIN_2D + TRAIN_3D
-    records, grads, launches_train = {}, {}, None
+    records, grads, launches_train = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         label = "f32" if dtype == torch.float32 else "bf16"
         t0 = time.perf_counter()
@@ -1504,8 +1573,9 @@ def phase_train(device):
                     f"train {label}: {name} launched {launches[name]} times in a step, want "
                     f"{expect[name]} (video forward) + {image[name]} (image forward)")
         for name in ("groupnorm" if dtype == torch.bfloat16 else "groupnorm_strided", "skinning",
-                     "layernorm", "ln_mlp_fc1", "ln_mlp_fc2", "ln_dense", "spatial_attention",
-                     "temporal_attention", "gate_means", "gate_alpha", "gate_proj"):
+                     "layernorm", "ln_rows", "ln_mlp_fc1", "ln_mlp_fc2", "ln_dense",
+                     "spatial_attention", "temporal_attention", "gate_means", "gate_alpha",
+                     "gate_blend", "gate_proj"):
             if not launches[name]:
                 raise AssertionError(f"train {label}: {name} was not launched")
         ms = float(np.median(times[1:]))
@@ -1526,6 +1596,7 @@ def phase_train(device):
               f"{plain_peak / 2 ** 30:.2f} GiB, loss {loss_p:.6f} (kernels {loss_k:.6f}, rel "
               f"{abs(loss_k - loss_p) / abs(loss_p):.3e}); gradient rel L2 {grad_dist:.3e}")
         grads[label] = (grad, plain_grad)
+        launches_train[label] = launches
         records[label] = dict(ms_per_step=ms, step_ms=times, peak_memory_bytes=peak,
                               loss_first=losses[0], loss_last=losses[-1],
                               plain_step_ms=plain_times[0], plain_peak_memory_bytes=plain_peak,
@@ -1540,7 +1611,6 @@ def phase_train(device):
             check_f32_train(records["f32"], loss_k, loss_p, grad, plain_grad, stem,
                             *f64_plain_grad(start, smpl, batch, device))
         else:
-            launches_train = launches
             del model, metrics, plain_metrics
         del start, grad, plain_grad
         torch.cuda.empty_cache()
@@ -1553,7 +1623,7 @@ def phase_train(device):
                              f"beyond {BF16_RATIO} x {plain:.4e}")
     records["bf16"].update(grad_dist_to_f32_plain=kern, plain_grad_dist_to_f32_plain=plain)
     print(json.dumps({"train": {"card": card, **records}}))
-    return launches_train
+    return launches_train["bf16"], launches_train["f32"]
 
 # phase_ddp: data parallel training on the one card, DDP_WORLD ranks over gloo
 # (NCCL takes one rank a device), each on its slice of a global batch of
@@ -2938,7 +3008,7 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
     try:
         served = timed(phase_export, device, workdir, clips, jreg, outs, eager_ms)
-        wants = timed(phase_f32, device, clips, jreg, outs, plains)
+        wants, f32_launches = timed(phase_f32, device, clips, jreg, outs, plains)
         timed(phase_http, device, workdir, clips, outs, plains, wants, served)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2946,7 +3016,7 @@ def main() -> int:
     timed(phase_device_crop, device)
     eval_launches = timed(phase_eval, device)
     timed(phase_modes, device, clips[0], jreg)
-    train_launches = timed(phase_train, device)
+    train_launches, train_f32_launches = timed(phase_train, device)
     timed(phase_ddp, device)
     timed(phase_trainer, device)
     stage1_step, stage1_eval = timed(phase_stage1, device)
@@ -3037,6 +3107,8 @@ def main() -> int:
              launches_train=train_launches["attention_blocked"],
              launches_served=served["launches"]["attention_blocked"],
              launches_demo=demo["attention_blocked"],
+             # f32 (the coupling mode's f32 protocol in phase_eval; no f32 parallel path)
+             f32=record["attention_blocked_f32"],
              **record["attention_blocked"]),
         # the head dims the three above do not take (csrc/attention_general.cu):
         # launches in phase_accept's run (its CLIs included) and phase_bench_train's,
@@ -3063,6 +3135,30 @@ def main() -> int:
              launches_bench_train=bench["attention_blocked_general"],
              **record["attention_blocked_general"]),
     ]
+    # the f32 forms (the eval CLI's, the demo's and the trainer's dtype):
+    # launches in phase_f32's f32 forward, an f32 train step and the demo
+    f32_forms = (
+        ("fast_layernorm_f32", "triton", "ops/layernorm.py", "layernorm.py:60", "layernorm",
+         "layernorm_f32"),
+        ("fused_ln_mlp_f32", "cuda", "csrc/ln_mlp.cu", "mlp.py:99", "ln_mlp_fc1", "ln_mlp_f32"),
+        ("fused_ln_dense_f32", "cuda", "csrc/ln_mlp.cu", "mlp.py:157", "ln_dense",
+         "ln_dense_f32"),
+        ("ln_rows_f32", "cuda", "csrc/ln_mlp.cu", "mlp.py:99, maed_tpu/ops/mlp.py:157",
+         "ln_rows", "ln_rows_f32"),
+        ("fused_gate_proj_f32", "cuda", "csrc/ln_mlp.cu", "mlp.py:272", "gate_proj",
+         "gate_proj_f32"),
+        ("fused_groupnorm_f32", "cuda", "csrc/groupnorm.cu", "groupnorm.py:83",
+         "groupnorm_strided", "groupnorm_f32"),
+        ("spatial_attention_f32", "cuda", "csrc/st_attention.cu",
+         "attention.py:47, maed_tpu/ops/st_attention.py:96", "spatial_attention", "spatial_f32"),
+        ("temporal_attention_f32", "cuda", "csrc/st_attention.cu",
+         "st_attention.py:132, maed_tpu/ops/st_attention.py:229", "temporal_attention",
+         "temporal_f32"))
+    for name, route, source, replaces, count, rec in f32_forms:
+        kernels_line.append(dict(
+            name=name, route=route, source=src + source, replaces=jax_ops + replaces,
+            launches=f32_launches[count], launches_train=train_f32_launches[count],
+            launches_demo=demo[count], **record[rec]))
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -277,6 +277,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool p
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(bytes));
 }
+// 4 bytes, for rows that are not 16-byte granular (cp.async.ca: .cg copies 16 alone)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool pred) {
+  const int bytes = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

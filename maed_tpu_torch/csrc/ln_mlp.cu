@@ -91,11 +91,23 @@
 // The TPU kernel's column permutation of the gate (lane-aligned slices for
 // Mosaic) is not needed: a pair is two neighbouring rows of w_ts.
 
-// f32 (the reference eval protocol's dtype), all three: gemm_f32_kernel, a
-// 64 x 64 tile with 128 threads, each a 4 x 8 micro-tile of scalar FMAs, no
-// TF32, with the LayerNorm (statistics of the block's rows first) or the blend
-// as the A tile's prologue; E's means as in bf16, its gate product by
-// gate_alpha_f32_kernel (a warp a logit pair and 8 frames, SIMT f32).
+// f32 (the dtype of the eval CLI, the demo and the trainer), all three, split
+// as bf16 is: ln_rows_f32_kernel (LN once a row, a warp a row held in
+// registers as float4), gate_blend_f32_kernel, and gemm_f32_kernel<Epi>
+// with the four epilogues. What bounds the GEMM: f32 FMAs on the CUDA cores
+// (no TF32: the model's f32 is f32 arithmetic), 119 GFLOP a product of C
+// at the flagship, 1.78 ms at the 67 TFLOP/s peak. So every shared-memory
+// word a thread reads feeds 8 FMAs: a 128 x 128 tile a CTA of 256 threads,
+// each thread 8 x 8 outputs from float4 reads of 8 rows of A and 8 of W
+// along k (K-major in shared memory, as cp.async copies them, rows padded
+// against bank conflicts), taken as outer products k by k; A and W stream
+// through a ring of four 32-deep cp.async stages, three in flight while one
+// is multiplied; persistent CTAs walk the tiles row-major (the column tile
+// fastest), the k-steps of consecutive tiles one sequence, so the next
+// tile's loads overlap this one's last products and its store, which goes
+// through a staging buffer as float4 rows. No index is divided in the loop.
+// f32_layout.cuh holds the layout. E's means as in bf16, its gate product
+// by gate_alpha_f32_kernel (a warp a logit pair and 8 frames, SIMT f32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,18 +115,18 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "f32_layout.cuh"  // the f32 GEMM's layout (also read by a host compiler)
 #include "hopper.cuh"  // TMA, mbarriers, setmaxnreg, wgmma
+
+using namespace maed_f32;
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-// The prologues and epilogues, as types so that a profile names each launch:
-// + bias (the qkv projection), + bias then GELU (fc1), + bias then + residual
-// (fc2; ProjResidual, the same code, the attention's proj).
-struct NoPrologue {};
-struct LayerNormRows {};  // A = LayerNorm(a) over each row
-struct GateBlend {};      // A = a2 * alpha[.., 1] + a * alpha[.., 0], alpha per frame and column
+// The epilogues, as types so that a profile names each launch: + bias (the
+// qkv projection), + bias then GELU (fc1), + bias then + residual (fc2;
+// ProjResidual, the same code, the attention's proj).
 struct BiasOnly {};
 struct BiasGelu {};
 struct BiasResidual {};
@@ -127,34 +139,6 @@ __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-// f32 row statistics of rows m0 .. m0 + rows - 1 of x (M x K), as E[x^2] - m^2,
-// one warp per row: mean_s[r] and rstd_s[r] = rsqrt(var + eps).
-__device__ void row_stats(const float* __restrict__ x, int m0, int rows, int M, int K, float eps,
-                          float* mean_s, float* rstd_s) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
-  for (int r = warp; r < rows; r += warps) {
-    const int m = m0 + r;
-    float s = 0.f, ss = 0.f;
-    if (m < M) {
-      const float* row = x + static_cast<size_t>(m) * K;
-      for (int k = lane; k < K; k += 32) {
-        const float v = row[k];
-        s += v;
-        ss += v * v;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    }
-    if (lane == 0) {
-      const float mean = s / K;
-      mean_s[r] = mean;
-      rstd_s[r] = rsqrtf(ss / K - mean * mean + eps);
-    }
-  }
 }
 
 // ------------------------------------------------------- bf16: LN once a row
@@ -481,110 +465,291 @@ int launch_dense_bf16(const void* a, const void* w, const float* bias, const voi
 
 // ---------------------------------------------------------------- f32
 
-constexpr int kF32Tile = 64, kF32K = 32, kF32Threads = 128;
-constexpr int kF32Pitch = kF32K + 1;  // odd: the micro-tile's column reads spread over the banks
-constexpr int kF32Ldc = kF32Tile + 4;
-
-template <typename Pro, typename Epi>
-__global__ void __launch_bounds__(kF32Threads) gemm_f32_kernel(
-    const float* __restrict__ a, const float* __restrict__ a2, const float* __restrict__ alpha,
-    int rows_per_frame, const float* __restrict__ ln_scale,
-    const float* __restrict__ ln_bias, float eps, const float* __restrict__ w,
-    const float* __restrict__ bias, const float* __restrict__ residual,
-    float* __restrict__ out, int M, int N, int K) {
-  __shared__ float a_s[kF32Tile * kF32Pitch];
-  __shared__ float w_s[kF32Tile * kF32Pitch];
-  __shared__ float c_s[kF32Tile * kF32Ldc];
-  __shared__ float mean_s[kF32Tile];
-  __shared__ float rstd_s[kF32Tile];
-
-  constexpr bool kLayerNorm = kSame<Pro, LayerNormRows>, kBlend = kSame<Pro, GateBlend>;
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * kF32Tile, n0 = blockIdx.x * kF32Tile;
-  if constexpr (kLayerNorm) {
-    row_stats(a, m0, kF32Tile, M, K, eps, mean_s, rstd_s);
-    __syncthreads();
-  }
-
-  const int ty = tid / 8, tx = tid % 8;  // rows ty*4 + i, columns tx + 8*j
-  float acc[4][8];
+// out (M x K) = LN(x) in f32, a warp per row as ln_rows_kernel: with kChunks
+// > 0 (K a multiple of 4, K <= 128 kChunks, x and out 16-byte aligned) lane
+// l holds the float4 chunks l, l + 32, ... of a row, and the scale and bias
+// come as float4 through the read-only path; with 0 (any K) a lane reads
+// its elements twice, the second time from L1.
+template <int kChunks>
+__global__ void __launch_bounds__(kLnWarps * 32) ln_rows_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ ln_scale,
+    const float* __restrict__ ln_bias, float eps, float* __restrict__ out, int M, int K) {
+  constexpr int kHeld = kChunks > 0 ? kChunks : 1;
+  const int lane = threadIdx.x % 32;
+  const long long warps = static_cast<long long>(gridDim.x) * kLnWarps;
+  for (long long m = static_cast<long long>(blockIdx.x) * kLnWarps + threadIdx.x / 32; m < M;
+       m += warps) {
+    const float* row = x + m * K;
+    float* dst = out + m * K;
+    float s = 0.f, ss = 0.f;
+    float4 held[kHeld];
+    if constexpr (kChunks > 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kChunks; ++i) {
+        const int k = (lane + 32 * i) * 4;
+        held[i] = k < K ? *reinterpret_cast<const float4*>(row + k) : make_float4(0, 0, 0, 0);
+        s += held[i].x + held[i].y + held[i].z + held[i].w;
+        ss += held[i].x * held[i].x + held[i].y * held[i].y + held[i].z * held[i].z +
+              held[i].w * held[i].w;
+      }
+    } else {
+      for (int k = lane; k < K; k += 32) {
+        const float v = row[k];
+        s += v;
+        ss += v * v;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    }
+    const float mean = s / K, rstd = rsqrtf(ss / K - mean * mean + eps);
+    if constexpr (kChunks > 0) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kF32K) {
-    for (int idx = tid; idx < kF32Tile * kF32K; idx += kF32Threads) {
-      const int r = idx / kF32K, c = idx % kF32K, m = m0 + r, k = k0 + c;
-      float v = 0.f;
-      if (m < M && k < K) {
-        v = a[static_cast<size_t>(m) * K + k];
-        if constexpr (kLayerNorm) v = (v - mean_s[r]) * rstd_s[r] * ln_scale[k] + ln_bias[k];
-        if constexpr (kBlend) {
-          const float* g = alpha + (static_cast<size_t>(m / rows_per_frame) * K + k) * 2;
-          v = a2[static_cast<size_t>(m) * K + k] * g[1] + v * g[0];
+      for (int i = 0; i < kChunks; ++i) {
+        const int k = (lane + 32 * i) * 4;
+        if (k < K) {
+          const float4 sc = __ldg(reinterpret_cast<const float4*>(ln_scale + k));
+          const float4 sh = __ldg(reinterpret_cast<const float4*>(ln_bias + k));
+          *reinterpret_cast<float4*>(dst + k) = make_float4(
+              (held[i].x - mean) * rstd * sc.x + sh.x, (held[i].y - mean) * rstd * sc.y + sh.y,
+              (held[i].z - mean) * rstd * sc.z + sh.z, (held[i].w - mean) * rstd * sc.w + sh.w);
         }
       }
-      a_s[r * kF32Pitch + c] = v;
-    }
-    for (int idx = tid; idx < kF32Tile * kF32K; idx += kF32Threads) {
-      const int r = idx / kF32K, c = idx % kF32K, n = n0 + r, k = k0 + c;
-      w_s[r * kF32Pitch + c] = (n < N && k < K) ? w[static_cast<size_t>(n) * K + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kF32K; ++kk) {
-      float av[4], wv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a_s[(ty * 4 + i) * kF32Pitch + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) wv[j] = w_s[(tx + 8 * j) * kF32Pitch + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) c_s[(ty * 4 + i) * kF32Ldc + tx + 8 * j] = acc[i][j];
-  __syncthreads();
-
-  for (int idx = tid; idx < kF32Tile * kF32Tile; idx += kF32Threads) {
-    const int r = idx / kF32Tile, c = idx % kF32Tile, m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    const float v = c_s[r * kF32Ldc + c] + bias[n];
-    const size_t o = static_cast<size_t>(m) * N + n;
-    if constexpr (kSame<Epi, BiasOnly>) {
-      out[o] = v;
-    } else if constexpr (kSame<Epi, BiasGelu>) {
-      out[o] = gelu_erf(v);
     } else {
-      out[o] = residual[o] + v;
+      for (int k = lane; k < K; k += 32)
+        dst[k] = (row[k] - mean) * rstd * __ldg(ln_scale + k) + __ldg(ln_bias + k);
     }
   }
 }
 
-// ---------------------------------------------------------------- launches
+constexpr int kLnF32MaxChunks = 8;  // rows of up to 1024 held in registers
 
-// The gate's operands, for the GateBlend prologue alone.
-struct Gate {
-  const float* a2 = nullptr;
-  const float* alpha = nullptr;
-  int rows_per_frame = 1;
-};
+__host__ inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
-template <typename Pro, typename Epi>
-int launch_f32(const float* a, Gate gate, const float* ln_scale, const float* ln_bias, float eps,
-               const float* w, const float* bias, const float* residual, float* out, int M,
-               int N, int K, cudaStream_t stream) {
-  const dim3 grid((N + kF32Tile - 1) / kF32Tile, (M + kF32Tile - 1) / kF32Tile);
-  gemm_f32_kernel<Pro, Epi><<<grid, kF32Threads, 0, stream>>>(
-      a, gate.a2, gate.alpha, gate.rows_per_frame, ln_scale, ln_bias, eps, w, bias, residual,
-      out, M, N, K);
+int launch_ln_rows_f32(const float* x, const float* ln_scale, const float* ln_bias, float eps,
+                       float* out, int M, int K, cudaStream_t stream) {
+  const bool held = K % 4 == 0 && K <= kLnF32MaxChunks * 32 * 4 && aligned16(x) &&
+                    aligned16(out) && aligned16(ln_scale) && aligned16(ln_bias);
+  const int grid = persistent_ctas((static_cast<long long>(M) + kLnWarps - 1) / kLnWarps,
+                                   kLnBlocksPerSm);
+  const auto kernel = held ? ln_rows_f32_kernel<kLnF32MaxChunks> : ln_rows_f32_kernel<0>;
+  kernel<<<grid, kLnWarps * 32, 0, stream>>>(x, ln_scale, ln_bias, eps, out, M, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (M x N) = Epi(A @ W^T + bias) in f32 on the CUDA cores (no TF32), A
+// (M x K) and W (N x K) K-major, residual (M x N) for the residual
+// epilogues; f32_layout.cuh's GEMM layout. Persistent: CTA b takes output
+// tiles b, b + gridDim.x, ..., row-major (the column tile fastest), so the
+// CTAs in flight share a few row panels of A and all of W, which at the
+// model's widths (<= 26 MB) stays in L2. The k-steps of a CTA's tiles form
+// one sequence through the ring, so the next tile's first stages are in
+// flight while the current tile's last ones are multiplied and its outputs
+// stored. cp.async zero-fills rows past M and N and columns past K. kVec
+// (K and N multiples of 4, every pointer 16-byte aligned): 16-byte copies
+// and float4 stores; else 4-byte copies and scalar stores.
+static_assert(kGemmTM == 8 && kGemmTN == 8, "gemm_f32_kernel holds an 8 x 8 tile a thread");
+
+template <typename Epi, bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 1) gemm_f32_kernel(
+    const float* __restrict__ a, const float* __restrict__ w, const float* __restrict__ bias,
+    const float* __restrict__ residual, float* __restrict__ out, int M, int N, int K) {
+  extern __shared__ __align__(16) float gm_s[];
+  float* const c_s = gm_s + kGemmStages * kGemmStage;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tiles_n = (N + kGemmBN - 1) / kGemmBN;
+  const int tiles = (M + kGemmBM - 1) / kGemmBM * tiles_n;
+  const int steps = (K + kGemmBK - 1) / kGemmBK;
+
+  // The loads walk the CTA's (tile, k-step) sequence a few stages ahead of
+  // the products; both keep their place in counters (no division a step).
+  // A thread copies rows cr + j * kGap of each operand's tile, at column cc:
+  // its source pointers and row masks are set once a tile and advanced by
+  // one k-step a load.
+  constexpr int kPer = kVec ? 4 : 1;  // floats a copy
+  constexpr int kRow = kGemmBK / kPer, kGap = kGemmThreads / kRow;
+  constexpr int kCopies = kGemmBM / kGap;  // of each operand, a load
+  static_assert(kCopies <= 32, "a row mask a word");
+  const int cr = tid / kRow, cc = tid % kRow * kPer;
+  const size_t gap = static_cast<size_t>(kGap) * K;
+  int ld_tile = blockIdx.x, ld_k = 0, ld_stage = 0;
+  const float *pa = nullptr, *pw = nullptr;  // row cr of the tile's A and W panels, at the k-step
+  uint32_t a_rows = 0, w_rows = 0;           // bit j: row cr + j * kGap lies below M (N)
+  auto start_tile = [&]() {
+    const int m0 = ld_tile / tiles_n * kGemmBM + cr, n0 = ld_tile % tiles_n * kGemmBN + cr;
+    pa = a + static_cast<size_t>(m0) * K + cc;
+    pw = w + static_cast<size_t>(n0) * K + cc;
+    a_rows = w_rows = 0;
+#pragma unroll
+    for (int j = 0; j < kCopies; ++j) {
+      a_rows |= static_cast<uint32_t>(m0 + j * kGap < M) << j;
+      w_rows |= static_cast<uint32_t>(n0 + j * kGap < N) << j;
+    }
+  };
+  if (ld_tile < tiles) start_tile();
+  auto load_next = [&]() {  // one commit group, empty past the last tile
+    if (ld_tile < tiles) {
+      const uint32_t st = smem_u32(gm_s + ld_stage * kGemmStage + cr * kGemmPitch + cc);
+      const bool k_ok = ld_k * kGemmBK + cc < K;
+#pragma unroll
+      for (int j = 0; j < kCopies; ++j) {
+        const uint32_t dst = st + j * kGap * kGemmPitch * 4;
+        const bool oka = k_ok && (a_rows >> j & 1), okw = k_ok && (w_rows >> j & 1);
+        if constexpr (kVec) {
+          cp_async16(dst, oka ? pa + j * gap : a, oka);
+          cp_async16(dst + kGemmTile * 4, okw ? pw + j * gap : w, okw);
+        } else {
+          cp_async4(dst, oka ? pa + j * gap : a, oka);
+          cp_async4(dst + kGemmTile * 4, okw ? pw + j * gap : w, okw);
+        }
+      }
+      pa += kGemmBK;
+      pw += kGemmBK;
+      if (++ld_k == steps) {
+        ld_k = 0;
+        ld_tile += gridDim.x;
+        if (ld_tile < tiles) start_tile();
+      }
+    }
+    cp_async_commit();
+    ld_stage = ld_stage + 1 == kGemmStages ? 0 : ld_stage + 1;
+  };
+
+  // the tile's outputs through the staging buffer: + bias, then Epi
+  auto epilogue = [&](const float (&acc)[8][8], int m0, int n0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        c_s[gemm_row(warp, lane, i) * kGemmOutPitch + gemm_col(warp, lane, j)] = acc[i][j];
+    __syncthreads();
+    if constexpr (kVec) {
+      // a thread's 4 columns in every 8th row: the bias read once, the 16
+      // rows' residual reads all in flight before the first is used
+      constexpr int kRows = kGemmBM * kGemmBN / 4 / kGemmThreads;
+      const int c = tid % (kGemmBN / 4) * 4, r0 = tid / (kGemmBN / 4), n = n0 + c;
+      if (n < N) {
+        const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + n));
+        float4 r4[kRows];
+        if constexpr (kSame<Epi, BiasResidual> || kSame<Epi, ProjResidual>) {
+#pragma unroll
+          for (int t = 0; t < kRows; ++t) {
+            const int m = m0 + r0 + t * (kGemmThreads * 4 / kGemmBN);
+            r4[t] = m < M ? *reinterpret_cast<const float4*>(residual + static_cast<size_t>(m) * N + n)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < kRows; ++t) {
+          const int r = r0 + t * (kGemmThreads * 4 / kGemmBN), m = m0 + r;
+          if (m >= M) break;
+          const float4 acc4 = *reinterpret_cast<const float4*>(c_s + r * kGemmOutPitch + c);
+          float4 v = make_float4(acc4.x + b4.x, acc4.y + b4.y, acc4.z + b4.z, acc4.w + b4.w);
+          if constexpr (kSame<Epi, BiasGelu>) {
+            v = make_float4(gelu_erf(v.x), gelu_erf(v.y), gelu_erf(v.z), gelu_erf(v.w));
+          } else if constexpr (kSame<Epi, BiasResidual> || kSame<Epi, ProjResidual>) {
+            v = make_float4(r4[t].x + v.x, r4[t].y + v.y, r4[t].z + v.z, r4[t].w + v.w);
+          }
+          *reinterpret_cast<float4*>(out + static_cast<size_t>(m) * N + n) = v;
+        }
+      }
+    } else {
+      for (int idx = tid; idx < kGemmBM * kGemmBN; idx += kGemmThreads) {
+        const int r = idx / kGemmBN, c = idx % kGemmBN, m = m0 + r, n = n0 + c;
+        if (m >= M || n >= N) continue;
+        float v = c_s[r * kGemmOutPitch + c] + bias[n];
+        if constexpr (kSame<Epi, BiasGelu>) {
+          v = gelu_erf(v);
+        } else if constexpr (kSame<Epi, BiasResidual> || kSame<Epi, ProjResidual>) {
+          v = residual[static_cast<size_t>(m) * N + n] + v;
+        }
+        out[static_cast<size_t>(m) * N + n] = v;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kGemmStages - 1; ++s) load_next();
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const float* const a_row = gm_s + gemm_row(warp, lane, 0) * kGemmPitch;
+  const float* const w_row = gm_s + kGemmTile + gemm_col(warp, lane, 0) * kGemmPitch;
+  int k_step = 0, stage = 0;
+  for (int tile = blockIdx.x; tile < tiles;) {
+    cp_async_wait<kGemmStages - 2>();  // this step has landed (this thread's copies) ...
+    __syncthreads();                   // ... everyone's, and the previous step's stage is read
+    load_next();
+    const float* as = a_row + stage * kGemmStage;
+    const float* ws = w_row + stage * kGemmStage;
+    // 4 k at a time: the thread's 8 rows of A and 8 of W as float4 (the
+    // next 4 k's read while these are multiplied), then their outer
+    // products k by k (each A value feeds 8 FMAs in a row)
+    float4 av[2][8], wv[2][8];
+    auto fetch = [&](int buf, int kk) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        av[buf][i] = *reinterpret_cast<const float4*>(as + 4 * i * kGemmPitch + kk);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        wv[buf][j] = *reinterpret_cast<const float4*>(ws + 8 * j * kGemmPitch + kk);
+    };
+    fetch(0, 0);
+#pragma unroll
+    for (int g = 0; g < kGemmBK / 4; ++g) {
+      if (g + 1 < kGemmBK / 4) fetch((g + 1) % 2, 4 * (g + 1));
+      const float4(&a4)[8] = av[g % 2];
+      const float4(&w4)[8] = wv[g % 2];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a4[i].x, w4[j].x, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a4[i].y, w4[j].y, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a4[i].z, w4[j].z, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a4[i].w, w4[j].w, acc[i][j]);
+    }
+    stage = stage + 1 == kGemmStages ? 0 : stage + 1;
+    if (++k_step == steps) {
+      epilogue(acc, tile / tiles_n * kGemmBM, tile % tiles_n * kGemmBN);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      k_step = 0;
+      tile += gridDim.x;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <typename Epi>
+int launch_gemm_f32(const float* a, const float* w, const float* bias, const float* residual,
+                    float* out, int M, int N, int K, cudaStream_t stream) {
+  const bool vec = K % 4 == 0 && N % 4 == 0 && aligned16(a) && aligned16(w) &&
+                   aligned16(bias) && aligned16(out) && (residual == nullptr || aligned16(residual));
+  const auto kernel = vec ? gemm_f32_kernel<Epi, true> : gemm_f32_kernel<Epi, false>;
+  const cudaError_t err = vec ? allow_smem<gemm_f32_kernel<Epi, true>>(kGemmBytes)
+                              : allow_smem<gemm_f32_kernel<Epi, false>>(kGemmBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles =
+      static_cast<long long>((M + kGemmBM - 1) / kGemmBM) * ((N + kGemmBN - 1) / kGemmBN);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<persistent_ctas(tiles), kGemmThreads, kGemmBytes, stream>>>(a, w, bias, residual, out,
+                                                                       M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -834,13 +999,60 @@ int launch_gate_blend(const void* ys, const void* yt, const void* alpha, void* y
   return static_cast<int>(cudaGetLastError());
 }
 
+// f32: y = y_t * a_t + y_s * a_s, each product and the sum rounded as the
+// plain version rounds them (no contraction into an FMA); V elements a
+// thread and step (4: C a multiple of 4 and 16-byte aligned operands).
+template <int V>
+__global__ void __launch_bounds__(kBlendThreads) gate_blend_f32_kernel(
+    const float* __restrict__ ys, const float* __restrict__ yt, const float* __restrict__ alpha,
+    float* __restrict__ y, long long vecs, int N, int C) {
+  for (long long i = static_cast<long long>(blockIdx.x) * kBlendThreads + threadIdx.x; i < vecs;
+       i += static_cast<long long>(gridDim.x) * kBlendThreads) {
+    const long long e = i * V, row = e / C;
+    const int c = static_cast<int>(e - row * C);
+    const float* g = alpha + (row / N * C + c) * 2;  // V (spatial, temporal) pairs
+    if constexpr (V == 4) {
+      const float4 s = __ldg(reinterpret_cast<const float4*>(ys) + i);
+      const float4 t = __ldg(reinterpret_cast<const float4*>(yt) + i);
+      const float4 g0 = __ldg(reinterpret_cast<const float4*>(g));
+      const float4 g1 = __ldg(reinterpret_cast<const float4*>(g) + 1);
+      reinterpret_cast<float4*>(y)[i] = make_float4(
+          __fadd_rn(__fmul_rn(t.x, g0.y), __fmul_rn(s.x, g0.x)),
+          __fadd_rn(__fmul_rn(t.y, g0.w), __fmul_rn(s.y, g0.z)),
+          __fadd_rn(__fmul_rn(t.z, g1.y), __fmul_rn(s.z, g1.x)),
+          __fadd_rn(__fmul_rn(t.w, g1.w), __fmul_rn(s.w, g1.z)));
+    } else {
+      y[i] = __fadd_rn(__fmul_rn(__ldg(yt + i), __ldg(g + 1)), __fmul_rn(__ldg(ys + i), __ldg(g)));
+    }
+  }
+}
+
+int launch_gate_blend_f32(const float* ys, const float* yt, const float* alpha, float* y, int BT,
+                          int N, int C, cudaStream_t stream) {
+  const bool vec = C % 4 == 0 && aligned16(ys) && aligned16(yt) && aligned16(alpha) &&
+                   aligned16(y);
+  const long long vecs = static_cast<long long>(BT) * N * C / (vec ? 4 : 1);
+  const int grid = persistent_ctas((vecs + kBlendThreads - 1) / kBlendThreads, kBlendBlocksPerSm);
+  if (vec) {
+    gate_blend_f32_kernel<4><<<grid, kBlendThreads, 0, stream>>>(ys, yt, alpha, y, vecs, N, C);
+  } else {
+    gate_blend_f32_kernel<1><<<grid, kBlendThreads, 0, stream>>>(ys, yt, alpha, y, vecs, N, C);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// bf16 LN(x) rounded to bf16: x and out (M, C), ln_scale and ln_bias (C) f32;
-// C a multiple of 8, x and out 16-byte aligned.
-extern "C" int maed_ln_rows(const void* x, const float* ln_scale, const float* ln_bias,
-                            float eps, void* out, int M, int C, void* stream) {
-  return launch_ln_rows(x, ln_scale, ln_bias, eps, out, M, C, static_cast<cudaStream_t>(stream));
+// LN(x) rounded to x's dtype (bf16 if is_bf16, else f32): x and out (M, C),
+// ln_scale and ln_bias (C) f32; bf16: C a multiple of 8, x and out 16-byte
+// aligned; f32: any C.
+extern "C" int maed_ln_rows(int is_bf16, const void* x, const float* ln_scale,
+                            const float* ln_bias, float eps, void* out, int M, int C,
+                            void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return launch_ln_rows(x, ln_scale, ln_bias, eps, out, M, C, s);
+  return launch_ln_rows_f32(static_cast<const float*>(x), ln_scale, ln_bias, eps,
+                            static_cast<float*>(out), M, C, s);
 }
 
 // bf16 out (M, N) = epilogue(a @ w^T + bias): a (M, K), w (N, K), bias (N)
@@ -862,24 +1074,17 @@ extern "C" int maed_dense_bf16(int epilogue, const void* a, const void* w, const
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// f32 out (M, N) = epilogue(A @ w^T + bias), epilogues as maed_dense_bf16's,
-// each with the prologue its launch needs: A = LayerNorm(a) over each row
-// (ln_scale, ln_bias (K)) for 0, D, and 1, C's fc1; A = a for 2, C's fc2.
-extern "C" int maed_dense_f32(int epilogue, const float* a, const float* ln_scale,
-                              const float* ln_bias, float eps, const float* w, const float* bias,
+// f32 out (M, N) = epilogue(a @ w^T + bias), the epilogues of maed_dense_bf16
+// (none rounds: f32 throughout), any M, N, K.
+extern "C" int maed_dense_f32(int epilogue, const float* a, const float* w, const float* bias,
                               const float* residual, float* out, int M, int N, int K,
                               void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   switch (epilogue) {
-    case 0:
-      return launch_f32<LayerNormRows, BiasOnly>(a, Gate{}, ln_scale, ln_bias, eps, w, bias,
-                                                 nullptr, out, M, N, K, s);
-    case 1:
-      return launch_f32<LayerNormRows, BiasGelu>(a, Gate{}, ln_scale, ln_bias, eps, w, bias,
-                                                 nullptr, out, M, N, K, s);
-    case 2:
-      return launch_f32<NoPrologue, BiasResidual>(a, Gate{}, nullptr, nullptr, 0.f, w, bias,
-                                                  residual, out, M, N, K, s);
+    case 0: return launch_gemm_f32<BiasOnly>(a, w, bias, residual, out, M, N, K, s);
+    case 1: return launch_gemm_f32<BiasGelu>(a, w, bias, residual, out, M, N, K, s);
+    case 2: return launch_gemm_f32<BiasResidual>(a, w, bias, residual, out, M, N, K, s);
+    case 3: return launch_gemm_f32<ProjResidual>(a, w, bias, residual, out, M, N, K, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -901,20 +1106,24 @@ extern "C" int maed_gate_alpha(int is_bf16, const void* means, const void* w_ts,
                            static_cast<cudaStream_t>(stream));
 }
 
-// E's blend, bf16: y (BT * N, C) from y_s, y_t (BT, N, C) and alpha (BT, C,
-// 2); C a multiple of 8, all 16-byte aligned, BT * N * C / 8 < 2^31.
-extern "C" int maed_gate_blend(const void* y_s, const void* y_t, const void* alpha, void* y,
-                               int BT, int N, int C, void* stream) {
-  return launch_gate_blend(y_s, y_t, alpha, y, BT, N, C, static_cast<cudaStream_t>(stream));
+// E's blend: y (BT * N, C) from y_s, y_t (BT, N, C) and alpha (BT, C, 2),
+// bf16 if is_bf16 (C a multiple of 8, all 16-byte aligned, BT * N * C / 8 <
+// 2^31), else f32 (any C).
+extern "C" int maed_gate_blend(int is_bf16, const void* y_s, const void* y_t, const void* alpha,
+                               void* y, int BT, int N, int C, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return launch_gate_blend(y_s, y_t, alpha, y, BT, N, C, s);
+  return launch_gate_blend_f32(static_cast<const float*>(y_s), static_cast<const float*>(y_t),
+                               static_cast<const float*>(alpha), static_cast<float*>(y), BT, N,
+                               C, s);
 }
 
 // The attention's tail, kernel E: out = x + ((y_t * a_t + y_s * a_s) @ w_p^T
 // + b_p) and alpha (BT, C, 2), from y_s, y_t, x and out (BT, N, C), w_ts
 // (2C, 2C) and w_p (C, C) in one dtype, b_ts (2C) and b_p (C) f32. means
-// (BT, 2C) in the dtype and, for bf16, y (BT * N, C) are scratch. bf16: the
-// means, the gate, the blend into y and the GEMM with the ProjResidual
-// epilogue; f32: the means, the gate and the scalar GEMM with the blend as
-// its A tile's prologue. Returns the first launch's error.
+// (BT, 2C) and y (BT * N, C) in the dtype are scratch. Four launches in
+// either dtype: the means, the gate, the blend into y and the GEMM with the
+// ProjResidual epilogue. Returns the first launch's error.
 extern "C" int maed_gate_proj(int is_bf16, const void* y_s, const void* y_t, const void* x,
                               const void* w_ts, const float* b_ts, const void* w_p,
                               const float* b_p, void* means, void* alpha, void* y, void* out,
@@ -923,16 +1132,9 @@ extern "C" int maed_gate_proj(int is_bf16, const void* y_s, const void* y_t, con
   const int M = BT * N;
   if (const int err = maed_gate_means(is_bf16, y_s, y_t, means, BT, N, C, stream)) return err;
   if (const int err = launch_gate_alpha(is_bf16, means, w_ts, b_ts, alpha, BT, C, s)) return err;
-  if (is_bf16) {
-    if (const int err = launch_gate_blend(y_s, y_t, alpha, y, BT, N, C, s)) return err;
-    return launch_dense_bf16<ProjResidual>(y, w_p, b_p, x, out, M, C, C, s);
-  }
-  Gate gate;
-  gate.a2 = static_cast<const float*>(y_t);
-  gate.alpha = static_cast<const float*>(alpha);
-  gate.rows_per_frame = N;
-  return launch_f32<GateBlend, BiasResidual>(static_cast<const float*>(y_s), gate, nullptr,
-                                             nullptr, 0.f, static_cast<const float*>(w_p), b_p,
-                                             static_cast<const float*>(x),
-                                             static_cast<float*>(out), M, C, C, s);
+  if (const int err = maed_gate_blend(is_bf16, y_s, y_t, alpha, y, BT, N, C, stream)) return err;
+  if (is_bf16) return launch_dense_bf16<ProjResidual>(y, w_p, b_p, x, out, M, C, C, s);
+  return launch_gemm_f32<ProjResidual>(static_cast<const float*>(y), static_cast<const float*>(w_p),
+                                       b_p, static_cast<const float*>(x), static_cast<float*>(out),
+                                       M, C, C, s);
 }

@@ -9,7 +9,7 @@
 //     maed_tpu/ops/attention.py::_attn_blocked_kernel (pallas_call in
 //       `_attention_blocked`, public entry `fused_attention`, S > 1024)
 //   maed_spatial_attention (spatial_attention_tma_kernel in bf16,
-//   spatial_attention_kernel in f32)
+//   spatial_f32_kernel in f32)
 //     maed_tpu/ops/attention.py::_attn_oneshot_kernel (pallas_call in
 //       `_attention_oneshot`, public entry `fused_attention`, S <= 1024)
 //     maed_tpu/ops/st_attention.py::_spatial_kernel (pallas_call in
@@ -60,14 +60,21 @@
 // two stages: once for each row's max and sum, once for p v, the exact
 // two-pass softmax.
 //
-// Spatial, f32 (the reference protocol's dtype; bf16 has the path above
-// alone), any head dim that is a multiple of 8: a block
-// takes 32 query rows, a warp 4 of them. The keys pass through shared memory in
-// tiles of 64 (as f32, rows padded by one word against bank conflicts); a lane
-// takes every 32nd key of the tile and forms its score with 4 rows at once on
-// the CUDA cores (no TF32). The rows' scores stay in shared memory (S <= 1024
-// floats a row), then the values pass through the same tile buffer and a lane
-// accumulates output columns lane, lane + 32, ... of its 4 rows.
+// Spatial, f32 (the dtype of the eval CLI, the demo and the trainer; bf16 has
+// the path above alone), head dims up to 128: spatial_f32_kernel, the
+// layout and plan of f32_layout.cuh. What bounds it: f32 FMAs (15.3 GFLOP at
+// the flagship, 0.23 ms at the 67 TFLOP/s peak), so q k^T and p v are
+// register tiles fed by float4 reads, every K and V row enters shared
+// memory once per 64 query rows (197 tokens: 4 CTAs of 50 rows a (frame,
+// head), two CTAs an SM), and the copies are in flight while the previous
+// chunk is multiplied: q's rows and the keys' 16-column chunks through two
+// cp.async stages, a 4-row x 16-key-group score tile a thread (keys tx +
+// 16g); up to 256 keys the exact softmax is taken on those registers (a
+// row's keys lie in a half warp) and p written to shared memory once; past
+// 256 (fused_attention's one-shot range, no model path) 32 query rows a CTA
+// and key tiles of 256 fill a score row of up to 1024 in shared memory,
+// softmaxed there a warp a row. Then p v over 32-key tiles of v through the
+// same stages, a 4 x 4 (d <= 64) or 4 x 8 output tile a thread.
 //
 // Temporal, bf16 (temporal_attention_mma_kernel): bound by bytes. At the
 // flagship shape it reads the 116 MB qkv and writes 39 MB, 0.046 ms at 3.35
@@ -108,17 +115,15 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "f32_layout.cuh"  // the f32 spatial kernel's layout and plan (also read by a host compiler)
 #include "hopper.cuh"  // TMA, mbarriers, setmaxnreg, wgmma
 
 namespace {
 
+namespace mf = maed_f32;
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
 
 // 16 bytes of T
 template <typename T>
@@ -139,131 +144,6 @@ __device__ __forceinline__ void load_row(float* dst, const T* src, int d, int la
 }
 
 constexpr int kMaxD = 128, kColsPerLane = kMaxD / 32;
-
-// ---------------------------------------------------------------- spatial
-
-constexpr int kSpWarps = 8, kSpThreads = kSpWarps * 32;
-constexpr int kRowsPerWarp = 4, kQueryTile = kSpWarps * kRowsPerWarp, kKeyTile = 64;
-
-// rows of K or V, k0 .. k0 + kn - 1, into the tile buffer at `pitch` floats a row
-template <typename T>
-__device__ __forceinline__ void load_tile(float* tile, int pitch, const T* src, long long ss,
-                                          int k0, int kn, int d) {
-  constexpr int kN = Chunk<T>::kN;
-  const int per_row = d / kN;
-  for (int idx = threadIdx.x; idx < kn * per_row; idx += kSpThreads) {
-    const int key = idx / per_row, c = (idx % per_row) * kN;
-    const Chunk<T> chunk = *reinterpret_cast<const Chunk<T>*>(src + (k0 + key) * ss + c);
-#pragma unroll
-    for (int e = 0; e < kN; ++e) tile[key * pitch + c + e] = to_f32(chunk.v[e]);
-  }
-}
-
-// grid (B * H, ceil(S / kQueryTile)). Element (b, h, s, :) of q, k, v at
-// b * sb + h * sh + s * ss, of out at b * ob + h * oh + s * os.
-template <typename T>
-__global__ void __launch_bounds__(kSpThreads) spatial_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int H, int S, int d, long long sb, long long sh, long long ss,
-    long long ob, long long oh, long long os, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                          // kQueryTile x d
-  float* kv_s = q_s + kQueryTile * d;         // kKeyTile x (d + 1)
-  float* p_s = kv_s + kKeyTile * (d + 1);     // kQueryTile x S
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x / H, h = blockIdx.x % H, q0 = blockIdx.y * kQueryTile;
-  const long long in_base = b * sb + h * sh;
-  q += in_base;
-  k += in_base;
-  v += in_base;
-  out += b * ob + h * oh;
-  const int r0 = warp * kRowsPerWarp;  // this warp's first row within the tile
-
-  for (int r = warp; r < kQueryTile; r += kSpWarps) {
-    if (q0 + r < S) {
-      load_row(q_s + r * d, q + (q0 + r) * ss, d, lane);
-    } else {
-      for (int c = lane; c < d; c += 32) q_s[r * d + c] = 0.f;
-    }
-  }
-
-  // scores of the tile's rows against every key
-  for (int k0 = 0; k0 < S; k0 += kKeyTile) {
-    const int kn = min(kKeyTile, S - k0);
-    __syncthreads();  // q_s written; the previous tile read
-    load_tile(kv_s, d + 1, k, ss, k0, kn, d);
-    __syncthreads();
-    for (int key = lane; key < kn; key += 32) {
-      const float* kr = kv_s + key * (d + 1);
-      float acc[kRowsPerWarp] = {};
-      for (int c = 0; c < d; c += 4) {
-        const float k0v = kr[c], k1v = kr[c + 1], k2v = kr[c + 2], k3v = kr[c + 3];
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float4 qv = *reinterpret_cast<const float4*>(q_s + (r0 + r) * d + c);
-          acc[r] = fmaf(qv.x, k0v, acc[r]);
-          acc[r] = fmaf(qv.y, k1v, acc[r]);
-          acc[r] = fmaf(qv.z, k2v, acc[r]);
-          acc[r] = fmaf(qv.w, k3v, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) p_s[(r0 + r) * S + k0 + key] = acc[r] * scale;
-    }
-  }
-  __syncwarp();
-
-  // softmax of this warp's rows, p rounded as v's dtype holds it
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    if (q0 + r0 + r >= S) break;
-    float* pr = p_s + (r0 + r) * S;
-    float m = -INFINITY;
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, pr[j]);
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(pr[j] - m);
-      pr[j] = e;
-      sum += e;
-    }
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    for (int j = lane; j < S; j += 32) pr[j] = to_f32(from_f32<T>(pr[j] / sum));
-  }
-
-  // out = p v
-  float acc[kRowsPerWarp][kColsPerLane] = {};
-  for (int k0 = 0; k0 < S; k0 += kKeyTile) {
-    const int kn = min(kKeyTile, S - k0);
-    __syncthreads();  // the previous tile read (and every warp's p_s written)
-    load_tile(kv_s, d, v, ss, k0, kn, d);
-    __syncthreads();
-    for (int key = 0; key < kn; ++key) {
-      float vv[kColsPerLane];
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) {
-        const int c = lane + 32 * j;
-        vv[j] = c < d ? kv_s[key * d + c] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float p = p_s[(r0 + r) * S + k0 + key];
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j) acc[r][j] = fmaf(p, vv[j], acc[r][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = q0 + r0 + r;
-    if (row >= S) break;
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const int c = lane + 32 * j;
-      if (c < d) out[row * os + c] = from_f32<T>(acc[r][j]);
-    }
-  }
-}
 
 // ------------------------------------------- Hopper kernels (bf16)
 //
@@ -764,24 +644,265 @@ int launch_spatial_tma(const TmaCall& c) {
       c, SpatialLayout<D>::kBytes, c.S <= kSpChunk ? kSpChunk : 128);
 }
 
-template <typename T>
-int launch_spatial(const void* q, const void* k, const void* v, void* out, int B, int H, int S,
-                   int d, long long sb, long long sh, long long ss, long long ob, long long oh,
-                   long long os, float scale, cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(kQueryTile) * d + kKeyTile * (d + 1) + static_cast<size_t>(kQueryTile) * S) *
-      sizeof(float);
-  auto kernel = spatial_attention_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// ------------------------------------------------------ spatial, f32
+//
+// f32_layout.cuh's layout and plan. grid: (batch, head) items x row blocks,
+// the row block fastest, so that the CTAs of one item run at the same time
+// and its K and V come from device memory once. Element (b, h, s, :) of q,
+// k, v at b * sb + h * sh + s * ss, of out at b * ob + h * oh + s * os;
+// vec_out: out and its strides 16-byte granular (float4 stores).
+template <int RPT, int G, int NB>
+__global__ void __launch_bounds__(mf::kSpThreads, G <= 13 ? 2 : 1) spatial_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, int H, int S, int d, long long sb, long long sh, long long ss,
+    long long ob, long long oh, long long os, float scale, int key_tiles, int blocks, int rows,
+    int vec_out) {
+  constexpr int kRows = 16 * RPT, kKeys = 16 * G, kCp = mf::kSpChunkPitch, kDc = mf::kSpDc;
+  constexpr int kStage = mf::spatial_stage(RPT, G);
+  constexpr int kVPitch = mf::spatial_v_pitch(NB), kV = mf::kSpVKeys * kVPitch;
+  constexpr int kRing = 2 * kStage > 2 * kV ? 2 * kStage : 2 * kV;
+  constexpr bool kOneTile = RPT == 4;  // the plan's S <= 256: one key tile, softmax in registers
+  extern __shared__ __align__(16) float sp_smem[];
+  const int width = key_tiles * kKeys, p_pitch = mf::spatial_p_pitch(RPT, width);
+  float* const p_s = sp_smem + kRing;  // the score rows, then p
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const long long item = blockIdx.x / blocks;
+  const int row0 = static_cast<int>(blockIdx.x % blocks) * rows;
+  const int nrows = min(rows, S - row0);
+  const bool live = 2 * RPT * (tid / 32) < nrows;  // warp w: rows 2 RPT w .. 2 RPT w + 2 RPT - 1
+  const long long in_base = item / H * sb + item % H * sh;
+  q += in_base;
+  k += in_base;
+  v += in_base;
+  out += item / H * ob + item % H * oh;
+
+  // step s: column chunk s % chunks of q's rows and of key tile s / chunks
+  const int chunks = (d + kDc - 1) / kDc, steps = key_tiles * chunks;
+  auto load_qk = [&](int s) {
+    float* st = sp_smem + (s & 1) * kStage;
+    const int key0 = s / chunks * kKeys, c0 = s % chunks * kDc;
+    for (int i = tid; i < (kRows + kKeys) * (kDc / 4); i += mf::kSpThreads) {
+      const int r = i / (kDc / 4), c = c0 + i % (kDc / 4) * 4;
+      const bool is_q = r < kRows;
+      const int row = is_q ? row0 + r : key0 + r - kRows;
+      const bool ok = (is_q ? r < nrows : row < S) && c < d;
+      cp_async16(smem_u32(st + r * kCp + c - c0), ok ? (is_q ? q : k) + row * ss + c : q, ok);
+    }
+    cp_async_commit();
+  };
+  float acc[G][RPT];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) acc[g][i] = 0.f;
+  load_qk(0);
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) {
+      load_qk(s + 1);
+    } else {
+      cp_async_commit();  // an empty group keeps the count
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+    if (live) {
+      const float* qs = sp_smem + (s & 1) * kStage + RPT * ty * kCp;
+      const float* ks = sp_smem + (s & 1) * kStage + (kRows + tx) * kCp;
+#pragma unroll
+      for (int c = 0; c < kDc; c += 4) {
+        float4 qv[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) qv[i] = *reinterpret_cast<const float4*>(qs + i * kCp + c);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float4 kv = *reinterpret_cast<const float4*>(ks + 16 * g * kCp + c);
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            acc[g][i] = fmaf(qv[i].x, kv.x, acc[g][i]);
+            acc[g][i] = fmaf(qv[i].y, kv.y, acc[g][i]);
+            acc[g][i] = fmaf(qv[i].z, kv.z, acc[g][i]);
+            acc[g][i] = fmaf(qv[i].w, kv.w, acc[g][i]);
+          }
+        }
+      }
+    }
+    if (s % chunks == chunks - 1) {  // the key tile's scores are whole
+      const int key0 = s / chunks * kKeys;
+      if constexpr (kOneTile) {
+        // the exact softmax in registers: a row's keys lie in the 16 lanes
+        // of a half warp; p (0 from S on) into the score rows
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          float mx = -INFINITY, sum = 0.f;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            acc[g][i] = 16 * g + tx < S ? acc[g][i] * scale : -INFINITY;
+            mx = fmaxf(mx, acc[g][i]);
+          }
+          for (int off = 8; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            acc[g][i] = expf(acc[g][i] - mx);
+            sum += acc[g][i];
+          }
+          for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          const float inv = 1.f / sum;
+#pragma unroll
+          for (int g = 0; g < G; ++g) p_s[(RPT * ty + i) * p_pitch + 16 * g + tx] = acc[g][i] * inv;
+        }
+      } else {
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const int key = key0 + 16 * g + tx;
+            p_s[(RPT * ty + i) * p_pitch + key] = key < S ? acc[g][i] * scale : -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) acc[g][i] = 0.f;
+    }
+    __syncthreads();
   }
-  const dim3 grid(B * H, (S + kQueryTile - 1) / kQueryTile);
-  kernel<<<grid, kSpThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                             static_cast<const T*>(v), static_cast<T*>(out), H, S,
-                                             d, sb, sh, ss, ob, oh, os, scale);
+
+  // v's 32-key tiles through the two stages' memory, the first one in flight
+  // while the softmax runs
+  const int vtiles = (S + mf::kSpVKeys - 1) / mf::kSpVKeys;
+  auto load_v = [&](int t) {
+    float* st = sp_smem + (t & 1) * kV;
+    for (int i = tid; i < mf::kSpVKeys * 16 * NB; i += mf::kSpThreads) {
+      const int r = i / (16 * NB), c = i % (16 * NB) * 4, key = t * mf::kSpVKeys + r;
+      const bool ok = key < S && c < d;
+      cp_async16(smem_u32(st + r * kVPitch + c), ok ? v + key * ss + c : v, ok);
+    }
+    cp_async_commit();
+  };
+  load_v(0);
+  if constexpr (!kOneTile) {  // the exact softmax of each row, a warp a row; 0 from S on
+    const int warp = tid / 32, lane = tid % 32;
+    for (int r = warp; r < nrows; r += mf::kSpThreads / 32) {
+      float* row = p_s + r * p_pitch;
+      float mx = -INFINITY, sum = 0.f;
+      for (int j = lane; j < width; j += 32) mx = fmaxf(mx, row[j]);
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      for (int j = lane; j < width; j += 32) {
+        const float e = expf(row[j] - mx);
+        row[j] = e;
+        sum += e;
+      }
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      for (int j = lane; j < width; j += 32) row[j] = row[j] / sum;
+    }
+  }
+
+  // out = p v: o[i][b] holds columns spatial_col(b, tx, 0 .. 3) of row RPT ty + i
+  const int keys4 = (S + 3) / 4 * 4;  // p is 0 and v's rows are zeros from S on
+  float o[RPT][NB][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[i][b][c] = 0.f;
+  for (int t = 0; t < vtiles; ++t) {
+    if (t + 1 < vtiles) {
+      load_v(t + 1);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<1>();
+    __syncthreads();  // the tile has landed; every row's p is written
+    if (live) {
+      const float* vs = sp_smem + (t & 1) * kV + mf::spatial_col(0, tx, 0);
+      const float* ps = p_s + RPT * ty * p_pitch + t * mf::kSpVKeys;
+      const int keys = min(mf::kSpVKeys, keys4 - t * mf::kSpVKeys);
+#pragma unroll 2
+      for (int key = 0; key < keys; key += 4) {
+        float4 pv[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+          pv[i] = *reinterpret_cast<const float4*>(ps + i * p_pitch + key);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            const float4 vv =
+                *reinterpret_cast<const float4*>(vs + (key + e) * kVPitch + 64 * b);
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) {
+              const float pe = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
+              o[i][b][0] = fmaf(pe, vv.x, o[i][b][0]);
+              o[i][b][1] = fmaf(pe, vv.y, o[i][b][1]);
+              o[i][b][2] = fmaf(pe, vv.z, o[i][b][2]);
+              o[i][b][3] = fmaf(pe, vv.w, o[i][b][3]);
+            }
+          }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = RPT * ty + i;
+    if (row >= nrows) break;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int col = mf::spatial_col(b, tx, 0);
+      if (col >= d) continue;  // d a multiple of 8: 4 columns all in or all out
+      float* dst = out + (row0 + row) * os + col;
+      if (vec_out) {
+        *reinterpret_cast<float4*>(dst) = make_float4(o[i][b][0], o[i][b][1], o[i][b][2], o[i][b][3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dst[c] = o[i][b][c];
+      }
+    }
+  }
+}
+
+template <int RPT, int G, int NB>
+int launch_spatial_f32_instance(const TmaCall& c, int d, const mf::SpatialPlan& p, int vec_out) {
+  const auto kernel = spatial_f32_kernel<RPT, G, NB>;
+  if (const cudaError_t err = allow_smem<spatial_f32_kernel<RPT, G, NB>>(mf::kMaxSmem))
+    return static_cast<int>(err);
+  const long long ctas = static_cast<long long>(c.B) * c.H * p.blocks;
+  kernel<<<static_cast<unsigned>(ctas), mf::kSpThreads, p.bytes, c.stream>>>(
+      static_cast<const float*>(c.q), static_cast<const float*>(c.k),
+      static_cast<const float*>(c.v), static_cast<float*>(c.out), c.H, c.S, d, c.sb, c.sh, c.ss,
+      c.ob, c.oh, c.os, c.scale, p.key_tiles, p.blocks, p.rows, vec_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int RPT, int G>
+int launch_spatial_f32_nb(const TmaCall& c, int d, const mf::SpatialPlan& p, int vec_out) {
+  return p.nb == 1 ? launch_spatial_f32_instance<RPT, G, 1>(c, d, p, vec_out)
+                   : launch_spatial_f32_instance<RPT, G, 2>(c, d, p, vec_out);
+}
+
+// the instance of spatial_f32_plan(S, d), or cudaErrorInvalidValue
+int launch_spatial_f32(const TmaCall& c, int d) {
+  const mf::SpatialPlan p = mf::spatial_f32_plan(c.S, d);
+  const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  if (p.bytes == 0 || p.bytes > mf::kMaxSmem || !aligned(c.q) || !aligned(c.k) ||
+      !aligned(c.v) || c.sb % 4 || c.sh % 4 || c.ss % 4 ||
+      static_cast<long long>(c.B) * c.H * p.blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec_out = aligned(c.out) && c.ob % 4 == 0 && c.oh % 4 == 0 && c.os % 4 == 0;
+  if (p.rpt == 2) return launch_spatial_f32_nb<2, 16>(c, d, p, vec_out);
+  switch (p.g) {
+    case 2: return launch_spatial_f32_nb<4, 2>(c, d, p, vec_out);
+    case 4: return launch_spatial_f32_nb<4, 4>(c, d, p, vec_out);
+    case 8: return launch_spatial_f32_nb<4, 8>(c, d, p, vec_out);
+    case 12: return launch_spatial_f32_nb<4, 12>(c, d, p, vec_out);
+    case 13: return launch_spatial_f32_nb<4, 13>(c, d, p, vec_out);
+    case 16: return launch_spatial_f32_nb<4, 16>(c, d, p, vec_out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ------------------------------------------------- blocked (online softmax)
@@ -1052,7 +1173,7 @@ __device__ __forceinline__ void load_tile_zero(float* tile, int pitch, const flo
   }
 }
 
-// grid (B * H, ceil(S / kBkRows)); addressing as spatial_attention_kernel.
+// grid (B * H, ceil(S / kBkRows)); addressing as spatial_f32_kernel.
 __global__ void __launch_bounds__(kBkThreads) blocked_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ out, int H, int S, int d, long long sb, long long sh, long long ss,
@@ -1552,11 +1673,10 @@ extern "C" int maed_spatial_attention(int is_bf16, const void* q, const void* k,
                                       long long sh, long long ss, long long ob, long long oh,
                                       long long os, float scale, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
-    return launch_spatial<float>(q, k, v, out, B, H, S, d, sb, sh, ss, ob, oh, os, scale, s);
+  const TmaCall call{q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, scale, s};
+  if (!is_bf16) return launch_spatial_f32(call, d);
   if (S < 1 || S > 4 * kSpChunk || !tma_operands(q, k, v, out, sb, sh, ss, ob, oh, os))
     return static_cast<int>(cudaErrorInvalidValue);
-  const TmaCall call{q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, scale, s};
   return by_head_dim(d, [&](auto dim) { return launch_spatial_tma<decltype(dim)::value>(call); });
 }
 

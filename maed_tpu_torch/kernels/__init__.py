@@ -34,14 +34,14 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "skinning": 0,      # csrc/skinning.cu
     "layernorm": 0,     # ops/layernorm.py (Triton)
-    "ln_rows": 0,       # csrc/ln_mlp.cu, LN(x) rounded to bf16, the pre-pass of C and D in bf16
-    "ln_mlp_fc1": 0,    # csrc/ln_mlp.cu, (LN +) fc1 + GELU launch
+    "ln_rows": 0,       # csrc/ln_mlp.cu, LN(x) rounded to x's dtype, the pre-pass of C and D
+    "ln_mlp_fc1": 0,    # csrc/ln_mlp.cu, fc1 + GELU launch
     "ln_mlp_fc2": 0,    # csrc/ln_mlp.cu, fc2 + residual launch
-    "ln_dense": 0,      # csrc/ln_mlp.cu, (LN +) dense (the qkv projection)
+    "ln_dense": 0,      # csrc/ln_mlp.cu, dense (the qkv projection)
     "gate_means": 0,    # csrc/ln_mlp.cu, the attention's tail (E): the branch means
     "gate_alpha": 0,    # csrc/ln_mlp.cu, E: the gate product and its softmax pairs
-    "gate_blend": 0,    # csrc/ln_mlp.cu, E in bf16: the blend of the two branches
-    "gate_proj": 0,     # csrc/ln_mlp.cu, E: proj + residual (bf16: the dense GEMM's "proj")
+    "gate_blend": 0,    # csrc/ln_mlp.cu, E: the blend of the two branches
+    "gate_proj": 0,     # csrc/ln_mlp.cu, E: proj + residual (the dense GEMM's "proj")
     "groupnorm": 0,     # csrc/groupnorm.cu, bf16: a cluster of CTAs a frame
     "groupnorm_strided": 0,   # csrc/groupnorm.cu, f32 and other shapes: a block per group(s)
     "spatial_attention": 0,   # csrc/st_attention.cu, attention over tokens
@@ -59,20 +59,19 @@ _c_i64 = ctypes.c_longlong
 _SIGNATURES = {
     # v_posed, weights, A, out, B, V, stream
     "maed_skinning_f32": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr),
-    # x, ln_scale, ln_bias, eps, out, M, C, stream
-    "maed_ln_rows": (_c_ptr, _c_ptr, _c_ptr, _c_float, _c_ptr, _c_int, _c_int, _c_ptr),
-    # epilogue, a, w, bias, residual, out, M, N, K, stream
+    # is_bf16, x, ln_scale, ln_bias, eps, out, M, C, stream
+    "maed_ln_rows": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_float, _c_ptr, _c_int, _c_int, _c_ptr),
+    # epilogue, a, w, bias, residual, out, M, N, K, stream (both)
     "maed_dense_bf16": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int,
                         _c_ptr),
-    # epilogue, a, ln_scale, ln_bias, eps, w, bias, residual, out, M, N, K, stream
-    "maed_dense_f32": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-                       _c_int, _c_int, _c_int, _c_ptr),
+    "maed_dense_f32": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int,
+                       _c_ptr),
     # is_bf16, y_s, y_t, means, BT, N, C, stream
     "maed_gate_means": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr),
     # is_bf16, means, w_ts, b_ts, alpha, BT, C, stream
     "maed_gate_alpha": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr),
-    # y_s, y_t, alpha, y, BT, N, C, stream
-    "maed_gate_blend": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr),
+    # is_bf16, y_s, y_t, alpha, y, BT, N, C, stream
+    "maed_gate_blend": (_c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr),
     # is_bf16, y_s, y_t, x, w_ts, b_ts, w_p, b_p, means, alpha, y, out, BT, N, C, stream
     "maed_gate_proj": (_c_int, *(_c_ptr,) * 11, _c_int, _c_int, _c_int, _c_ptr),
     # is_bf16, x, residual, out, scale, bias, B, G, cpg, HW, eps, relu, stream

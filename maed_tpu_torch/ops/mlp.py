@@ -5,15 +5,15 @@ and their plain PyTorch versions.
 
 Counterpart of ``maed_tpu/ops/mlp.py``: ``fused_ln_mlp`` and
 ``ln_mlp_reference``, ``fused_ln_dense`` and ``ln_dense_reference``,
-``fused_gate_proj`` and ``gate_proj_reference``. In bf16 the first two are
-split where the TPU kernels round: ``ln_rows`` (LN(x) rounded to the dtype)
-and then ``dense`` (the product with a bias, GELU or residual epilogue) once
-or twice; ``ln_rows_reference`` and ``dense_reference`` are those pieces'
-plain versions, and chained they equal the whole references bit for bit.
-The attention's tail is split likewise, in every dtype: ``gate_means`` (the
+``fused_gate_proj`` and ``gate_proj_reference``. In f32 and bf16 alike the
+first two are split where the TPU kernels round: ``ln_rows`` (LN(x) rounded
+to the dtype) and then ``dense`` (the product with a bias, GELU or residual
+epilogue) once or twice; ``ln_rows_reference`` and ``dense_reference`` are
+those pieces' plain versions, and chained they equal the whole references
+bit for bit. The attention's tail is split likewise: ``gate_means`` (the
 branch means, rounded), ``gate_alpha`` (the gate product and its pair
-softmax), in bf16 ``gate_blend`` (the blended branches) and ``dense`` with
-the "proj" epilogue; ``gate_means_reference``, ``gate_alpha_reference``,
+softmax), ``gate_blend`` (the blended branches) and ``dense`` with the
+"proj" epilogue; ``gate_means_reference``, ``gate_alpha_reference``,
 ``gate_blend_reference`` and ``dense_reference`` chained equal
 ``gate_proj_reference`` bit for bit. ``fused_gate_proj`` launches its pieces
 from one C call. The weights are taken as
@@ -184,68 +184,56 @@ def _check_operands(name, x, expected, widths, aligned):
 
 
 def _launch_ln_rows(x2, ln_scale, ln_bias, eps):
-    """LN of the rows of the checked bf16 (M, C) x2, rounded: one launch."""
+    """LN of the rows of the checked (M, C) x2, rounded: one launch."""
     out = torch.empty_like(x2)
     lib = kernels.library()
     with torch.cuda.device(x2.device):
         kernels.check(lib.maed_ln_rows(
-            x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), eps, out.data_ptr(),
-            x2.shape[0], x2.shape[1], torch.cuda.current_stream().cuda_stream), "maed_ln_rows")
+            int(x2.dtype == torch.bfloat16), x2.data_ptr(), ln_scale.data_ptr(),
+            ln_bias.data_ptr(), eps, out.data_ptr(), x2.shape[0], x2.shape[1],
+            torch.cuda.current_stream().cuda_stream), "maed_ln_rows")
     kernels.LAUNCHES["ln_rows"] += 1
     return out
 
 
-def _launch_dense(epilogue, a2, w, b, residual=None, ln=None):
-    """epilogue(A @ w.T + b) of the checked (M, K) a2: one launch, the TMA +
-    wgmma kernel in bf16, the scalar one in f32, which takes ``ln`` =
-    (ln_scale, ln_bias, eps) for "bias" and "gelu" and normalizes a2's rows
-    as its A there."""
+def _launch_dense(epilogue, a2, w, b, residual=None):
+    """epilogue(a2 @ w.T + b) of the checked (M, K) a2: one launch, the TMA +
+    wgmma kernel in bf16, the CUDA cores' f32 GEMM in f32."""
     code, count = _epilogue(epilogue)
     (M, K), N = a2.shape, w.shape[0]
     out = torch.empty((M, N), dtype=a2.dtype, device=a2.device)
     res = None if residual is None else residual.data_ptr()
+    entry = "maed_dense_bf16" if a2.dtype == torch.bfloat16 else "maed_dense_f32"
     lib = kernels.library()
     with torch.cuda.device(a2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if a2.dtype == torch.bfloat16:
-            status = lib.maed_dense_bf16(code, a2.data_ptr(), w.data_ptr(), b.data_ptr(), res,
-                                         out.data_ptr(), M, N, K, stream)
-        else:
-            scale, shift, eps = (None, None, 0.0) if ln is None else \
-                (ln[0].data_ptr(), ln[1].data_ptr(), ln[2])
-            status = lib.maed_dense_f32(code, a2.data_ptr(), scale, shift, eps, w.data_ptr(),
-                                        b.data_ptr(), res, out.data_ptr(), M, N, K, stream)
-        kernels.check(status, f"maed_dense ({epilogue})")
+        kernels.check(getattr(lib, entry)(
+            code, a2.data_ptr(), w.data_ptr(), b.data_ptr(), res, out.data_ptr(), M, N, K,
+            torch.cuda.current_stream().cuda_stream), f"{entry} ({epilogue})")
     kernels.LAUNCHES[count] += 1
     return out
 
 
 def ln_rows(x, ln_scale, ln_bias, eps=1e-6):
-    """:func:`ln_rows_reference` as one CUDA launch (bf16 x, any leading
-    shape): the pre-pass of :func:`fused_ln_mlp` and :func:`fused_ln_dense`
-    in bf16."""
+    """:func:`ln_rows_reference` as one CUDA launch (f32 or bf16 x, any
+    leading shape): the pre-pass of :func:`fused_ln_mlp` and
+    :func:`fused_ln_dense`."""
     if x.device.type == "cpu":
         return ln_rows_reference(x, ln_scale, ln_bias, eps)
     C = x.shape[-1]
     _check_operands("ln_rows", x, (
         (x, x.dtype, x.shape), (ln_scale, torch.float32, (C,)),
         (ln_bias, torch.float32, (C,))), widths=(C,), aligned=(x,))
-    if x.dtype != torch.bfloat16:
-        raise ValueError("ln_rows: the kernel takes bf16 (in f32 the GEMM normalizes its A tile)")
     return _launch_ln_rows(x.reshape(-1, C), ln_scale, ln_bias, eps).reshape(x.shape)
 
 
 def dense(a, w, b, epilogue="bias", residual=None):
-    """:func:`dense_reference` as one CUDA launch (bf16 a, any leading
-    shape, (..., K) -> (..., N)). It counts under the kernel whose product
-    the epilogue is: "bias" D, "gelu" C's fc1, "residual" C's fc2, "proj"
-    E's proj."""
+    """:func:`dense_reference` as one CUDA launch (f32 or bf16 a, any
+    leading shape, (..., K) -> (..., N)). It counts under the kernel whose
+    product the epilogue is: "bias" D, "gelu" C's fc1, "residual" C's fc2,
+    "proj" E's proj."""
     if a.device.type == "cpu":
         return dense_reference(a, w, b, epilogue, residual)
     _epilogue(epilogue)
-    if a.dtype != torch.bfloat16:
-        raise ValueError("dense: the kernel takes bf16 (in f32 fused_ln_mlp and fused_ln_dense "
-                         "normalize in the GEMM)")
     K, N = a.shape[-1], w.shape[0]
     expected = [(a, a.dtype, a.shape), (w, a.dtype, (N, K)), (b, torch.float32, (N,))]
     aligned = [a, w]
@@ -262,8 +250,8 @@ def dense(a, w, b, epilogue="bias", residual=None):
 
 def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6):
     """:func:`ln_mlp_reference` on the card (x f32 or bf16; any leading
-    shape): in bf16 :func:`ln_rows`, then the GEMM with the GELU and the
-    residual epilogue; in f32 two launches, the first normalizing its rows."""
+    shape): :func:`ln_rows`, then the GEMM with the GELU and the residual
+    epilogue."""
     return differentiable(_ln_mlp_kernel, ln_mlp_reference, x, ln_scale, ln_bias, w1, b1, w2,
                           b2, eps)
 
@@ -276,17 +264,14 @@ def _ln_mlp_kernel(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
         (ln_scale, torch.float32, (C,)), (ln_bias, torch.float32, (C,)),
         (b1, torch.float32, (H,)), (b2, torch.float32, (C,))), widths=(C, H), aligned=(x, w1, w2))
     x2 = x.reshape(-1, C)
-    if x.dtype == torch.bfloat16:
-        h = _launch_dense("gelu", _launch_ln_rows(x2, ln_scale, ln_bias, eps), w1, b1)
-    else:
-        h = _launch_dense("gelu", x2, w1, b1, ln=(ln_scale, ln_bias, eps))
+    h = _launch_dense("gelu", _launch_ln_rows(x2, ln_scale, ln_bias, eps), w1, b1)
     return _launch_dense("residual", h, w2, b2, x2).reshape(x.shape)
 
 
 def fused_ln_dense(x, ln_scale, ln_bias, w, b, eps=1e-6):
-    """:func:`ln_dense_reference` on the card (x f32 or bf16): in bf16
-    :func:`ln_rows`, then the GEMM with the bias epilogue; in f32 one launch
-    that normalizes its rows; any leading shape, (..., C) -> (..., O)."""
+    """:func:`ln_dense_reference` on the card (x f32 or bf16): :func:`ln_rows`,
+    then the GEMM with the bias epilogue; any leading shape, (..., C) ->
+    (..., O)."""
     return differentiable(_ln_dense_kernel, ln_dense_reference, x, ln_scale, ln_bias, w, b, eps)
 
 
@@ -298,10 +283,7 @@ def _ln_dense_kernel(x, ln_scale, ln_bias, w, b, eps):
         (ln_scale, torch.float32, (C,)), (ln_bias, torch.float32, (C,)),
         (b, torch.float32, (O,))), widths=(C, O), aligned=(x, w))
     x2 = x.reshape(-1, C)
-    if x.dtype == torch.bfloat16:
-        out = _launch_dense("bias", _launch_ln_rows(x2, ln_scale, ln_bias, eps), w, b)
-    else:
-        out = _launch_dense("bias", x2, w, b, ln=(ln_scale, ln_bias, eps))
+    out = _launch_dense("bias", _launch_ln_rows(x2, ln_scale, ln_bias, eps), w, b)
     return out.reshape(x.shape[:-1] + (O,))
 
 
@@ -361,19 +343,16 @@ def gate_alpha(means, w_ts, b_ts):
 
 
 def gate_blend(y_s, y_t, alpha):
-    """:func:`gate_blend_reference` as one CUDA launch (bf16: in f32 the
-    GEMM blends its own A tile)."""
+    """:func:`gate_blend_reference` as one CUDA launch (f32 or bf16)."""
     if y_s.device.type == "cpu":
         return gate_blend_reference(y_s, y_t, alpha)
     alpha_shape = (y_s.shape[0], 1, y_s.shape[-1], 2)
     BT, N, C = _check_gate("gate_blend", y_s, y_t, (alpha, y_s.dtype, alpha_shape))
-    if y_s.dtype != torch.bfloat16:
-        raise ValueError("gate_blend: the kernel takes bf16 (in f32 the GEMM blends its A tile)")
     y = torch.empty_like(y_s)
     lib = kernels.library()
     with torch.cuda.device(y_s.device):
         kernels.check(lib.maed_gate_blend(
-            y_s.data_ptr(), y_t.data_ptr(), alpha.data_ptr(), y.data_ptr(), BT, N, C,
+            int(y_s.dtype == torch.bfloat16), y_s.data_ptr(), y_t.data_ptr(), alpha.data_ptr(), y.data_ptr(), BT, N, C,
             torch.cuda.current_stream().cuda_stream), "maed_gate_blend")
     kernels.LAUNCHES["gate_blend"] += 1
     return y
@@ -381,9 +360,8 @@ def gate_blend(y_s, y_t, alpha):
 
 def fused_gate_proj(y_s, y_t, x_res, w_ts, b_ts, w_p, b_p):
     """:func:`gate_proj_reference` on the card (f32 or bf16), one C call:
-    the branch means, the gate alpha, and in bf16 the blend and the TMA +
-    wgmma GEMM with the "proj" epilogue, in f32 the scalar GEMM that blends
-    its A tile. y_s, y_t, x_res (BT, N, C). Only the first output, the
+    the branch means, the gate alpha, the blend and the GEMM with the "proj"
+    epilogue. y_s, y_t, x_res (BT, N, C). Only the first output, the
     block state, has a gradient; alpha goes out detached."""
     return differentiable(_gate_proj_kernel, gate_proj_reference, y_s, y_t, x_res, w_ts, b_ts,
                           w_p, b_p, n_diff=1)
@@ -397,17 +375,16 @@ def _gate_proj_kernel(y_s, y_t, x_res, w_ts, b_ts, w_p, b_p):
     is_bf16 = y_s.dtype == torch.bfloat16
     means = torch.empty((BT, 2 * C), dtype=y_s.dtype, device=y_s.device)
     alpha = torch.empty((BT, 1, C, 2), dtype=y_s.dtype, device=y_s.device)
-    y = torch.empty_like(y_s) if is_bf16 else None
+    y = torch.empty_like(y_s)
     out = torch.empty_like(y_s)
     lib = kernels.library()
     with torch.cuda.device(y_s.device):
         kernels.check(lib.maed_gate_proj(
             int(is_bf16), y_s.data_ptr(), y_t.data_ptr(), x_res.data_ptr(), w_ts.data_ptr(),
             b_ts.data_ptr(), w_p.data_ptr(), b_p.data_ptr(), means.data_ptr(),
-            alpha.data_ptr(), None if y is None else y.data_ptr(), out.data_ptr(), BT, N, C,
+            alpha.data_ptr(), y.data_ptr(), out.data_ptr(), BT, N, C,
             torch.cuda.current_stream().cuda_stream), "maed_gate_proj")
-    for name in ("gate_means", "gate_alpha", "gate_blend", "gate_proj") if is_bf16 else \
-            ("gate_means", "gate_alpha", "gate_proj"):
+    for name in ("gate_means", "gate_alpha", "gate_blend", "gate_proj"):
         kernels.LAUNCHES[name] += 1
     return out, alpha
 

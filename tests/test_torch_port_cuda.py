@@ -86,17 +86,18 @@ def test_layernorm_kernel(cuda, dtype, atol, rtol, C):
                                                (torch.bfloat16, 5e-2, 2e-2)])
 @pytest.mark.parametrize("M, C, H", [(256, 768, 3072), (100, 80, 176)])
 def test_ln_mlp_kernel(cuda, dtype, atol, rtol, M, C, H):
-    """(100, 80, 176) leaves ragged tiles on every axis: M past a 64 tile
-    (f32) and short of a 128 one (bf16), N short of a 256 tile, K past a 64
-    step. bf16 (the LN pre-pass, then two GEMM launches) tolerates an h
-    element rounding to the neighbouring bf16 value on one side only."""
+    """(100, 80, 176) leaves ragged tiles on every axis: M short of a 128
+    tile, N past a 128 tile (f32) and short of a 256 one (bf16), K past a 64
+    step. The LN pre-pass, then two GEMM launches, in both dtypes; bf16
+    tolerates an h element rounding to the neighbouring bf16 value on one
+    side only."""
     args = torch_mlp_args(mlp_inputs(np.random.RandomState(6), (M, C), H), dtype)
     args = [a.to(cuda) for a in args]
     before = [kernels.LAUNCHES[k] for k in ("ln_rows", "ln_mlp_fc1", "ln_mlp_fc2")]
     got = TMLP.fused_ln_mlp(*args)
     torch.cuda.synchronize()
     assert [kernels.LAUNCHES[k] for k in ("ln_rows", "ln_mlp_fc1", "ln_mlp_fc2")] == \
-        [before[0] + (dtype == torch.bfloat16), before[1] + 1, before[2] + 1]
+        [before[0] + 1, before[1] + 1, before[2] + 1]
     assert got.dtype == dtype
     assert_close(got.float(), TMLP.ln_mlp_reference(*args, 1e-6).float(), atol, rtol)
 
@@ -115,7 +116,7 @@ def test_ln_dense_kernel(cuda, dtype, atol, rtol, M, C, O):
     got = TMLP.fused_ln_dense(*args)
     torch.cuda.synchronize()
     assert (kernels.LAUNCHES["ln_rows"], kernels.LAUNCHES["ln_dense"]) == \
-        (before[0] + (dtype == torch.bfloat16), before[1] + 1)
+        (before[0] + 1, before[1] + 1)
     assert got.dtype == dtype and got.shape == (M, O)
     assert_close(got.float(), TMLP.ln_dense_reference(*args, 1e-6).float(), atol, rtol)
 
@@ -170,12 +171,101 @@ def test_ln_rows_kernel(cuda, M, C):
     assert_close(got.float(), TMLP.ln_rows_reference(x, s, b, 1e-6).float(), 1e-6, 2.0 ** -7)
 
 
+@pytest.mark.parametrize("M, C", [(1, 8), (63, 80), (100, 768), (300, 776), (37, 3072),
+                                  (5, 1024), (9, 1280), (7, 13)])
+def test_ln_rows_f32_kernel(cuda, M, C):
+    """The f32 LN pre-pass against its plain version at the layernorm
+    kernel's f32 limit (1e-5: the same function, its statistics summed in
+    another order): the widths of test_ln_rows_kernel, the stock ViTs' 1024
+    and 1280 (past the rows a warp holds in registers) and 13 (no multiple
+    of 4: element by element)."""
+    x, s, b = ln_inputs(np.random.RandomState(M + C), (M, C))
+    x = to_torch(x, torch.float32).to(cuda)
+    s, b = (to_torch(a, torch.float32).to(cuda) for a in (s, b))
+    before = kernels.LAUNCHES["ln_rows"]
+    got = TMLP.ln_rows(x, s, b, 1e-6)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ln_rows"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, C)
+    assert_close(got, TMLP.ln_rows_reference(x, s, b, 1e-6), 1e-5)
+
+
+@pytest.mark.parametrize("K", [8, 80, 776, 3072])
+@pytest.mark.parametrize("N", [8, 176, 264, 768, 2304, 3072])
+@pytest.mark.parametrize("M", [1, 63, 100, 129, 8500, 25216])
+def test_dense_f32_kernel(cuda, M, N, K):
+    """The f32 GEMM of C, D and E against its plain version, every epilogue,
+    at C's and D's f32 limit (1e-4): M one row, short of and past a 128-row
+    tile, 67 tiles, the flagship's 25216 tokens; N a part of one 128-column
+    tile, past one (176, 264), the proj's 768, the qkv's 2304, fc1's 3072; K
+    short of one 32-deep k-step, past one, past 24 (776), 96. Each launch
+    counts under the kernel whose product it is."""
+    rng = np.random.RandomState(M * 7 + N + K)
+    a = to_torch(rng.randn(M, K), torch.float32).to(cuda)
+    w = to_torch(rng.randn(N, K) / np.sqrt(K), torch.float32).to(cuda)
+    b = to_torch(rng.randn(N) * 0.1, torch.float32).to(cuda)
+    res = to_torch(rng.randn(M, N), torch.float32).to(cuda)
+    for epilogue, count in (("bias", "ln_dense"), ("gelu", "ln_mlp_fc1"),
+                            ("residual", "ln_mlp_fc2"), ("proj", "gate_proj")):
+        r = res if epilogue in ("residual", "proj") else None
+        before = dict(kernels.LAUNCHES)
+        got = TMLP.dense(a, w, b, epilogue, r)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == dict(before, **{count: before[count] + 1})
+        assert got.dtype == torch.float32 and got.shape == (M, N)
+        assert_close(got, TMLP.dense_reference(a, w, b, epilogue, r), 1e-4, what=epilogue)
+
+
+def _misaligned(t):
+    """The values of t, contiguous, 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("M, N, K", [(37, 7, 13), (130, 129, 131), (3, 3072, 5), (65, 1, 768),
+                                     (100, 264, 776)])
+def test_dense_f32_kernel_any_width(cuda, M, N, K):
+    """f32 takes widths that are no multiple of 4 and operands 4 bytes off a
+    16-byte boundary (4-byte copies, scalar stores), each epilogue at 1e-4."""
+    rng = np.random.RandomState(M + N + K)
+    a = _misaligned(to_torch(rng.randn(M, K), torch.float32).to(cuda))
+    w = _misaligned(to_torch(rng.randn(N, K) / np.sqrt(K), torch.float32).to(cuda))
+    b = to_torch(rng.randn(N) * 0.1, torch.float32).to(cuda)
+    res = to_torch(rng.randn(M, N), torch.float32).to(cuda)
+    for epilogue in ("bias", "gelu", "residual", "proj"):
+        r = res if epilogue in ("residual", "proj") else None
+        got = TMLP.dense(a, w, b, epilogue, r)
+        assert_close(got, TMLP.dense_reference(a, w, b, epilogue, r), 1e-4, what=epilogue)
+
+
+@pytest.mark.parametrize("M, C, H", [(100, 1024, 4096), (100, 1280, 5120), (100, 768, 2304)])
+def test_f32_block_products_at_the_stock_widths(cuda, M, C, H):
+    """C, D and E in f32 at the stock ViTs' widths (C 1024 and 1280 with
+    their 4C hidden, and 768 with H 2304) against their plain versions at
+    their f32 limits, alpha at 1e-5 (its logits sum 2C = 2560 products at
+    1280 in another order): the pre-passes and the GEMM, as the card runs
+    them."""
+    args = [a.to(cuda) for a in torch_mlp_args(mlp_inputs(np.random.RandomState(C), (M, C), H),
+                                                torch.float32)]
+    assert_close(TMLP.fused_ln_mlp(*args), TMLP.ln_mlp_reference(*args, 1e-6), 1e-4)
+    x, s, b, w1, b1 = args[:5]
+    assert_close(TMLP.fused_ln_dense(x, s, b, w1, b1), TMLP.ln_dense_reference(x, s, b, w1, b1,
+                                                                               1e-6), 1e-4)
+    gate = gate_inputs(np.random.RandomState(C + 1), 4, 25, C, torch.float32, cuda)
+    got, alpha = TMLP.fused_gate_proj(*gate)
+    want, want_alpha = TMLP.gate_proj_reference(*gate)
+    assert_close(alpha, want_alpha, 1e-5)  # the gate's logits sum 2C products
+    assert_close(got, want, 1e-4)
+
+
 def test_dense_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     launches = dict(kernels.LAUNCHES)
     a, w, b = (torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16),
                torch.zeros(8, 16, device=cuda, dtype=torch.bfloat16), torch.zeros(8, device=cuda))
-    with pytest.raises(ValueError):  # f32: the pre-pass is the bf16 path's
-        TMLP.ln_rows(a.float(), torch.ones(16, device=cuda), b.repeat(2))
+    with pytest.raises(ValueError):  # f64: the kernels take f32 or bf16
+        TMLP.ln_rows(a.double(), torch.ones(16, device=cuda), b.repeat(2))
     with pytest.raises(ValueError):  # C = 12 is not a multiple of 8
         TMLP.ln_rows(a[:, :12].contiguous(), torch.ones(12, device=cuda),
                      torch.zeros(12, device=cuda))
@@ -188,16 +278,15 @@ def test_dense_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                    torch.zeros(12, device=cuda))
     with pytest.raises(ValueError):  # w in another dtype
         TMLP.dense(a, w.float(), b)
-    with pytest.raises(ValueError):  # f32: there the GEMM of C and D normalizes its own A
-        TMLP.dense(a.float(), w.float(), b)
+    with pytest.raises(ValueError):  # f64: the kernels take f32 or bf16
+        TMLP.dense(a.double(), w.double(), b)
     with pytest.raises(ValueError):  # an unknown epilogue
         TMLP.dense(a, w, b, "relu")
     assert kernels.LAUNCHES == launches
 
 
-# the launches of one fused_gate_proj, by dtype
-GATE_LAUNCHES = {torch.float32: ("gate_means", "gate_alpha", "gate_proj"),
-                 torch.bfloat16: ("gate_means", "gate_alpha", "gate_blend", "gate_proj")}
+# the launches of one fused_gate_proj, in either dtype
+GATE_LAUNCHES = ("gate_means", "gate_alpha", "gate_blend", "gate_proj")
 
 
 def gate_inputs(rng, BT, N, C, dtype, device):
@@ -215,8 +304,7 @@ def gate_inputs(rng, BT, N, C, dtype, device):
                                       (1, 197, 768), (128, 197, 768), (3, 197, 256),
                                       (3, 50, 256), (65, 3, 16)])
 def test_gate_proj_kernel(cuda, dtype, atol, rtol, BT, N, C):
-    """The attention's tail, one C call of three (f32) or four (bf16)
-    launches; a 128-row GEMM tile spans frames (N 37, 50, 130, 197), C past
+    """The attention's tail, one C call of four launches; a 128-row GEMM tile spans frames (N 37, 50, 130, 197), C past
     a 32 step and a 128 tile (80, 264), BT one frame, 65 and 128 (past one
     and at two 64-frame tiles of the gate's product), the flagship shape.
     alpha at 1e-6 (f32) or one bf16 step of a probability (4e-3). The output
@@ -227,7 +315,7 @@ def test_gate_proj_kernel(cuda, dtype, atol, rtol, BT, N, C):
     before = dict(kernels.LAUNCHES)
     got, alpha = TMLP.fused_gate_proj(*args)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == dict(before, **{k: before[k] + 1 for k in GATE_LAUNCHES[dtype]})
+    assert kernels.LAUNCHES == dict(before, **{k: before[k] + 1 for k in GATE_LAUNCHES})
     assert got.dtype == dtype and got.shape == (BT, N, C) and alpha.shape == (BT, 1, C, 2)
     want, want_alpha = TMLP.gate_proj_reference(*args)
     assert_close(alpha.float(), want_alpha.float(), 1e-6 if dtype == torch.float32 else 4e-3)
@@ -254,18 +342,14 @@ def test_gate_pieces(cuda, dtype, BT, N, C):
     assert alpha.shape == (BT, 1, C, 2) and alpha.dtype == dtype
     assert_close(alpha.float(), TMLP.gate_alpha_reference(want, w_ts, b_ts).float(),
                  1e-6 if dtype == torch.float32 else 4e-3)
-    if dtype == torch.float32:
-        with pytest.raises(ValueError):  # in f32 the GEMM blends its own A tile
-            TMLP.gate_blend(y_s, y_t, alpha)
-        return
     y = TMLP.gate_blend(y_s, y_t, alpha)
     assert torch.equal(y, TMLP.gate_blend_reference(y_s, y_t, alpha))
     before = kernels.LAUNCHES["gate_proj"]
     got = TMLP.dense(y, w_p, b_p, "proj", x)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["gate_proj"] == before + 1
-    assert_close(got.float(), TMLP.dense_reference(y, w_p, b_p, "proj", x).float(),
-                 *DENSE_LIMITS["residual"])
+    limits = (1e-4, 0.0) if dtype == torch.float32 else DENSE_LIMITS["residual"]
+    assert_close(got.float(), TMLP.dense_reference(y, w_p, b_p, "proj", x).float(), *limits)
 
 
 def test_gate_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -281,8 +365,9 @@ def test_gate_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         TMLP.gate_alpha(torch.zeros(2, 32, device=cuda, dtype=bf), w_ts, b_ts.to(bf))
     with pytest.raises(ValueError):  # alpha of another frame count
         TMLP.gate_blend(y, y, torch.zeros(3, 1, 16, 2, device=cuda, dtype=bf))
-    with pytest.raises(ValueError):  # f32: the blend is the bf16 path's pre-pass
-        TMLP.gate_blend(y.float(), y.float(), torch.zeros(2, 1, 16, 2, device=cuda))
+    with pytest.raises(ValueError):  # f64: the kernels take f32 or bf16
+        TMLP.gate_blend(y.double(), y.double(), torch.zeros(2, 1, 16, 2, device=cuda,
+                                                            dtype=torch.float64))
     with pytest.raises(ValueError):  # the proj epilogue without a residual
         TMLP.dense(y, torch.zeros(16, 16, device=cuda, dtype=bf), torch.zeros(16, device=cuda),
                    "proj")
@@ -712,8 +797,8 @@ def test_spatial_attention_kernel_takes_any_scale(cuda, scale, S):
     assert_close(got.float(), TA._xla_attention(q, k, v, scale).float(), 1e-2, 1e-2)
 
 
-# launches of one block per st_mode, beside the MLP's (in bf16 each of
-# ln_dense's and the MLP's products also has its LN pre-pass, ln_rows)
+# launches of one block per st_mode, beside the MLP's (each of ln_dense's and
+# the MLP's products also has its LN pre-pass, ln_rows; E its blend)
 BLOCK_LAUNCHES = {
     "vanilla": {"ln_dense": 1, "spatial_attention": 1},
     "spatial": {"ln_dense": 1, "spatial_attention": 1},
@@ -754,10 +839,9 @@ def test_block_of_every_mode_through_the_kernels(cuda, mode, dtype, atol, rtol):
         expect = dict(BLOCK_LAUNCHES[mode], ln_mlp_fc1=1, ln_mlp_fc2=1)
         if mode == "coupling" and not want_blocked:
             expect = dict(ln_dense=1, spatial_attention=1, ln_mlp_fc1=1, ln_mlp_fc2=1)
-        if dtype == torch.bfloat16:
-            expect["ln_rows"] = 1 + expect.get("ln_dense", 0)
-            if mode == "parallel":
-                expect["gate_blend"] = 1
+        expect["ln_rows"] = 1 + expect.get("ln_dense", 0)
+        if mode == "parallel":
+            expect["gate_blend"] = 1
         assert launches == expect
         assert got.shape == x.shape and got.dtype == dtype
         assert_close(got.float(), want.float(), atol, rtol)
@@ -1327,9 +1411,10 @@ def test_demo_inference_through_the_kernels(cuda):
         assert g.shape == w.shape and g.shape[0] == 10, key
         assert_close(g, w, atol, what=key)
     used = [k for k, v in launches.items() if v]
-    assert sorted(used) == sorted(["skinning", "layernorm", "ln_mlp_fc1", "ln_mlp_fc2", "ln_dense",
-                                   "gate_means", "gate_alpha", "gate_proj", "groupnorm_strided",
-                                   "spatial_attention", "temporal_attention"]), launches
+    assert sorted(used) == sorted(["skinning", "layernorm", "ln_rows", "ln_mlp_fc1", "ln_mlp_fc2",
+                                   "ln_dense", "gate_means", "gate_alpha", "gate_blend",
+                                   "gate_proj", "groupnorm_strided", "spatial_attention",
+                                   "temporal_attention"]), launches
 
 
 def test_threedpw_read_data_through_the_skinning_kernel(cuda, tmp_path, monkeypatch):

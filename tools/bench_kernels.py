@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the flagship's kernels, bf16 C to K and f32 A, each checkout in turn.
+"""Time the flagship's kernels, bf16 C to K and f32 A (or, with --f32, the f32
+forms of C, D, E and F/J), each checkout in turn.
 
     python3 tools/bench_kernels.py [tree ...]
 
@@ -37,6 +38,20 @@ through the public entry points that every tree since the port began has:
 Each time is the median of 7 repetitions of 20 calls (F/J: 50). Give two
 trees as ``a b b a`` to compare them within one call; the card and its power
 limit head the output. Each tree prints one ``BENCH {json}`` line.
+
+    python3 tools/bench_kernels.py --f32 [tree ...]
+
+times the f32 forms instead (TF32 off), at the same shapes: C, D and E
+through ``fused_ln_mlp``, ``fused_ln_dense`` and ``fused_gate_proj``; each
+GEMM launch alone (fc1 with the GELU, fc2 with the residual, qkv, E's proj),
+through ``dense`` where the tree's takes f32, else through the tree's own C
+entry ``maed_dense_f32`` (an older tree's, whose fc1 and qkv normalize their
+A tile), beside ``torch.matmul`` on the same f32 products; the f32 pre-passes
+``ln_rows`` and ``gate_blend`` where the tree has them in f32; F/J's
+``spatial_attention_btc`` on the (128, 197, 3, 12, 64) projection beside
+``scaled_dot_product_attention``, and, where the tree has
+``st_attention.general_plan``, the general kernel's f32 rows form launched
+at the same head dim 64. All on the device (calls queued behind a sleep).
 """
 
 from __future__ import annotations
@@ -193,16 +208,113 @@ print("BENCH " + json.dumps(out))
 """
 
 
+RUN_F32 = r"""
+import json, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+import torch.nn.functional as F
+from maed_tpu_torch import kernels
+from maed_tpu_torch.ops import mlp, st_attention
+
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+t0 = time.perf_counter()
+kernels.build()
+lib = kernels.library()
+build_s = time.perf_counter() - t0
+
+def device_ms(fn, iters=20):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(7):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return statistics.median(times)
+
+dev = torch.device("cuda")
+rng = np.random.RandomState(0)
+T = lambda a: torch.from_numpy(a).to(dev, torch.float32)
+out = {"tree": sys.argv[1], "build_s": build_s}
+M, C, H, B, N = 25216, 768, 3072, 128, 197
+x = T(rng.randn(M, C))
+s, b = T(rng.rand(C) + 0.5), T(rng.randn(C) * 0.1)
+w1, w2 = T(rng.randn(H, C) / np.sqrt(C)), T(rng.randn(C, H) / np.sqrt(H))
+b1, b2 = T(rng.randn(H) * 0.1), T(rng.randn(C) * 0.1)
+wq, bq = T(rng.randn(3 * C, C) / np.sqrt(C)), T(rng.randn(3 * C) * 0.1)
+wp, bp = T(rng.randn(C, C) / np.sqrt(C)), T(rng.randn(C) * 0.1)
+ys, yt = T(rng.randn(B, N, C)), T(rng.randn(B, N, C))
+wts, bts = T(rng.randn(2 * C, 2 * C) / np.sqrt(2 * C)), T(rng.randn(2 * C) * 0.1)
+out["ln_mlp_ms"] = device_ms(lambda: mlp.fused_ln_mlp(x, s, b, w1, b1, w2, b2), 10)
+out["ln_dense_ms"] = device_ms(lambda: mlp.fused_ln_dense(x, s, b, wq, bq), 10)
+out["gate_proj_ms"] = device_ms(lambda: mlp.fused_gate_proj(ys, yt, x.view(B, N, C), wts, bts,
+                                                             wp, bp), 10)
+xn = mlp.ln_rows_reference(x, s, b, 1e-6)
+h = mlp.dense_reference(xn, w1, b1, "gelu")
+alpha = mlp.gate_alpha_reference(mlp.gate_means_reference(ys, yt), wts, bts)
+y = mlp.gate_blend_reference(ys, yt, alpha).reshape(M, C)
+try:
+    mlp.dense(xn, wq, bq)
+    split = True  # the GEMM takes f32 after the pre-passes
+except ValueError:
+    split = False
+if split:
+    out["ln_rows_ms"] = device_ms(lambda: mlp.ln_rows(x, s, b, 1e-6))
+    out["gate_blend_ms"] = device_ms(lambda: mlp.gate_blend(ys, yt, alpha))
+    gemms = {"fc1": lambda: mlp.dense(xn, w1, b1, "gelu"),
+             "fc2": lambda: mlp.dense(h, w2, b2, "residual", x),
+             "qkv": lambda: mlp.dense(xn, wq, bq),
+             "proj": lambda: mlp.dense(y, wp, bp, "proj", x)}
+else:  # the older C entry: (epilogue, a, ln_scale, ln_bias, eps, w, bias, residual, out, M, N, K)
+    o1, o2, oq = (torch.empty(M, n, device=dev) for n in (H, C, 3 * C))
+    st = lambda: torch.cuda.current_stream().cuda_stream
+    call = lambda *a: kernels.check(lib.maed_dense_f32(*a, st()), "maed_dense_f32")
+    gemms = {"fc1": lambda: call(1, x.data_ptr(), s.data_ptr(), b.data_ptr(), 1e-6,
+                                 w1.data_ptr(), b1.data_ptr(), None, o1.data_ptr(), M, H, C),
+             "fc2": lambda: call(2, h.data_ptr(), None, None, 0.0, w2.data_ptr(), b2.data_ptr(),
+                                 x.data_ptr(), o2.data_ptr(), M, C, H),
+             "qkv": lambda: call(0, x.data_ptr(), s.data_ptr(), b.data_ptr(), 1e-6,
+                                 wq.data_ptr(), bq.data_ptr(), None, oq.data_ptr(), M, 3 * C, C)}
+operands = {"fc1": (xn, w1), "fc2": (h, w2), "qkv": (xn, wq), "proj": (y, wp)}
+for name, fn in gemms.items():
+    out[name + "_ms"] = device_ms(fn, 10)
+for name, (a, w) in operands.items():
+    out[name + "_library_ms"] = device_ms(lambda: torch.matmul(a, w.t()), 10)
+del x, xn, h, y, ys, yt
+qkv = T(rng.randn(B, N, 3, 12, 64))
+q4, k4, v4 = (a.transpose(1, 2) for a in qkv.unbind(2))
+att = 64 ** -0.5
+out["spatial_ms"] = device_ms(lambda: st_attention.spatial_attention_btc(qkv, att), 50)
+out["spatial_library_ms"] = device_ms(
+    lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=att), 50)
+if hasattr(st_attention, "general_plan"):
+    res = torch.empty(B, N, 768, device=dev)
+    view = res.view(B, N, 12, 64).transpose(1, 2)
+    out["general_rows_d64_ms"] = device_ms(lambda: st_attention.launch_general(
+        "spatial", "spatial_attention_general", 0, False, q4, k4, v4, view, (B, 12, 1),
+        (*q4.stride()[:2], 0, q4.stride(2)), (*view.stride()[:2], 0, view.stride(2)), N, att), 50)
+    want = st_attention.spatial_reference_btc(qkv, att)
+    out["general_rows_d64_max_abs_err"] = (res - want).abs().max().item()
+print("BENCH " + json.dumps(out))
+"""
+
+
 def main() -> int:
-    trees = [str(Path(t).resolve()) for t in sys.argv[1:]] or [str(ROOT)]
+    f32 = "--f32" in sys.argv[1:]
+    trees = [str(Path(t).resolve()) for t in sys.argv[1:] if t != "--f32"] or [str(ROOT)]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card)
     failed = 0
     for tree in trees:
         print(f"== {tree}", flush=True)
-        proc = subprocess.run([sys.executable, "-c", RUN, tree], capture_output=True, text=True,
-                              timeout=900)
+        proc = subprocess.run([sys.executable, "-c", RUN_F32 if f32 else RUN, tree],
+                              capture_output=True, text=True, timeout=900)
         print(proc.stdout, end="")
         if proc.returncode:
             print(proc.stderr[-3000:])

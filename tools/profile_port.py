@@ -6,7 +6,11 @@ Answers chip_smoke.py's bf16 requests (the released stage-2 MAED through
 ``torch.profiler``: device time by kernel and by kind of kernel, and the
 device's busy share of the traced window. ``--st-mode coupling`` (or another
 attention mode) traces that model on the same requests instead: a request is
-then one sub-clip forward of the eval protocol.
+then one sub-clip forward of the eval protocol. ``--dtype f32`` traces the
+model in f32 with TF32 off, the eval forward as ``eval.py``, the demo and the
+trainer's validation run it, and then times the eval protocol's window
+batches (``Evaluator.run`` over chip_smoke.py's 13 windows of 128 frames:
+the host clock from one window batch asked of the loader to the next).
 
 ``--general`` traces the attention kernels of csrc/attention_general.cu
 instead, at chip_smoke.py's timed shapes (GENERAL_TIMED head dims at the
@@ -22,7 +26,8 @@ phase (the forward, the backward's recompute through the kernels' plain
 versions, the rest of the backward, the optimizer) and by kind within each.
 Imports nothing of JAX.
 
-Usage: python tools/profile_port.py [--st-mode parallel] [--train] [--general] [--trace trace.json]
+Usage: python tools/profile_port.py [--st-mode parallel] [--dtype bf16|f32] [--train] [--general]
+       [--trace trace.json]
 """
 
 from __future__ import annotations
@@ -40,21 +45,21 @@ import torch  # noqa: E402
 
 # kind of kernel, by a piece of its name; first match wins. C's, D's and E's
 # GEMM launches are told apart by their epilogue tag: BiasOnly is D,
-# ProjResidual (bf16) and the f32 GEMM's GateBlend prologue E, BiasGelu and
+# ProjResidual (and an older tree's f32 GateBlend prologue) E, BiasGelu and
 # BiasResidual C. E's means, gate and blend kernels go with its GEMM (and an
 # older tree's gate_alpha_kernel and wmma gate_proj_bf16_kernel). The LN
 # pre-pass of C and D has a row of its own (C's launches of it are as many as
 # D's on every path that runs D: 12 a forward, half of them C's).
 KINDS = (
     ("general attention (F/J, G/H, K at other head dims)", ("general_",)),
-    ("ln pre-pass (kernels C, D)", ("ln_rows_kernel",)),
+    ("ln pre-pass (kernels C, D)", ("ln_rows_",)),
     ("ln_dense (kernel D)", ("biasonly",)),
     ("gate_proj (kernel E)", ("projresidual", "gateblend", "gate_means_kernel", "gate_alpha_",
-                              "gate_blend_kernel", "gate_proj_bf16_kernel")),
+                              "gate_blend_", "gate_proj_bf16_kernel")),
     ("ln_mlp (kernel C)", ("biasgelu", "biasresidual")),
     ("groupnorm (kernel I)", ("groupnorm_cluster_kernel", "groupnorm_kernel")),
     ("blocked attention (kernel K)", ("blocked_attention",)),
-    ("spatial attention (kernels F, J)", ("spatial_attention",)),
+    ("spatial attention (kernels F, J)", ("spatial_attention", "spatial_f32")),
     ("temporal attention (kernels G, H)", ("temporal_attention",)),
     ("layernorm (kernel B)", ("layernorm_kernel",)),
     ("skinning (kernel A)", ("skinning",)),
@@ -264,6 +269,9 @@ def profile_general(device) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--st-mode", default="parallel", help="the model's attention mode")
+    ap.add_argument("--dtype", default="bf16", choices=("bf16", "f32"),
+                    help="the model's dtype (f32: TF32 off, then the eval protocol's window "
+                         "batches)")
     ap.add_argument("--train", action="store_true", help="trace the stage-2 train step")
     ap.add_argument("--general", action="store_true",
                     help="trace the general attention kernels against the library's")
@@ -285,7 +293,10 @@ def main() -> int:
 
     print(chip_smoke.card_identity())
     device = torch.device("cuda", 0)
-    model, smpl = chip_smoke.build_flagship(device, torch.bfloat16, st_mode=args.st_mode)
+    dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
+    if dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    model, smpl = chip_smoke.build_flagship(device, dtype, st_mode=args.st_mode)
     clips, jreg = chip_smoke.make_requests(device)
     n = len(clips)
 
@@ -298,7 +309,8 @@ def main() -> int:
     t0 = time.perf_counter()
     answer_all()
     request_ms = (time.perf_counter() - t0) * 1e3 / n
-    print(f"bf16 {args.st_mode} request, no profiler: {request_ms:.2f} ms (host clock, mean of {n})")
+    print(f"{args.dtype} {args.st_mode} request, no profiler: {request_ms:.2f} ms (host clock, "
+          f"mean of {n})")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -337,7 +349,31 @@ def main() -> int:
         os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
         prof.export_chrome_trace(args.trace)
         print(f"chrome trace: {args.trace}")
+    if dtype == torch.float32:
+        time_windows(model, smpl, device, args.st_mode)
     return 0
+
+
+def time_windows(model, smpl, device, st_mode) -> None:
+    """The eval protocol over chip_smoke.py's windows with ``model``: the
+    host clock between the loader's window batches (the first batch's
+    includes the evaluator's set-up)."""
+    from maed_tpu_torch.core.evaluate import Evaluator
+
+    batches, jreg = chip_smoke.make_windows(smpl, device)
+    stamps = []
+    t0 = time.perf_counter()
+    Evaluator(smpl).run(lambda images, J_regressor: model(images, smpl, J_regressor=J_regressor),
+                        chip_smoke.stamped(batches, stamps), seqlen=chip_smoke.SEQLEN, interp=1,
+                        dataset_name="3dpw", J_regressor=jreg,
+                        batch_size=chip_smoke.EVAL_BATCHES[0], verbose=False)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    forwards = len(batches) * (chip_smoke.POOL // chip_smoke.SEQLEN)
+    print(f"f32 {st_mode} eval protocol ({sum(chip_smoke.EVAL_BATCHES)} windows x "
+          f"{chip_smoke.POOL} frames, {forwards} sub-clip forwards): window batch s "
+          + ", ".join(f"{b - a:.3f}" for a, b in zip(stamps, stamps[1:]))
+          + f"; the whole run {total:.3f} s")
 
 
 if __name__ == "__main__":
