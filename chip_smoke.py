@@ -549,13 +549,13 @@ def phase_kernels(device):
     # through fused_attention's dispatch. q, k, v are in-place views of the
     # qkv projection and the output a view of the (BT, N, C) result, as the
     # model calls it (the record), then contiguous tensors. f32 at 2e-5: the
-    # kernels' key tiles (64 in f32, 128 in bf16) and the plain version's
-    # 512-key blocks rescale and sum in other orders. bf16 at 2e-3 abs + 1e-2
-    # rel: the outputs are means of v over ~1000 keys (|out| ~0.03, at most
-    # ~0.3), so rel carries one bf16 step of an output and abs the
-    # unnormalised p that round to the neighbouring bf16 value where the
-    # running max differs. A last tile of 80 keys dropped or left unmasked
-    # would move outputs by ~1e-2 or more (tools/mutate_attention_tail.py).
+    # kernels' 128-key tiles and the plain version's 512-key blocks rescale
+    # and sum in other orders. bf16 at 2e-3 abs + 1e-2 rel: the outputs are
+    # means of v over ~1000 keys (|out| ~0.03, at most ~0.3), so rel carries
+    # one bf16 step of an output and abs the unnormalised p that round to the
+    # neighbouring bf16 value where the running max differs. A last tile of
+    # 80 keys dropped or left unmasked would move outputs by ~1e-2 or more
+    # (tools/mutate_attention_tail.py).
     S = SEQLEN * N
     print(f"kernel K blocked attention: q, k, v {(N_CLIPS, heads, S, d)} on qkv {qkv_np.shape}")
     for dt, atol, rtol in ((f32, 2e-5, 0.0), (bf16, 2e-3, 1e-2)):
@@ -574,6 +574,9 @@ def phase_kernels(device):
                       moved=(qkv,), flops=4.0 * N_CLIPS * heads * S * S * d, kind=kinds[dt],
                       library=lambda: F.scaled_dot_product_attention(qv, kv, vv, scale=att),
                       iters=10)
+        # on the device too, the launches queued behind a sleep
+        rec["device_ms"] = time_ms(blocked_in_place, 5, queued=True)
+        print(f"    on the device: {rec['device_ms']:.4f} ms")
         record[key("attention_blocked", dt)] = rec
         qc, kc, vc = (a.contiguous() for a in (qv, kv, vv))
         compare(f"blocked attention, contiguous {dt}",
@@ -1274,8 +1277,11 @@ def phase_eval(device):
     """This slice's path at full width: the bf16 coupling MAED under
     ``Evaluator.run`` over 13 windows, 16 sub-clip forwards of 8 x 16 x 224^2
     through the blocked attention kernel. Then the coupling forward's bf16
-    ratio rule, and the same protocol in f32 at depth 2 through the kernels
-    and through their plain versions. Returns the launch counts of the run."""
+    ratio rule, one f32 coupling request at full width and depth through the
+    kernels (K's f32 kernel six times) against its plain versions, and the
+    same protocol in f32 at depth 2 through the kernels and through their
+    plain versions. Returns the launch counts of the run and of the f32
+    request."""
     from maed_tpu_torch import kernels
     from maed_tpu_torch.core.evaluate import Evaluator
 
@@ -1320,8 +1326,26 @@ def phase_eval(device):
     del model
     f32_model, _ = build_flagship(device, torch.float32, st_mode="coupling")
     want = f32_model(clip, smpl, J_regressor=jreg_dev, plain=True)
-    del f32_model
     check_bf16_ratio("coupling", [bf16_out], [bf16_plain], [want])
+
+    # the f32 coupling request (the eval CLI's dtype, TF32 off since
+    # phase_f32): launches counted from 0, within phase_f32's limits of its
+    # plain answer, then timed warm on the host clock
+    kernels.reset_launches()
+    got = f32_model(clip, smpl, J_regressor=jreg_dev)
+    torch.cuda.synchronize()
+    f32_launches = dict(kernels.LAUNCHES)
+    expect_launches(f32_launches, "coupling", 1, dtype=torch.float32)
+    check_outputs(got, joints=jreg_dev.shape[0])
+    for key, atol in (("verts", 1e-4), ("kp_3d", 1e-4), ("theta", 1e-3)):
+        check_close(f"coupling f32 request {key}, kernels vs plain", got[key], want[key], atol)
+    t0 = time.perf_counter()
+    f32_model(clip, smpl, J_regressor=jreg_dev)
+    torch.cuda.synchronize()
+    print(f"coupling f32 request ({N_CLIPS}x{SEQLEN}x{IMG}^2 uint8, 6 blocks): "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host clock, warm; {card_identity()}); "
+          f"launches as expected, attention_blocked {f32_launches['attention_blocked']}")
+    del f32_model, got
 
     # f32 at depth 2: the forward, then the whole protocol over 2 windows,
     # through the kernels and through their plain versions. Accumulators
@@ -1345,7 +1369,7 @@ def phase_eval(device):
         if not abs(value - m_plain[key]) <= 0.05:
             raise AssertionError(f"{key}: {value} mm through the kernels, {m_plain[key]} mm "
                                  "through the plain versions")
-    return launches
+    return launches, f32_launches
 
 
 def phase_modes(device, clip, jreg):
@@ -3014,7 +3038,7 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     del outs, plains, wants
     timed(phase_device_crop, device)
-    eval_launches = timed(phase_eval, device)
+    eval_launches, coupling_f32_launches = timed(phase_eval, device)
     timed(phase_modes, device, clips[0], jreg)
     train_launches, train_f32_launches = timed(phase_train, device)
     timed(phase_ddp, device)
@@ -3159,6 +3183,13 @@ def main() -> int:
             name=name, route=route, source=src + source, replaces=jax_ops + replaces,
             launches=f32_launches[count], launches_train=train_f32_launches[count],
             launches_demo=demo[count], **record[rec]))
+    # K in f32: launches in phase_eval's f32 coupling request
+    kernels_line.append(dict(
+        name="fused_attention_blocked_f32", route="cuda", source=src + "csrc/st_attention.cu",
+        replaces=jax_ops + "attention.py:74",
+        launches=coupling_f32_launches["attention_blocked"],
+        launches_train=train_f32_launches["attention_blocked"],
+        launches_demo=demo["attention_blocked"], **record["attention_blocked_f32"]))
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

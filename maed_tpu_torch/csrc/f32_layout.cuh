@@ -1,12 +1,13 @@
 // The shared-memory layouts and thread maps of the f32 kernels on the CUDA
-// cores: the GEMM of C, D and E (ln_mlp.cu, gemm_f32_kernel) and the
-// spatial attention at head dims up to 128 (st_attention.cu,
-// spatial_f32_kernel), with spatial_f32_plan(), which the launcher takes
-// each call's instance and bytes from. Plain C++ (no CUDA header), so that a
-// host compiler reads the same layout: tests/test_torch_port_f32_kernels.py
-// compiles it on the CPU and holds every plan (S 1-1024, d 8-128) and the
-// GEMM to the shared memory a CTA may use and to writing each output column
-// once.
+// cores: the GEMM of C, D and E (ln_mlp.cu, gemm_f32_kernel), the spatial
+// attention at head dims up to 128 (st_attention.cu, spatial_f32_kernel),
+// the blocked attention (blocked_f32_kernel) and the temporal attention
+// (temporal_f32_kernel), with the plans their launchers take each call's
+// instance and bytes from. Plain C++ (no CUDA header), so that a host
+// compiler reads the same layout: tests/test_torch_port_f32_kernels.py and
+// tests/test_torch_port_f32_attention.py compile it on the CPU and hold every
+// plan to the shared memory a CTA may use and the residency it claims, and
+// each thread map to writing every output row and column once.
 #pragma once
 
 #ifdef __CUDACC__
@@ -18,6 +19,7 @@
 namespace maed_f32 {
 
 constexpr int kMaxSmem = 232448;  // shared memory a block may use on the H100
+constexpr int kSmSmem = 233472;   // an SM's shared memory, 1 KB of it reserved per CTA
 
 // ------------------------------------------------------------------- GEMM
 //
@@ -117,6 +119,168 @@ inline SpatialPlan spatial_f32_plan(int S, int d) {
   const int ring = 2 * spatial_stage(p.rpt, p.g);
   const int v = 2 * kSpVKeys * spatial_v_pitch(p.nb);
   p.bytes = ((ring > v ? ring : v) + cta_rows * spatial_p_pitch(p.rpt, p.width)) * 4;
+  return p;
+}
+
+// ---------------------------------------------------------------- blocked
+//
+// The online softmax over any S (blocked_f32_kernel). A work item is `rows`
+// query rows of one (batch, head): 128, or 64 at a padded head dim of 128.
+// A persistent CTA of 256 threads keeps the item's q in shared memory and
+// streams the keys in tiles of 128, K tile j then V tile j, each into the
+// next slot of a ring of `stages` slots (cp.async, zeros past S and d); the
+// next item's q is copied while the last V tile is multiplied. Scores: the
+// thread of warp w and lane l forms rows blocked_s_row(w, l, i) (i < tm) by
+// keys blocked_s_key(l, j) (j < 8) of a tile from float4 reads along d (tm +
+// 8 reads feed 32 tm FMAs); a row's 128 keys lie in the 16 lanes of a half
+// warp, so its max is four shuffles, and p is written to shared memory once.
+// p v: the tile's keys are cut into `splits` = 128 / dp runs of dp keys, and
+// thread t of run blocked_o_split(dp, t) sums rows blocked_o_row(dp, t, i) by
+// columns blocked_o_col(dp, t, c) (c < 8) over its run, so that no FMA
+// multiplies a padded column at d = dp; the runs' sums meet in shared memory
+// once an item and leave as float4 stores (blocked_store_*). Rows of q, k, v
+// and p are padded by 4 floats: the float4 reads of 8 consecutive rows hit
+// 32 banks.
+constexpr int kBkThreads = 256;
+constexpr int kBkKeys = 128;      // keys of a tile
+constexpr int kBkRowGroups = 16;  // a thread's rows lie 16 apart
+constexpr int kAttMaxD = 128;  // the widest head dim of the f32 attention plans
+
+// the head dim padded to 32, 64 or 128 (every kernel instance's)
+MAED_F32_HD constexpr int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+MAED_F32_HD constexpr int blocked_rows(int dp) { return dp == 128 ? 64 : 128; }
+MAED_F32_HD constexpr int blocked_tm(int dp) { return blocked_rows(dp) / kBkRowGroups; }
+MAED_F32_HD constexpr int blocked_splits(int dp) { return kBkKeys / dp; }
+MAED_F32_HD constexpr int blocked_stages(int dp) { return dp == 32 ? 4 : dp == 64 ? 3 : 2; }
+MAED_F32_HD constexpr int blocked_pitch(int dp) { return dp + 4; }
+constexpr int kBkPPitch = kBkKeys + 4;
+
+// floats of q, of a ring slot, of p (which holds the runs' sums at the end
+// of an item), then the row statistics (alpha, l)
+MAED_F32_HD constexpr int blocked_q_floats(int dp) { return blocked_rows(dp) * blocked_pitch(dp); }
+MAED_F32_HD constexpr int blocked_slot_floats(int dp) { return kBkKeys * blocked_pitch(dp); }
+MAED_F32_HD constexpr int blocked_p_floats(int dp) {
+  return blocked_rows(dp) * (kBkPPitch > blocked_splits(dp) * blocked_pitch(dp)
+                                 ? kBkPPitch
+                                 : blocked_splits(dp) * blocked_pitch(dp));
+}
+MAED_F32_HD constexpr int blocked_bytes(int dp) {
+  return (blocked_q_floats(dp) + blocked_stages(dp) * blocked_slot_floats(dp) +
+          blocked_p_floats(dp) + 2 * blocked_rows(dp)) * 4;
+}
+
+// scores: warp w, lane l: rows 2w + l / 16 + 16 i, keys l % 16 + 16 j
+MAED_F32_HD constexpr int blocked_s_row(int warp, int lane, int i) {
+  return 2 * warp + lane / 16 + kBkRowGroups * i;
+}
+MAED_F32_HD constexpr int blocked_s_key(int lane, int j) { return lane % 16 + 16 * j; }
+// a key of tile `tile` at or past S scores -inf
+MAED_F32_HD constexpr bool blocked_masked(int tile, int key, int S) {
+  return tile * kBkKeys + key >= S;
+}
+// p v: thread t in run t / (2 dp); within it, column group t % (dp / 8) and
+// row group t % (2 dp) / (dp / 8): rows rg + 16 i, columns 4 cg + c (c < 4)
+// and dp / 2 + 4 cg + c - 4 (c >= 4), so that 8 lanes read 32 consecutive
+// floats of v
+MAED_F32_HD constexpr int blocked_o_split(int dp, int t) { return t / (2 * dp); }
+MAED_F32_HD constexpr int blocked_o_row(int dp, int t, int i) {
+  return t % (2 * dp) / (dp / 8) + kBkRowGroups * i;
+}
+MAED_F32_HD constexpr int blocked_o_col(int dp, int t, int c) {
+  return 4 * (t % (dp / 8)) + c / 4 * (dp / 2) + c % 4;
+}
+// the stores: step n of thread t takes 4 columns of a row of the item
+MAED_F32_HD constexpr int blocked_store_steps(int dp) {
+  return blocked_rows(dp) * dp / 4 / kBkThreads;
+}
+MAED_F32_HD constexpr int blocked_store_row(int dp, int t, int n) {
+  return (t + kBkThreads * n) / (dp / 4);
+}
+MAED_F32_HD constexpr int blocked_store_col(int dp, int t, int n) {
+  return (t + kBkThreads * n) % (dp / 4) * 4;
+}
+
+struct BlockedPlan {
+  int dp;      // the padded head dim: the instance
+  int rows;    // query rows a work item
+  int tm;      // rows a thread
+  int splits;  // runs of p v
+  int stages;  // ring slots
+  int blocks;  // work items a (batch, head)
+  int tiles;   // key tiles
+  int bytes;   // shared memory
+  int per_sm;  // CTAs an SM holds
+};
+
+// The instance of a call of S tokens at head dim d (S >= 1, d a multiple of
+// 8 up to 128); bytes 0: no instance.
+inline BlockedPlan blocked_f32_plan(int S, int d) {
+  BlockedPlan p{0, 0, 0, 0, 0, 0, 0, 0, 0};
+  if (S < 1 || d < 8 || d > kAttMaxD || d % 8) return p;
+  p.dp = padded_dim(d);
+  p.rows = blocked_rows(p.dp);
+  p.tm = blocked_tm(p.dp);
+  p.splits = blocked_splits(p.dp);
+  p.stages = blocked_stages(p.dp);
+  p.blocks = (S + p.rows - 1) / p.rows;
+  p.tiles = (S + kBkKeys - 1) / kBkKeys;
+  p.bytes = blocked_bytes(p.dp);
+  p.per_sm = kSmSmem / (p.bytes + 1024);
+  return p;
+}
+
+// --------------------------------------------------------------- temporal
+//
+// The exact softmax over the T frames of each (clip, token, head)
+// (temporal_f32_kernel). Every warp walks over work items of its own, one
+// (clip, token, head) each, heads fastest, so that the warps of a CTA take
+// neighbouring heads at once; it copies the next item's q, k and v rows
+// (tp rows of dp floats, padded by 4; zeros past T and d) into one of its
+// two stages with cp.async while it attends on the item in the other, and
+// no barrier wider than the warp is needed. Scores: lane l forms rows
+// temporal_s_row(l, i) (i < tp / 8) by keys temporal_s_key(l, j) (j < tp /
+// 4) from float4 reads; a row's keys lie in a quad of lanes, so its max and
+// sum are two shuffles each; p overwrites the warp's q rows (pitch tp + 4).
+// p v: lane l holds columns temporal_o_col(dp, l) .. + 3 of rows
+// temporal_o_row(dp, l, i) (i < tp dp / 128) and stores them as float4.
+constexpr int kTpMaxT = 32;
+constexpr int kTpMaxWarps = 4;
+
+MAED_F32_HD constexpr int temporal_tp(int T) { return T <= 8 ? 8 : T <= 16 ? 16 : 32; }
+MAED_F32_HD constexpr int temporal_pitch(int dp) { return dp + 4; }
+MAED_F32_HD constexpr int temporal_p_pitch(int tp) { return tp + 4; }
+// floats of one operand's rows, and of a warp's two stages
+MAED_F32_HD constexpr int temporal_op_floats(int tp, int dp) { return tp * temporal_pitch(dp); }
+MAED_F32_HD constexpr int temporal_warp_bytes(int tp, int dp) {
+  return 2 * 3 * temporal_op_floats(tp, dp) * 4;
+}
+MAED_F32_HD constexpr int temporal_s_row(int lane, int i) { return lane / 4 + 8 * i; }
+MAED_F32_HD constexpr int temporal_s_key(int lane, int j) { return lane % 4 + 4 * j; }
+MAED_F32_HD constexpr int temporal_o_rows(int tp, int dp) { return tp * dp / 128; }
+MAED_F32_HD constexpr int temporal_o_row(int dp, int lane, int i) {
+  return lane / (dp / 4) + 128 / dp * i;
+}
+MAED_F32_HD constexpr int temporal_o_col(int dp, int lane) { return 4 * (lane % (dp / 4)); }
+
+struct TemporalPlan {
+  int tp;      // frames padded to 8, 16 or 32: the instance
+  int dp;      // the padded head dim: the instance
+  int warps;   // warps a CTA
+  int bytes;   // shared memory
+  int per_sm;  // CTAs an SM holds
+};
+
+// The instance of a call of T frames (1-32) at head dim d (a multiple of 8
+// up to 128); bytes 0: no instance.
+inline TemporalPlan temporal_f32_plan(int T, int d) {
+  TemporalPlan p{0, 0, 0, 0, 0};
+  if (T < 1 || T > kTpMaxT || d < 8 || d > kAttMaxD || d % 8) return p;
+  p.tp = temporal_tp(T);
+  p.dp = padded_dim(d);
+  const int per_warp = temporal_warp_bytes(p.tp, p.dp);
+  p.warps = kMaxSmem / per_warp < kTpMaxWarps ? kMaxSmem / per_warp : kTpMaxWarps;
+  p.bytes = p.warps * per_warp;
+  p.per_sm = kSmSmem / (p.bytes + 1024);
   return p;
 }
 

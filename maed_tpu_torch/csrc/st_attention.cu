@@ -4,8 +4,8 @@
 // 'coupling'), each softmax(q k^T * scale) v per head.
 //
 // Replaces five Pallas kernels with three CUDA entry points:
-//   maed_blocked_attention (the blocked kernels, below the spatial ones, with
-//   their own note)
+//   maed_blocked_attention (blocked_attention_tma_kernel in bf16,
+//   blocked_f32_kernel in f32; below the spatial ones, with their own note)
 //     maed_tpu/ops/attention.py::_attn_blocked_kernel (pallas_call in
 //       `_attention_blocked`, public entry `fused_attention`, S > 1024)
 //   maed_spatial_attention (spatial_attention_tma_kernel in bf16,
@@ -15,7 +15,7 @@
 //     maed_tpu/ops/st_attention.py::_spatial_kernel (pallas_call in
 //       `_spatial_pallas`, public entry `spatial_attention`)
 //   maed_temporal_attention (temporal_attention_mma_kernel in bf16,
-//   temporal_attention_f32_kernel in f32)
+//   temporal_f32_kernel in f32)
 //     maed_tpu/ops/st_attention.py::_temporal_kernel (pallas_call in
 //       `_temporal_pallas`, public entry `temporal_attention`)
 //     maed_tpu/ops/st_attention.py::_temporal_v2_kernel (pallas_call in
@@ -99,10 +99,11 @@
 // 128 x 128 MXU, with the head-pair lane masks and the `lo` operand to keep
 // their loads lane-aligned; none of it is carried over.
 //
-// Temporal, f32 (the reference protocol's dtype; temporal_attention_f32_kernel):
-// one warp per (clip, token, head), its q, k and v rows as f32 in the warp's
-// shared memory, the T x T scores formed there, softmaxed row by row and
-// multiplied into v on the CUDA cores.
+// Temporal, f32 (temporal_f32_kernel, with its own note below): the bf16
+// kernel's plan on the CUDA cores. Every warp walks over (clip, token, head)
+// items of its own, its next item's rows in flight through two cp.async
+// stages; scores and p v are register tiles fed by float4 reads, the exact
+// softmax taken on the scores' registers by shuffles within a quad.
 //
 // Rounding points as the Pallas bodies: f32 scores from x-dtype operands, times
 // scale, f32 softmax (exp(s - max) / sum), p rounded to v's dtype, f32
@@ -123,27 +124,6 @@ namespace {
 namespace mf = maed_f32;
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-// 16 bytes of T
-template <typename T>
-struct alignas(16) Chunk {
-  static constexpr int kN = 16 / sizeof(T);
-  T v[kN];
-};
-
-// d elements at src (16-byte aligned, d a multiple of 8) -> f32 at dst, by a warp
-template <typename T>
-__device__ __forceinline__ void load_row(float* dst, const T* src, int d, int lane) {
-  constexpr int kN = Chunk<T>::kN;
-  for (int c = lane * kN; c < d; c += 32 * kN) {
-    const Chunk<T> chunk = *reinterpret_cast<const Chunk<T>*>(src + c);
-#pragma unroll
-    for (int e = 0; e < kN; ++e) dst[c + e] = to_f32(chunk.v[e]);
-  }
-}
-
-constexpr int kMaxD = 128, kColsPerLane = kMaxD / 32;
 
 // ------------------------------------------- Hopper kernels (bf16)
 //
@@ -939,10 +919,9 @@ int launch_spatial_f32(const TmaCall& c, int d) {
 // tile moves the running max at other columns than the plain version's
 // 512-key blocks, so an unnormalised p may round to the neighbouring bf16 value.
 //
-// f32, any head dim that is a multiple of 8: a block takes 64 query rows, a warp
-// 8 of them, on the CUDA cores (no TF32). A lane forms the scores of keys lane
-// and lane + 32 of the tile with its warp's 8 rows at once, p goes through
-// shared memory, and a lane accumulates output columns lane, lane + 32, ...
+// f32 (blocked_f32_kernel, below): the same steps on the CUDA cores (no
+// TF32), 128 query rows a persistent CTA (64 at head dims above 64) and
+// 128-key tiles through a cp.async ring.
 
 constexpr int kBkTile = 128;  // keys of a tile; query rows of a work item
 // TMA boxes of a tile: all of them, also past S (they arrive as zeros), since
@@ -1153,280 +1132,509 @@ __global__ void __launch_bounds__(kCtaThreads, 1) blocked_attention_tma_kernel(
   }
 }
 
-constexpr int kBkWarps = 8, kBkThreads = kBkWarps * 32;
-constexpr int kBkRowsPerWarp = 8, kBkRows = kBkWarps * kBkRowsPerWarp, kBkKeys = 64;
-
-// rows k0 .. k0 + kBkKeys - 1 of K or V (those from `kn` on as zeros) into the
-// tile buffer at `pitch` floats a row
-__device__ __forceinline__ void load_tile_zero(float* tile, int pitch, const float* src,
-                                               long long ss, int k0, int kn, int d) {
-  const int per_row = d / 4;
-  for (int idx = threadIdx.x; idx < kBkKeys * per_row; idx += kBkThreads) {
-    const int key = idx / per_row, c = (idx % per_row) * 4;
-    const float4 chunk = key < kn ? *reinterpret_cast<const float4*>(src + (k0 + key) * ss + c)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    float* dst = tile + key * pitch + c;
-    dst[0] = chunk.x;
-    dst[1] = chunk.y;
-    dst[2] = chunk.z;
-    dst[3] = chunk.w;
-  }
-}
-
-// grid (B * H, ceil(S / kBkRows)); addressing as spatial_f32_kernel.
-__global__ void __launch_bounds__(kBkThreads) blocked_attention_f32_kernel(
+// f32, a head dim that is a multiple of 8 up to 128: blocked_f32_kernel, the
+// layout and plan of f32_layout.cuh (see there). What bounds it: f32 FMAs
+// (2.44e11 FLOP at the coupling shape, 3.64 ms at the 67 TFLOP/s peak,
+// against 0.046 ms for its bytes), so both products are register tiles fed
+// by float4 reads as in the f32 GEMM (gemm_f32_kernel), every K and V row
+// enters shared memory once per 128 query rows, and the copies of the next
+// tiles (and of the next item's q) are in flight while the current one is
+// multiplied. Per key tile: s = q k^T * scale (in units of log 2, so every
+// exponential is one ex2; keys at or past S at -inf, the first tile always
+// has a key below S), the row's max by shuffles within its half warp, alpha =
+// 2^(m - m_new), p = 2^(s - m_new) into shared memory once, the thread's
+// share of l = alpha l + sum p; then each run of p v rescales its partial
+// sums by its rows' alpha and adds p v over its dp keys. At the end of an
+// item the runs' sums are added and divided by l once. Rows past S are
+// computed on zeros and not stored. The unroll factors (8 steps of q k^T, 4
+// of p v) were the fastest of those timed at the flagship (1 to 16 each;
+// PERF.md §6).
+template <int DP>
+__global__ void __launch_bounds__(mf::kBkThreads, 1) blocked_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int H, int S, int d, long long sb, long long sh, long long ss,
-    long long ob, long long oh, long long os, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                       // kBkRows x d
-  float* k_s = q_s + kBkRows * d;          // kBkKeys x (d + 1), against bank conflicts
-  float* v_s = k_s + kBkKeys * (d + 1);    // kBkKeys x d
-  float* p_s = v_s + kBkKeys * d;          // kBkRows x kBkKeys
+    float* __restrict__ out, int B, int H, int S, int d, long long sb, long long sh,
+    long long ss, long long ob, long long oh, long long os, float scale, int vec_out) {
+  constexpr int kRows = mf::blocked_rows(DP), kTm = mf::blocked_tm(DP);
+  constexpr int kStages = mf::blocked_stages(DP), kPitch = mf::blocked_pitch(DP);
+  constexpr int kSlot = mf::blocked_slot_floats(DP), kKeys = mf::kBkKeys;
+  constexpr int kRg = mf::kBkRowGroups, kPp = mf::kBkPPitch, kThreads = mf::kBkThreads;
+  constexpr int kCopies = kKeys * DP / 4 / kThreads;  // 16-byte copies of a thread, a K or V tile
+  constexpr int kQCopies = kRows * DP / 4 / kThreads;
+  extern __shared__ __align__(16) float bk_s[];
+  float* const q_s = bk_s;
+  float* const ring = q_s + mf::blocked_q_floats(DP);
+  float* const p_s = ring + kStages * kSlot;  // p; the runs' sums at the end of an item
+  float* const alpha_s = p_s + mf::blocked_p_floats(DP);
+  float* const l_s = alpha_s + kRows;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x / H, h = blockIdx.x % H, q0 = blockIdx.y * kBkRows;
-  const long long in_base = b * sb + h * sh;
-  q += in_base;
-  k += in_base;
-  v += in_base;
-  out += b * ob + h * oh;
-  const int r0 = warp * kBkRowsPerWarp;  // this warp's first row within the block
-
-  for (int r = warp; r < kBkRows; r += kBkWarps) {
-    if (q0 + r < S) {
-      load_row(q_s + r * d, q + (q0 + r) * ss, d, lane);
-    } else {
-      for (int c = lane; c < d; c += 32) q_s[r * d + c] = 0.f;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int blocks = (S + kRows - 1) / kRows, tiles = (S + kKeys - 1) / kKeys;
+  const long long items = static_cast<long long>(B) * H * blocks;
+  const float scale2 = scale * 1.4426950408889634f;  // scores in units of log 2
+  auto head_offset = [&](long long item) {
+    const long long bh = item / blocks;
+    return bh / H * sb + bh % H * sh;
+  };
+  // rows row0 .. of a q, K or V tile from src into dst (zeros past S and d):
+  // copy n of the thread is row (tid + 256 n) / (DP / 4) of the tile
+  auto copy_rows = [&](float* dst, const float* src, int row0, auto copies) {
+#pragma unroll
+    for (int n = 0; n < decltype(copies)::value; ++n) {
+      const int idx = tid + kThreads * n, r = idx / (DP / 4), c = idx % (DP / 4) * 4;
+      const bool ok = row0 + r < S && c < d;
+      cp_async16(smem_u32(dst + r * kPitch + c), ok ? src + (row0 + r) * ss + c : src, ok);
     }
+  };
+  auto load_q = [&](long long item) {
+    copy_rows(q_s, q + head_offset(item), static_cast<int>(item % blocks) * kRows,
+              std::integral_constant<int, kQCopies>());
+  };
+
+  // The loads walk the CTA's sequence of tiles (K 0, V 0, K 1, ... of each
+  // of its items) kStages - 1 tiles ahead of the products, slot by slot.
+  long long ld_item = blockIdx.x;
+  int ld_unit = 0, ld_slot = 0;
+  long long ld_off = ld_item < items ? head_offset(ld_item) : 0;
+  auto load_next = [&]() {  // no commit
+    if (ld_item < items) {
+      copy_rows(ring + ld_slot * kSlot, (ld_unit & 1 ? v : k) + ld_off, (ld_unit >> 1) * kKeys,
+                std::integral_constant<int, kCopies>());
+      if (++ld_unit == 2 * tiles) {
+        ld_unit = 0;
+        ld_item += gridDim.x;
+        if (ld_item < items) ld_off = head_offset(ld_item);
+      }
+    }
+    ld_slot = ld_slot + 1 == kStages ? 0 : ld_slot + 1;
+  };
+
+  if (blockIdx.x >= items) return;
+  load_q(blockIdx.x);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    load_next();
+    cp_async_commit();
   }
 
-  // per row: running max, this lane's share of the running sum, and this
-  // lane's output columns lane, lane + 32, ...
-  float m[kBkRowsPerWarp], l[kBkRowsPerWarp], acc[kBkRowsPerWarp][kColsPerLane];
+  const int split = mf::blocked_o_split(DP, tid);
+  const float* const q_row = q_s + mf::blocked_s_row(warp, lane, 0) * kPitch;
+  const float* const p_row = p_s + mf::blocked_o_row(DP, tid, 0) * kPp + split * DP;
+  float m[kTm], l[kTm], o[kTm][8];
 #pragma unroll
-  for (int r = 0; r < kBkRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+  for (int i = 0; i < kTm; ++i)
 #pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) acc[r][j] = 0.f;
-  }
+    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
+  int slot = 0;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int row0 = static_cast<int>(item % blocks) * kRows;
+#pragma unroll
+    for (int i = 0; i < kTm; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+    }
+    for (int j = 0; j < tiles; ++j) {
+      // K tile j: the scores, the softmax, p
+      if (j == 0) {
+        cp_async_wait<0>();  // the item's q came with the last group
+      } else {
+        cp_async_wait<kStages - 2>();
+      }
+      __syncthreads();  // the tile has landed; the previous p and alpha are read
+      load_next();
+      cp_async_commit();
+      {
+        const float* const k_row = ring + slot * kSlot + mf::blocked_s_key(lane, 0) * kPitch;
+        float s[kTm][8];
+#pragma unroll
+        for (int i = 0; i < kTm; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) s[i][jj] = 0.f;
+#pragma unroll 8
+        for (int c = 0; c < DP; c += 4) {
+          float4 qv[kTm], kv[8];
+#pragma unroll
+          for (int i = 0; i < kTm; ++i)
+            qv[i] = *reinterpret_cast<const float4*>(q_row + kRg * i * kPitch + c);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            kv[jj] = *reinterpret_cast<const float4*>(k_row + 16 * jj * kPitch + c);
+#pragma unroll
+          for (int i = 0; i < kTm; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              s[i][jj] = fmaf(qv[i].x, kv[jj].x, s[i][jj]);
+              s[i][jj] = fmaf(qv[i].y, kv[jj].y, s[i][jj]);
+              s[i][jj] = fmaf(qv[i].z, kv[jj].z, s[i][jj]);
+              s[i][jj] = fmaf(qv[i].w, kv[jj].w, s[i][jj]);
+            }
+        }
+        const bool ragged = (j + 1) * kKeys > S;
+#pragma unroll
+        for (int i = 0; i < kTm; ++i) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const bool masked = ragged && mf::blocked_masked(j, mf::blocked_s_key(lane, jj), S);
+            s[i][jj] = masked ? -INFINITY : s[i][jj] * scale2;
+            mx = fmaxf(mx, s[i][jj]);
+          }
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_new = fmaxf(m[i], mx);
+          const float alpha = fast_exp2(m[i] - m_new);  // 0 on the first tile
+          m[i] = m_new;
+          float sum = 0.f;
+          const int row = mf::blocked_s_row(warp, lane, i);
+          float* const prow = p_s + row * kPp + mf::blocked_s_key(lane, 0);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float p = fast_exp2(s[i][jj] - m_new);
+            sum += p;
+            prow[16 * jj] = p;
+          }
+          l[i] = l[i] * alpha + sum;
+          if (lane % 16 == 0) alpha_s[row] = alpha;
+        }
+      }
+      slot = slot + 1 == kStages ? 0 : slot + 1;
 
-  for (int k0 = 0; k0 < S; k0 += kBkKeys) {
-    const int kn = min(kBkKeys, S - k0);
-    __syncthreads();  // q_s written; the previous tile and its p read
-    load_tile_zero(k_s, d + 1, k, ss, k0, kn, d);
-    load_tile_zero(v_s, d, v, ss, k0, kn, d);
+      // V tile j: each run of p v over its DP keys
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // the tile has landed; p and alpha are written
+      if (j == tiles - 1 && item + gridDim.x < items) load_q(item + gridDim.x);
+      load_next();
+      cp_async_commit();
+      {
+        const float* const v_row =
+            ring + slot * kSlot + split * DP * kPitch + mf::blocked_o_col(DP, tid, 0);
+#pragma unroll
+        for (int i = 0; i < kTm; ++i) {
+          const float a = alpha_s[mf::blocked_o_row(DP, tid, i)];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) o[i][c] *= a;
+        }
+#pragma unroll 4
+        for (int key = 0; key < DP; key += 4) {
+          float4 pv[kTm];
+#pragma unroll
+          for (int i = 0; i < kTm; ++i)
+            pv[i] = *reinterpret_cast<const float4*>(p_row + kRg * i * kPp + key);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 v0 = *reinterpret_cast<const float4*>(v_row + (key + e) * kPitch);
+            const float4 v1 =
+                *reinterpret_cast<const float4*>(v_row + (key + e) * kPitch + DP / 2);
+#pragma unroll
+            for (int i = 0; i < kTm; ++i) {
+              const float pe = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
+              o[i][0] = fmaf(pe, v0.x, o[i][0]);
+              o[i][1] = fmaf(pe, v0.y, o[i][1]);
+              o[i][2] = fmaf(pe, v0.z, o[i][2]);
+              o[i][3] = fmaf(pe, v0.w, o[i][3]);
+              o[i][4] = fmaf(pe, v1.x, o[i][4]);
+              o[i][5] = fmaf(pe, v1.y, o[i][5]);
+              o[i][6] = fmaf(pe, v1.z, o[i][6]);
+              o[i][7] = fmaf(pe, v1.w, o[i][7]);
+            }
+          }
+        }
+      }
+      slot = slot + 1 == kStages ? 0 : slot + 1;
+    }
+
+    // the item's end: l whole (alpha is the same in a row's 16 lanes), the
+    // runs' sums through shared memory, divided once, stored
+#pragma unroll
+    for (int i = 0; i < kTm; ++i) {
+      float t = l[i];
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
+      if (lane % 16 == 0) l_s[mf::blocked_s_row(warp, lane, i)] = t;
+    }
+    __syncthreads();  // every run's reads of p are done
+    {
+      float* const sums = p_s + split * kRows * kPitch;
+#pragma unroll
+      for (int i = 0; i < kTm; ++i) {
+        float* const at =
+            sums + mf::blocked_o_row(DP, tid, i) * kPitch + mf::blocked_o_col(DP, tid, 0);
+        *reinterpret_cast<float4*>(at) = make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+        *reinterpret_cast<float4*>(at + DP / 2) = make_float4(o[i][4], o[i][5], o[i][6], o[i][7]);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
+      }
+    }
     __syncthreads();
-
-    // scores of the warp's rows against keys lane (a) and lane + 32 (b)
-    float s_lo[kBkRowsPerWarp] = {}, s_hi[kBkRowsPerWarp] = {};
-    const float* ka = k_s + lane * (d + 1);
-    const float* kb = ka + 32 * (d + 1);
-    for (int c = 0; c < d; c += 4) {
-      const float a0 = ka[c], a1 = ka[c + 1], a2 = ka[c + 2], a3 = ka[c + 3];
-      const float b0 = kb[c], b1 = kb[c + 1], b2 = kb[c + 2], b3 = kb[c + 3];
+    float* const dst = out + item / blocks / H * ob + item / blocks % H * oh;
 #pragma unroll
-      for (int r = 0; r < kBkRowsPerWarp; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_s + (r0 + r) * d + c);
-        s_lo[r] = fmaf(qv.x, a0, s_lo[r]);
-        s_lo[r] = fmaf(qv.y, a1, s_lo[r]);
-        s_lo[r] = fmaf(qv.z, a2, s_lo[r]);
-        s_lo[r] = fmaf(qv.w, a3, s_lo[r]);
-        s_hi[r] = fmaf(qv.x, b0, s_hi[r]);
-        s_hi[r] = fmaf(qv.y, b1, s_hi[r]);
-        s_hi[r] = fmaf(qv.z, b2, s_hi[r]);
-        s_hi[r] = fmaf(qv.w, b3, s_hi[r]);
+    for (int n = 0; n < mf::blocked_store_steps(DP); ++n) {
+      const int r = mf::blocked_store_row(DP, tid, n), c = mf::blocked_store_col(DP, tid, n);
+      if (row0 + r >= S || c >= d) continue;
+      float4 acc = *reinterpret_cast<const float4*>(p_s + r * kPitch + c);
+#pragma unroll
+      for (int sp = 1; sp < mf::blocked_splits(DP); ++sp) {
+        const float4 part = *reinterpret_cast<const float4*>(p_s + (sp * kRows + r) * kPitch + c);
+        acc = make_float4(acc.x + part.x, acc.y + part.y, acc.z + part.z, acc.w + part.w);
       }
-    }
-#pragma unroll
-    for (int r = 0; r < kBkRowsPerWarp; ++r) {
-      const float xa = lane < kn ? s_lo[r] * scale : -INFINITY;  // key 0 of a tile is below S
-      const float xb = lane + 32 < kn ? s_hi[r] * scale : -INFINITY;
-      float tile_max = fmaxf(xa, xb);
-      for (int off = 16; off > 0; off >>= 1)
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-      const float m_new = fmaxf(m[r], tile_max);
-      const float alpha = expf(m[r] - m_new);  // 0 on the first tile
-      const float pa = expf(xa - m_new), pb = expf(xb - m_new);
-      l[r] = l[r] * alpha + pa + pb;
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) acc[r][j] *= alpha;
-      p_s[(r0 + r) * kBkKeys + lane] = pa;
-      p_s[(r0 + r) * kBkKeys + lane + 32] = pb;
-    }
-    __syncwarp();
-
-    // acc += p v, 4 keys at a time (the rows beyond kn are zeros, and so is their p)
-    for (int key = 0; key < kBkKeys; key += 4) {
-      float vv[4][kColsPerLane];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j) {
-          const int c = lane + 32 * j;
-          vv[e][j] = c < d ? v_s[(key + e) * d + c] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kBkRowsPerWarp; ++r) {
-        const float4 p = *reinterpret_cast<const float4*>(p_s + (r0 + r) * kBkKeys + key);
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j) {
-          acc[r][j] = fmaf(p.x, vv[0][j], acc[r][j]);
-          acc[r][j] = fmaf(p.y, vv[1][j], acc[r][j]);
-          acc[r][j] = fmaf(p.z, vv[2][j], acc[r][j]);
-          acc[r][j] = fmaf(p.w, vv[3][j], acc[r][j]);
-        }
+      const float lr = l_s[r];
+      acc = make_float4(acc.x / lr, acc.y / lr, acc.z / lr, acc.w / lr);
+      float* const at = dst + (row0 + r) * os + c;
+      if (vec_out) {
+        *reinterpret_cast<float4*>(at) = acc;
+      } else {
+        at[0] = acc.x;
+        at[1] = acc.y;
+        at[2] = acc.z;
+        at[3] = acc.w;
       }
     }
   }
-
-#pragma unroll
-  for (int r = 0; r < kBkRowsPerWarp; ++r) {
-    for (int off = 16; off > 0; off >>= 1) l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
-    const int row = q0 + r0 + r;
-    if (row < S) {
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) {
-        const int c = lane + 32 * j;
-        if (c < d) out[row * os + c] = acc[r][j] / l[r];
-      }
-    }
-  }
+  cp_async_wait<0>();
 }
 
-int launch_blocked_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int S,
-                       int d, long long sb, long long sh, long long ss, long long ob,
-                       long long oh, long long os, float scale, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(kBkRows) * d + kBkKeys * (d + 1) +
-                       static_cast<size_t>(kBkKeys) * d + kBkRows * kBkKeys) * sizeof(float);
-  auto kernel = blocked_attention_f32_kernel;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(B * H, (S + kBkRows - 1) / kBkRows);
-  kernel<<<grid, kBkThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), H, S, d, sb, sh, ss, ob, oh, os, scale);
+template <int DP>
+int launch_blocked_f32_instance(const TmaCall& c, int d, const mf::BlockedPlan& p, int vec_out) {
+  const auto kernel = blocked_f32_kernel<DP>;
+  if (const cudaError_t err = allow_smem<blocked_f32_kernel<DP>>(p.bytes))
+    return static_cast<int>(err);
+  const long long items = static_cast<long long>(c.B) * c.H * p.blocks;
+  kernel<<<persistent_ctas(items, p.per_sm), mf::kBkThreads, p.bytes, c.stream>>>(
+      static_cast<const float*>(c.q), static_cast<const float*>(c.k),
+      static_cast<const float*>(c.v), static_cast<float*>(c.out), c.B, c.H, c.S, d, c.sb, c.sh,
+      c.ss, c.ob, c.oh, c.os, c.scale, vec_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instance of blocked_f32_plan(S, d), or cudaErrorInvalidValue
+int launch_blocked_f32(const TmaCall& c, int d) {
+  const mf::BlockedPlan p = mf::blocked_f32_plan(c.S, d);
+  const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  if (p.bytes == 0 || c.B < 1 || c.H < 1 || !aligned(c.q) || !aligned(c.k) || !aligned(c.v) ||
+      c.sb % 4 || c.sh % 4 || c.ss % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec_out = aligned(c.out) && c.ob % 4 == 0 && c.oh % 4 == 0 && c.os % 4 == 0;
+  switch (p.dp) {
+    case 32: return launch_blocked_f32_instance<32>(c, d, p, vec_out);
+    case 64: return launch_blocked_f32_instance<64>(c, d, p, vec_out);
+    case 128: return launch_blocked_f32_instance<128>(c, d, p, vec_out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------- temporal
 
-// f32 (the reference protocol's dtype): one warp per (clip g, token n, head
-// h), h fastest, its T x d q, k and v rows as f32 in the warp's shared memory.
-constexpr int kTpWarps = 4;
+// f32 (the eval CLI's, the demo's and the trainer's dtype): temporal_f32_kernel,
+// the plan and thread maps of f32_layout.cuh (see there). What bounds it:
+// bytes (the 232 MB qkv in and 77 MB out at the flagship shape, 0.0925 ms at
+// 3.35 TB/s, against 1.2 GFLOP), so every warp keeps its next item's copies
+// in flight while it attends on rows already in shared memory. Frame t of
+// item (clip g, token n, head h) is row q + (g T + t) s_frame + n s_token + h
+// s_head (k and v alike), its output row out + (g T + t) o_frame + n o_token
+// + h o_head; vec_out: out and its strides 16-byte granular (float4 stores).
+struct TemporalF32Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;
+  int G, T, N, H, d;
+  long long s_frame, s_token, s_head, o_frame, o_token, o_head;
+  float scale;
+  int vec_out;
+};
 
-// floats of shared memory one warp needs: q and k at d + 1 a row, v at d, p at T + 1
-__host__ __device__ constexpr int temporal_warp_floats(int T, int d) {
-  return 2 * T * (d + 1) + T * d + T * (T + 1);
-}
+template <int DP, int TP>
+__global__ void __launch_bounds__(mf::kTpMaxWarps * 32) temporal_f32_kernel(
+    const TemporalF32Args a) {
+  constexpr int kPitch = mf::temporal_pitch(DP), kOp = mf::temporal_op_floats(TP, DP);
+  constexpr int kPp = mf::temporal_p_pitch(TP), kChunks = DP / 4;
+  constexpr int kCopies = TP * kChunks / 32;  // 16-byte copies of a lane, an operand
+  constexpr int kSr = TP / 8, kSk = TP / 4;   // a lane's score rows and keys
+  constexpr int kOr = mf::temporal_o_rows(TP, DP), kPass = kOr < 8 ? kOr : 8;
+  static_assert(TP <= DP, "p fits the q rows it overwrites");
+  extern __shared__ __align__(16) float tf_s[];
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* const stages = tf_s + warp * 2 * 3 * kOp;
+  const long long items = static_cast<long long>(a.G) * a.N * a.H;
+  const long long stride = static_cast<long long>(gridDim.x) * warps;
+  // the first row of item it's (clip, token, head), in elements
+  auto offset = [&](long long it, long long s_frame, long long s_token, long long s_head) {
+    const long long nh = it % (static_cast<long long>(a.N) * a.H);
+    return it / (static_cast<long long>(a.N) * a.H) * a.T * s_frame + nh / a.H * s_token +
+           nh % a.H * s_head;
+  };
 
-// Frame t of the triple (g, n, h) is row q + (g * T + t) * s_frame + n * s_token
-// + h * s_head (k and v alike), and its output row out + (g * T + t) * o_frame
-// + n * o_token + h * o_head.
-__global__ void __launch_bounds__(kTpWarps * 32) temporal_attention_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int G, int frames, int N, int H, int d, long long s_frame,
-    long long s_token, long long s_head, long long o_frame, long long o_token,
-    long long o_head, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long wid = static_cast<long long>(blockIdx.x) * kTpWarps + warp;
-  if (wid >= static_cast<long long>(G) * N * H) return;  // whole warps leave; no block barrier below
-  const int h = wid % H, n = (wid / H) % N, g = wid / (static_cast<long long>(H) * N);
-
-  float* q_s = smem + warp * temporal_warp_floats(frames, d);  // frames x (d + 1)
-  float* k_s = q_s + frames * (d + 1);                         // frames x (d + 1)
-  float* v_s = k_s + frames * (d + 1);                         // frames x d
-  float* p_s = v_s + frames * d;                               // frames x (frames + 1)
-
-  const long long in0 = static_cast<long long>(g) * frames * s_frame + n * s_token + h * s_head;
-  {  // every lane takes 16-byte chunks of q, k and v: frames * d / 4 of each
-    constexpr int kN = Chunk<float>::kN;
-    const int per_row = d / kN;
-#pragma unroll 2
-    for (int idx = lane; idx < frames * per_row; idx += 32) {
-      const int t = idx / per_row, c = (idx % per_row) * kN;
-      const long long at = in0 + t * s_frame + c;
-      const Chunk<float> cq = *reinterpret_cast<const Chunk<float>*>(q + at);
-      const Chunk<float> ck = *reinterpret_cast<const Chunk<float>*>(k + at);
-      const Chunk<float> cv = *reinterpret_cast<const Chunk<float>*>(v + at);
+  // item it's q, k, v rows into stage st (zeros past T and d)
+  auto load = [&](long long it, int st) {
+    const long long base = offset(it, a.s_frame, a.s_token, a.s_head);
+    float* const dst = stages + st * 3 * kOp;
 #pragma unroll
-      for (int e = 0; e < kN; ++e) {
-        q_s[t * (d + 1) + c + e] = cq.v[e];
-        k_s[t * (d + 1) + c + e] = ck.v[e];
-        v_s[t * d + c + e] = cv.v[e];
+    for (int op = 0; op < 3; ++op) {
+      const float* const src = (op == 0 ? a.q : op == 1 ? a.k : a.v) + base;
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i) {
+        const int idx = lane + 32 * i, t = idx / kChunks, c = idx % kChunks * 4;
+        const bool ok = t < a.T && c < a.d;
+        cp_async16(smem_u32(dst + op * kOp + t * kPitch + c), ok ? src + t * a.s_frame + c : src,
+                   ok);
       }
     }
-  }
-  __syncwarp();
+  };
 
-  for (int idx = lane; idx < frames * frames; idx += 32) {
-    const int i = idx / frames, j = idx % frames;
-    const float* qr = q_s + i * (d + 1);
-    const float* kr = k_s + j * (d + 1);
-    float acc = 0.f;
-    for (int c = 0; c < d; ++c) acc = fmaf(qr[c], kr[c], acc);
-    p_s[i * (frames + 1) + j] = acc * scale;
-  }
-  __syncwarp();
+  long long it = static_cast<long long>(blockIdx.x) * warps + warp;
+  if (it < items) load(it, 0);
+  cp_async_commit();
+  for (int st = 0; it < items; it += stride, st ^= 1) {
+    if (it + stride < items) load(it + stride, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this lane's copies of item it have landed ...
+    __syncwarp();        // ... and the warp's
+    float* const qs = stages + st * 3 * kOp;
+    const float* const ks = qs + kOp;
+    const float* const vs = qs + 2 * kOp;
 
-  for (int i = lane; i < frames; i += 32) {
-    float* pr = p_s + i * (frames + 1);
-    float m = -INFINITY;
-    for (int j = 0; j < frames; ++j) m = fmaxf(m, pr[j]);
-    float sum = 0.f;
-    for (int j = 0; j < frames; ++j) {
-      const float e = expf(pr[j] - m);
-      pr[j] = e;
-      sum += e;
-    }
-    for (int j = 0; j < frames; ++j) pr[j] = pr[j] / sum;
-  }
-  __syncwarp();
-
-  float* out0 = out + static_cast<long long>(g) * frames * o_frame + n * o_token + h * o_head;
-  for (int i = 0; i < frames; ++i) {
-    float acc[kColsPerLane] = {};
-    for (int j = 0; j < frames; ++j) {
-      const float p = p_s[i * (frames + 1) + j];
+    // the scores, a kSr x kSk tile a lane
+    float s[kSr][kSk];
 #pragma unroll
-      for (int jj = 0; jj < kColsPerLane; ++jj) {
-        const int c = lane + 32 * jj;
-        if (c < d) acc[jj] = fmaf(p, v_s[j * d + c], acc[jj]);
+    for (int i = 0; i < kSr; ++i)
+#pragma unroll
+      for (int j = 0; j < kSk; ++j) s[i][j] = 0.f;
+    const float* const q_row = qs + mf::temporal_s_row(lane, 0) * kPitch;
+    const float* const k_row = ks + mf::temporal_s_key(lane, 0) * kPitch;
+#pragma unroll 4
+    for (int c = 0; c < DP; c += 4) {
+      float4 qv[kSr], kv[kSk];
+#pragma unroll
+      for (int i = 0; i < kSr; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(q_row + 8 * i * kPitch + c);
+#pragma unroll
+      for (int j = 0; j < kSk; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(k_row + 4 * j * kPitch + c);
+#pragma unroll
+      for (int i = 0; i < kSr; ++i)
+#pragma unroll
+        for (int j = 0; j < kSk; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+    // the exact softmax: a row's keys lie in a quad of lanes; keys past T at -inf
+#pragma unroll
+    for (int i = 0; i < kSr; ++i) {
+      float mx = -INFINITY, sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSk; ++j) {
+        s[i][j] = mf::temporal_s_key(lane, j) < a.T ? s[i][j] * a.scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = quad_max(mx);
+#pragma unroll
+      for (int j = 0; j < kSk; ++j) {
+        s[i][j] = expf(s[i][j] - mx);
+        sum += s[i][j];
+      }
+      sum = quad_sum(sum);
+#pragma unroll
+      for (int j = 0; j < kSk; ++j) s[i][j] = s[i][j] / sum;
+    }
+    __syncwarp();  // every lane's reads of q are done: p takes its rows
+#pragma unroll
+    for (int i = 0; i < kSr; ++i)
+#pragma unroll
+      for (int j = 0; j < kSk; ++j)
+        qs[mf::temporal_s_row(lane, i) * kPp + mf::temporal_s_key(lane, j)] = s[i][j];
+    __syncwarp();
+
+    // out = p v over the keys below T rounded up to 4 (p is 0 and v's rows
+    // are zeros from T on), kPass rows of a lane's float4 columns at a time
+    const int col = mf::temporal_o_col(DP, lane), keys4 = (a.T + 3) & ~3;
+    const float* const v_col = vs + col;
+    float* const out0 = a.out + offset(it, a.o_frame, a.o_token, a.o_head) + col;
+#pragma unroll
+    for (int r0 = 0; r0 < kOr; r0 += kPass) {
+      float4 o[kPass];
+#pragma unroll
+      for (int i = 0; i < kPass; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int key = 0; key < keys4; key += 4) {
+        float4 vv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          vv[e] = *reinterpret_cast<const float4*>(v_col + (key + e) * kPitch);
+#pragma unroll
+        for (int i = 0; i < kPass; ++i) {
+          const float4 p = *reinterpret_cast<const float4*>(
+              qs + mf::temporal_o_row(DP, lane, r0 + i) * kPp + key);
+          const float pe[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            o[i].x = fmaf(pe[e], vv[e].x, o[i].x);
+            o[i].y = fmaf(pe[e], vv[e].y, o[i].y);
+            o[i].z = fmaf(pe[e], vv[e].z, o[i].z);
+            o[i].w = fmaf(pe[e], vv[e].w, o[i].w);
+          }
+        }
+      }
+      if (col < a.d) {
+#pragma unroll
+        for (int i = 0; i < kPass; ++i) {
+          const int t = mf::temporal_o_row(DP, lane, r0 + i);
+          if (t >= a.T) continue;
+          float* const at = out0 + t * a.o_frame;
+          if (a.vec_out) {
+            *reinterpret_cast<float4*>(at) = o[i];
+          } else {
+            at[0] = o[i].x;
+            at[1] = o[i].y;
+            at[2] = o[i].z;
+            at[3] = o[i].w;
+          }
+        }
       }
     }
-#pragma unroll
-    for (int jj = 0; jj < kColsPerLane; ++jj) {
-      const int c = lane + 32 * jj;
-      if (c < d) out0[i * o_frame + c] = acc[jj];
-    }
+    __syncwarp();  // the stage is free for the load two items on
   }
+  cp_async_wait<0>();
 }
 
-int launch_temporal_f32(const void* q, const void* k, const void* v, void* out, int G, int frames,
-                        int N, int H, int d, long long s_frame, long long s_token,
-                        long long s_head, long long o_frame, long long o_token, long long o_head,
-                        float scale, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kTpWarps) * temporal_warp_floats(frames, d) * sizeof(float);
-  auto kernel = temporal_attention_f32_kernel;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long warps = static_cast<long long>(G) * N * H;
-  const unsigned blocks = static_cast<unsigned>((warps + kTpWarps - 1) / kTpWarps);
-  kernel<<<blocks, kTpWarps * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), G, frames, N, H, d, s_frame, s_token, s_head, o_frame, o_token,
-      o_head, scale);
+template <int DP, int TP>
+int launch_temporal_f32_instance(const TemporalF32Args& a, const mf::TemporalPlan& p,
+                                 cudaStream_t stream) {
+  const auto kernel = temporal_f32_kernel<DP, TP>;
+  if (const cudaError_t err = allow_smem<temporal_f32_kernel<DP, TP>>(p.bytes))
+    return static_cast<int>(err);
+  const long long items = static_cast<long long>(a.G) * a.N * a.H;
+  kernel<<<persistent_ctas((items + p.warps - 1) / p.warps, p.per_sm), p.warps * 32, p.bytes,
+           stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_temporal_f32_dp(const TemporalF32Args& a, const mf::TemporalPlan& p,
+                           cudaStream_t stream) {
+  switch (p.tp) {
+    case 8: return launch_temporal_f32_instance<DP, 8>(a, p, stream);
+    case 16: return launch_temporal_f32_instance<DP, 16>(a, p, stream);
+    case 32: return launch_temporal_f32_instance<DP, 32>(a, p, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the instance of temporal_f32_plan(T, d), or cudaErrorInvalidValue
+int launch_temporal_f32(TemporalF32Args a, cudaStream_t stream) {
+  const mf::TemporalPlan p = mf::temporal_f32_plan(a.T, a.d);
+  const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  if (p.bytes == 0 || a.G < 1 || a.N < 1 || a.H < 1 || !aligned(a.q) || !aligned(a.k) ||
+      !aligned(a.v) || a.s_frame % 4 || a.s_token % 4 || a.s_head % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.vec_out = aligned(a.out) && a.o_frame % 4 == 0 && a.o_token % 4 == 0 && a.o_head % 4 == 0;
+  switch (p.dp) {
+    case 32: return launch_temporal_f32_dp<32>(a, p, stream);
+    case 64: return launch_temporal_f32_dp<64>(a, p, stream);
+    case 128: return launch_temporal_f32_dp<128>(a, p, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // bf16: a work item is (clip g, token n, a group of hg <= kTmHeads heads);
@@ -1688,11 +1896,10 @@ extern "C" int maed_blocked_attention(int is_bf16, const void* q, const void* k,
                                       long long sh, long long ss, long long ob, long long oh,
                                       long long os, float scale, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
-    return launch_blocked_f32(q, k, v, out, B, H, S, d, sb, sh, ss, ob, oh, os, scale, s);
+  const TmaCall call{q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, scale, s};
+  if (!is_bf16) return launch_blocked_f32(call, d);
   if (S < 1 || !tma_operands(q, k, v, out, sb, sh, ss, ob, oh, os))
     return static_cast<int>(cudaErrorInvalidValue);
-  const TmaCall call{q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, scale, s};
   return by_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
     return launch_tma<blocked_attention_tma_kernel<D>, D>(call, BlockedLayout<D>::kBytes, kBkTile);
@@ -1702,7 +1909,7 @@ extern "C" int maed_blocked_attention(int is_bf16, const void* q, const void* k,
 // As above for G clips of T frames (T at most 32) of N tokens of H heads.
 // bf16: temporal_attention_mma_kernel, which also asks 16-byte aligned output
 // rows (pointer and strides), else cudaErrorInvalidValue; f32:
-// temporal_attention_f32_kernel.
+// temporal_f32_kernel.
 extern "C" int maed_temporal_attention(int is_bf16, const void* q, const void* k, const void* v,
                                        void* out, int G, int T, int N, int H, int d,
                                        long long s_frame, long long s_token, long long s_head,
@@ -1715,6 +1922,8 @@ extern "C" int maed_temporal_attention(int is_bf16, const void* q, const void* k
                          s_frame, s_token, s_head, o_frame, o_token, o_head, scale};
     return launch_temporal_bf16(a, s);
   }
-  return launch_temporal_f32(q, k, v, out, G, T, N, H, d, s_frame, s_token, s_head, o_frame,
-                             o_token, o_head, scale, s);
+  const TemporalF32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+                          static_cast<const float*>(v), static_cast<float*>(out), G, T, N, H, d,
+                          s_frame, s_token, s_head, o_frame, o_token, o_head, scale, 0};
+  return launch_temporal_f32(a, s);
 }

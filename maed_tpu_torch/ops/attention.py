@@ -14,9 +14,9 @@ Counterpart of ``maed_tpu/ops/attention.py``, with its dispatch:
   the p v product, sums the unrounded p, and divides once at the end. Plain
   version: :func:`attention_blocked_reference`, the same steps over key blocks
   of 512 as the TPU kernel takes them. The CUDA kernels walk tiles of 128
-  keys (bf16) or 64 (f32); in exact arithmetic the block size does not
-  matter, in bf16 a running max that moves at other columns lets an
-  unnormalised p round to the neighbouring value.
+  keys in both dtypes; in exact arithmetic the block size does not matter,
+  in bf16 a running max that moves at other columns lets an unnormalised p
+  round to the neighbouring value.
 
 q, k, v share their strides and are read in place: contiguous tensors, or
 three views of one qkv projection; the output may be a view too (see

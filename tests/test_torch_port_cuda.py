@@ -564,13 +564,17 @@ def test_spatial_attention_kernel(cuda, dtype, atol, rtol, BT, N, h, d):
                                             (4, 2, 7, 3, 128), (32, 32, 3, 1, 8),
                                             (5, 1, 7, 5, 64), (30, 15, 200, 6, 24),
                                             (34, 17, 60, 5, 128), (64, 32, 5, 3, 24),
-                                            (16, 16, 1, 12, 64)])
+                                            (16, 16, 1, 12, 64), (64, 32, 3, 2, 128),
+                                            (21, 7, 1, 5, 40)])
 def test_temporal_attention_kernel(cuda, dtype, atol, rtol, sliced, BT, T, N, h, d):
-    """Both output layouts. T 1, 2, 3, 15, 16 (one 16-frame tile), 17, 32 (two);
-    d 8, 16, 24 (padded to 16 and 32 in bf16), 64, 128; one token a frame.
-    The bf16 kernel takes 4 heads a work item, or 2 or 1 where that leaves
-    fewer than two items an SM: h 12 in groups of 4, 6 in 4 + 2, 5 in 2 + 2
-    + 1 (T 17), and the small shapes one head an item.
+    """Both output layouts. T 1, 2, 3, 7, 15, 16 (one 16-frame tile), 17, 32
+    (two); d 8, 16, 24 (padded to 16 and 32 in bf16, 32 in f32), 40, 64, 128;
+    one token a frame. The bf16 kernel takes 4 heads a work item, or 2 or 1
+    where that leaves fewer than two items an SM: h 12 in groups of 4, 6 in
+    4 + 2, 5 in 2 + 2 + 1 (T 17), and the small shapes one head an item. The
+    f32 kernel takes one (clip, token, head) a warp, 4 warps a CTA (2 at T 32
+    and d 128, whose two stages take 101 KB a warp): 15 items (3 clips of
+    one token, 5 heads) leave its last CTA a warp short.
     ``sliced``: q, k, v in a view of a larger projection (every other head of
     tokens 1 ..), so that no stride is the natural one."""
     qkv = qkv_input(11, BT, N, h, d, dtype, cuda)
@@ -605,8 +609,8 @@ def test_blocked_attention_kernel(cuda, dtype, atol, rtol, in_place, d, S):
     128-key tile), 1152 (9 whole tiles), 1576 and the coupling length 3152
     (24 * 128 + 80), on contiguous tensors and on the views of a qkv
     projection with the output written into a (BT, N, h * d) tensor. f32 at
-    2e-5: the kernels' key tiles (64 in f32, 128 in bf16) and the plain
-    version's 512-key blocks rescale and sum in different orders. bf16 at
+    2e-5: the kernels' 128-key tiles and the plain version's 512-key blocks
+    rescale and sum in different orders. bf16 at
     2e-3 abs + 1e-2 rel: the outputs are means of v over hundreds of keys
     (|out| ~0.05), so rel carries one bf16 step of an output and abs the
     unnormalised p that round to the neighbouring bf16 value; a last tile
@@ -635,13 +639,16 @@ def test_blocked_attention_kernel(cuda, dtype, atol, rtol, in_place, d, S):
 @pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 2e-5, 0.0),
                                                (torch.bfloat16, 1e-2, 1e-2)])
 @pytest.mark.parametrize("B, h, S, d", [(2, 2, 37, 16), (1, 3, 64, 128), (3, 1, 130, 32),
-                                        (1, 2, 1, 64), (2, 1, 70, 24)])
+                                        (1, 2, 1, 64), (2, 1, 70, 24), (2, 1, 129, 8),
+                                        (1, 2, 257, 120)])
 def test_blocked_attention_kernel_small(cuda, dtype, atol, rtol, B, h, S, d):
     """The blocked kernel called directly below the dispatch limit: one tile,
-    a full 64-row TMA box, S ragged against the 128-row and 128-key tiles
-    (130: a second key tile of 2 keys and a second query block of 2 rows),
-    one token; head dim 24 runs on the f32 kernel, and in bf16 on the
-    general kernel."""
+    a full 64-row TMA box (and the f32 kernel's 64-row item at d 128), S
+    ragged against the 128-row and 128-key tiles (130: a second key tile of
+    2 keys and a second query block of 2 rows; 129 and 257: a last tile of
+    one key, 257 also a fifth 64-row item at d 120), one token; head dims 8,
+    24 and 120 run on the f32 kernel (padded to 32 and 128), and in bf16 on
+    the general kernel."""
     rng = np.random.RandomState(30)
     q, k, v = (to_torch(rng.randn(B, h, S, d), dtype).to(cuda) for _ in range(3))
     count = ("attention_blocked_general" if TST.general_head_dim(d, dtype == torch.bfloat16)

@@ -51,7 +51,14 @@ A tile), beside ``torch.matmul`` on the same f32 products; the f32 pre-passes
 ``spatial_attention_btc`` on the (128, 197, 3, 12, 64) projection beside
 ``scaled_dot_product_attention``, and, where the tree has
 ``st_attention.general_plan``, the general kernel's f32 rows form launched
-at the same head dim 64. All on the device (calls queued behind a sleep).
+at the same head dim 64; K's ``fused_attention`` on the coupling views
+(8, 12, 3152, 64) of that projection, written in place into
+(128, 197, 768), and G/H's ``temporal_attention_fused`` and
+``temporal_attention`` at 16 frames, each beside
+``scaled_dot_product_attention`` on the same views (K: 5 calls a
+repetition). All on the device (calls queued behind a sleep), with each
+kernel's max abs error against its plain version and ptxas' register and
+spill lines of the f32 kernels.
 """
 
 from __future__ import annotations
@@ -209,18 +216,23 @@ print("BENCH " + json.dumps(out))
 
 
 RUN_F32 = r"""
-import json, statistics, sys, time
+import json, re, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
 import torch.nn.functional as F
 from maed_tpu_torch import kernels
-from maed_tpu_torch.ops import mlp, st_attention
+from maed_tpu_torch.ops import attention, mlp, st_attention
 
 torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
 t0 = time.perf_counter()
-kernels.build()
+built = kernels.build()
 lib = kernels.library()
 build_s = time.perf_counter() - t0
+log = built.with_suffix(".log").read_text().splitlines()
+for i, line in enumerate(log):
+    entry = re.search(r"entry function '(\w+)'", line)
+    if entry and "f32" in entry.group(1):
+        print(f"  ptxas {entry.group(1)}:", " | ".join(x.strip() for x in log[i + 2:i + 4]))
 
 def device_ms(fn, iters=20):
     fn()
@@ -300,6 +312,27 @@ if hasattr(st_attention, "general_plan"):
         (*q4.stride()[:2], 0, q4.stride(2)), (*view.stride()[:2], 0, view.stride(2)), N, att), 50)
     want = st_attention.spatial_reference_btc(qkv, att)
     out["general_rows_d64_max_abs_err"] = (res - want).abs().max().item()
+# K f32: the coupling mode's views of 8 clips of 16 frames, written in place
+S = 16 * N
+qv, kv, vv = (a.transpose(1, 2) for a in qkv.view(8, S, 3, 12, 64).unbind(2))
+res = torch.empty(B, N, 768, device=dev)
+view = res.view(8, S, 12, 64).transpose(1, 2)
+out["blocked_ms"] = device_ms(lambda: attention.fused_attention(qv, kv, vv, att, out=view), 5)
+out["blocked_library_ms"] = device_ms(
+    lambda: F.scaled_dot_product_attention(qv, kv, vv, scale=att), 5)
+want = attention.attention_blocked_reference(qv, kv, vv, att).transpose(1, 2).reshape(B, N, 768)
+out["blocked_max_abs_err"] = (res - want).abs().max().item()
+del res, view, want
+# G/H f32 at 16 frames, both layouts
+q5, k5, v5 = (a.reshape(8, 16, N, 12, 64).permute(0, 2, 3, 1, 4) for a in qkv.unbind(2))
+out["temporal_ms"] = device_ms(lambda: st_attention.temporal_attention_fused(qkv, 16, att), 50)
+out["temporal_head_leading_ms"] = device_ms(
+    lambda: st_attention.temporal_attention(qkv, 16, att), 50)
+out["temporal_library_ms"] = device_ms(
+    lambda: F.scaled_dot_product_attention(q5, k5, v5, scale=att), 50)
+want = st_attention.temporal_reference_btc(qkv, 16, att)
+out["temporal_max_abs_err"] = (st_attention.temporal_attention_fused(qkv, 16, att)
+                               - want).abs().max().item()
 print("BENCH " + json.dumps(out))
 """
 

@@ -58,9 +58,9 @@ KINDS = (
                               "gate_blend_", "gate_proj_bf16_kernel")),
     ("ln_mlp (kernel C)", ("biasgelu", "biasresidual")),
     ("groupnorm (kernel I)", ("groupnorm_cluster_kernel", "groupnorm_kernel")),
-    ("blocked attention (kernel K)", ("blocked_attention",)),
+    ("blocked attention (kernel K)", ("blocked_attention", "blocked_f32")),
     ("spatial attention (kernels F, J)", ("spatial_attention", "spatial_f32")),
-    ("temporal attention (kernels G, H)", ("temporal_attention",)),
+    ("temporal attention (kernels G, H)", ("temporal_attention", "temporal_f32")),
     ("layernorm (kernel B)", ("layernorm_kernel",)),
     ("skinning (kernel A)", ("skinning",)),
     # cuDNN's convs (forward, data and weight gradients); an "xmma_gemm" with
