@@ -169,6 +169,13 @@ def expect_launches(launches: dict, mode: str, forwards: int, depth: int = 6, ex
 GROUPNORM_SHAPES = ((112, 64, True), (56, 64, True), (56, 256, False), (56, 128, True),
                     (28, 128, True), (28, 512, False), (28, 256, True), (14, 256, True),
                     (14, 1024, False))
+# kernel I against its plain version (f32; bf16: mul, add or an output up to
+# ~5 rounding to the neighbouring bf16 value)
+GROUPNORM_LIMITS = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 1e-2)}
+# the pre-activation ResNetV2's sites that the hybrid stem lacks: a stage's
+# input through norm1 + ReLU with no residual (side, channels; at 14 x 14 x
+# 1024 also the final norm)
+PREACT_GROUPNORM_SHAPES = ((56, 256), (28, 512), (14, 1024))
 # the 52 sites a forward: (side, channels, relu, residual, launches a forward);
 # the 16 bottlenecks' norm3 takes the shortcut as its residual, the ReLU after
 GROUPNORM_SITES = ((112, 64, True, False, 1), (56, 64, True, False, 6),
@@ -444,7 +451,36 @@ def phase_kernels(device):
                       kind=kinds[dt], iters=10)
         record[key("gate_proj", dt)] = rec
         if dt == f32:  # the f32 blend bit for bit, the proj GEMM alone beside cuBLAS
-            ysf, ytf, xrf, _, _, wpf, _ = gargs
+            ysf, ytf, xrf, wtsf, _, wpf, _ = gargs
+            # the branch means and the gate product, each against its plain
+            # version (the means at 1e-6: f32 sums in another order; alpha
+            # from the same means at the tail's 1e-6) and timed, also on the
+            # device; beside them the library's calls for the same function:
+            # torch.mean over N of each branch (two calls), torch.addmm of the
+            # product and the bias (the pair softmax not included)
+            meansf = mlp.gate_means_reference(ysf, ytf)
+            record["gate_means_f32"] = compare(
+                "gate_means f32", lambda: mlp.gate_means(ysf, ytf),
+                lambda: mlp.gate_means_reference(ysf, ytf), 1e-6, 0.0,
+                moved=(ysf, ytf), flops=2.0 * B * N * C, kind="f32",
+                library=lambda: (torch.mean(ysf, 1), torch.mean(ytf, 1)), iters=20)
+            record["gate_alpha_f32"] = compare(
+                "gate_alpha f32", lambda: mlp.gate_alpha(meansf, wtsf, bts),
+                lambda: mlp.gate_alpha_reference(meansf, wtsf, bts), 1e-6, 0.0,
+                moved=(meansf, wtsf, bts), flops=2.0 * B * (2 * C) ** 2, kind="f32",
+                library=lambda: torch.addmm(bts, meansf, wtsf.t()), iters=20)
+            for piece, fn, library in (
+                    ("gate_means_f32", lambda: mlp.gate_means(ysf, ytf),
+                     lambda: (torch.mean(ysf, 1), torch.mean(ytf, 1))),
+                    ("gate_alpha_f32", lambda: mlp.gate_alpha(meansf, wtsf, bts),
+                     lambda: torch.addmm(bts, meansf, wtsf.t()))):
+                record[piece].update(device_ms=time_ms(fn, 20, queued=True),
+                                     library_device_ms=time_ms(library, 20, queued=True))
+                print(f"    {piece} on the device: kernel {record[piece]['device_ms']:.4f} ms, "
+                      f"library {record[piece]['library_device_ms']:.4f} ms")
+            rec.update(means_ms=record["gate_means_f32"]["device_ms"],
+                       alpha_ms=record["gate_alpha_f32"]["device_ms"])
+            del meansf
             yf = mlp.gate_blend(ysf, ytf, alpha)
             check_close("gate_blend f32", yf, mlp.gate_blend_reference(ysf, ytf, alpha), 0.0)
             check_close("gate proj GEMM f32", mlp.dense(yf, wpf, bp, "proj", xrf),
@@ -455,9 +491,9 @@ def phase_kernels(device):
                 device_ms=time_ms(lambda: mlp.fused_gate_proj(*gargs), 20, queued=True),
                 gemm_library_ms=time_ms(lambda: torch.matmul(yf, wpf.t()), 20, queued=True))
             print("    E f32 on the device: " + ", ".join(
-                f"{k} {rec[k]:.4f}" for k in ("blend_ms", "proj_ms", "device_ms",
-                                               "gemm_library_ms")))
-            del ysf, ytf, xrf, wpf, yf
+                f"{k} {rec[k]:.4f}" for k in ("means_ms", "alpha_ms", "blend_ms", "proj_ms",
+                                               "device_ms", "gemm_library_ms")))
+            del ysf, ytf, xrf, wtsf, wpf, yf
     # the bf16 pieces, each against its plain version and timed on the
     # device: the means within one bf16 step (f32 sums in another order),
     # alpha from the same means at 4e-3, the blend from the same alpha bit
@@ -662,6 +698,19 @@ def phase_kernels(device):
                         lambda: groupnorm.fused_groupnorm(*gargs),
                         lambda: groupnorm.groupnorm_reference(*gargs), atol, rtol)
                 del x, res, gargs
+    preact = []
+    for side, ch in PREACT_GROUPNORM_SHAPES:
+        for dt in (f32, bf16):
+            x, gs, gb, _ = gn_inputs(B, side, ch, False, dt)
+            gargs = (x, gs, gb, 32, 1e-5, True, None)
+            rec = compare(f"groupnorm {side}x{side}x{ch} +relu {dt} (preact)",
+                          lambda: groupnorm.fused_groupnorm(*gargs),
+                          lambda: groupnorm.groupnorm_reference(*gargs),
+                          *GROUPNORM_LIMITS[dt], moved=(x, gs, gb), flops=8.0 * x.numel(),
+                          kind="f32")
+            preact.append(dict(site=f"{side}x{side}x{ch} +relu", dtype=str(dt), **rec))
+            del x, gargs
+    record["groupnorm"]["preact_sites"] = preact
     x, gs, gb, res = gn_inputs(16, 80, 256, True, bf16)
     gargs = (x, gs, gb, 32, 1e-5, True, res)
     before = kernels.LAUNCHES["groupnorm_strided"]
@@ -1392,6 +1441,237 @@ def phase_modes(device, clip, jreg):
         print(f"{mode}: bf16 request {ms:.2f} ms, launches as expected")
         del model
         f32_agreement(device, mode, clip[:2], jreg)
+
+
+# The rest of the model surface at full width (build_encoder): each stock ViT
+# on one clip of 16 frames, (factory, frame size, st_mode, depth: None for the
+# factory's own); vit_large_patch16_384's coupling mode cut to 2 blocks (K
+# over 16 x 577 tokens), a cut of depth only
+SURFACE_VITS = (("vit_small_patch16_224", 224, "parallel", None),
+                ("vit_large_patch16_384", 384, "parallel", None),
+                ("vit_huge_patch16_224", 224, "parallel", None),
+                ("vit_large_patch16_384", 384, "coupling", 2))
+# the pre-activation ResNetV2's GroupNorms a forward: three a bottleneck, the
+# final norm (no stem norm, no norm in a downsample)
+PREACT_LAYERS = (3, 4, 9)
+PREACT_NORMS = 3 * sum(PREACT_LAYERS) + 1
+# f32 features through the kernels against the plain versions (the ViTs'
+# normed cls tokens, of magnitude up to ~4): verts' limit of phase_f32
+SURFACE_F32_ATOL = 1e-4
+
+
+# The kernel that each stock ViT's head dim must reach, stated here rather
+# than asked of the port's dispatch: (head dim, bf16) -> the kernels of the
+# spatial, the temporal and the blocked attention. In bf16, d 80 and 96 lie
+# outside the wgmma kernels' head dims (16, 32, 64, 128), so spatial and
+# blocked attention go to csrc/attention_general.cu; temporal attention and
+# every f32 form take any d up to 128 in csrc/st_attention.cu.
+OWN_ATTENTION = ("spatial_attention", "temporal_attention", "attention_blocked")
+GENERAL_ATTENTION = ("spatial_attention_general", "temporal_attention",
+                     "attention_blocked_general")
+STOCK_ATTENTION = {(64, True): OWN_ATTENTION, (64, False): OWN_ATTENTION,
+                   (80, True): GENERAL_ATTENTION, (80, False): OWN_ATTENTION,
+                   (96, True): GENERAL_ATTENTION, (96, False): OWN_ATTENTION}
+
+
+def encoder_launches(mode, depth, dtype, head_dim):
+    """Launches of a stock ViT's forward alone: per_forward's without the
+    hybrid stem's GroupNorms and the body's skinning, the attention at
+    head_dim on the kernels STOCK_ATTENTION names."""
+    counts = dict(per_forward(mode, depth, dtype), skinning=0, groupnorm=0, groupnorm_strided=0)
+    per = {name: counts[name] for name in OWN_ATTENTION}
+    counts.update(dict.fromkeys(OWN_ATTENTION + GENERAL_ATTENTION, 0))
+    for own, name in zip(OWN_ATTENTION, STOCK_ATTENTION[head_dim, dtype == torch.bfloat16]):
+        counts[name] += per[own]
+    return counts
+
+
+def check_counts(label, launches, want):
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times, want {n}")
+
+
+def check_norm_sites(label, model, run, dt):
+    """Every GroupNorm of ``model`` in ``run(model)`` (through the kernels)
+    held against its plain version on the very input it was given there,
+    within GROUPNORM_LIMITS[dt]: kernel I at each site on the model's own
+    activations, apart from the convolutions around it."""
+    from maed_tpu_torch.models.resnetv2 import GroupNormAct
+
+    seen = []
+    handles = [m.register_forward_hook(
+        lambda module, args, kwargs, out: seen.append((module, args, kwargs, out)),
+        with_kwargs=True) for m in model.modules() if isinstance(m, GroupNormAct)]
+    try:
+        with torch.inference_mode():
+            run(model)
+    finally:
+        for handle in handles:
+            handle.remove()
+    atol, rtol = GROUPNORM_LIMITS[dt]
+    worst = 0.0
+    with torch.inference_mode():
+        for i, (module, args, kwargs, got) in enumerate(seen):
+            want = module(args[0], True, *args[2:], **kwargs).float()
+            got = got.float()
+            excess = ((got - want).abs() - (atol + rtol * want.abs())).max().item()
+            err = max_abs_err(got, want)
+            worst = max(worst, err)
+            if not torch.isfinite(got).all() or excess > 0:
+                raise AssertionError(f"{label} {dt}: GroupNorm site {i} of {tuple(args[0].shape)} "
+                                     f"(ReLU {module.apply_act}): max abs err {err:.3e} beyond "
+                                     f"atol {atol:g} rtol {rtol:g}")
+    print(f"  {label} {dt}: {len(seen)} GroupNorm sites through kernel I, each within atol "
+          f"{atol:g} rtol {rtol:g} of its plain version on the same input (worst {worst:.3e})")
+    return len(seen)
+
+
+def surface_pair(label, build, run, want_launches, f64=None, norm_sites=0):
+    """``run(model)`` of the f32 and the bf16 model ``build(dtype)`` gives,
+    through the kernels (the launches counted from 0 and held to
+    ``want_launches(dtype)``) and through the plain versions: the f32
+    answers within SURFACE_F32_ATOL, or, given ``f64`` (the plain versions'
+    answer in f64), through the kernels at most F32_GRAD_RATIO times as far
+    from it (relative L2) as through the plain versions; the bf16 answer
+    through the kernels at most BF16_RATIO times as far from the f32 plain
+    one as through the plain versions (max abs), and, given ``f64``, at most
+    BF16_RATIO times as far from the f64 answer (relative L2) as through the
+    plain versions. Given ``norm_sites``, each model's
+    GroupNorms also one by one (check_norm_sites), that many of them. Returns
+    the first calls' ms (host clock)."""
+    from maed_tpu_torch import kernels
+
+    answers, ms = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = build(dt)
+        with torch.inference_mode():
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            got = run(model, False)
+            torch.cuda.synchronize()
+            ms[dt] = (time.perf_counter() - t0) * 1e3
+            check_counts(f"{label} {dt}", kernels.LAUNCHES, want_launches(dt))
+            answers[dt] = (got.float(), run(model, True).float())
+        if not torch.isfinite(answers[dt][0]).all():
+            raise AssertionError(f"{label} {dt}: non-finite features")
+        if norm_sites and check_norm_sites(label, model, lambda m: run(m, False), dt) != norm_sites:
+            raise AssertionError(f"{label} {dt}: not {norm_sites} GroupNorm sites")
+        del model
+    (got, want), (bgot, bwant) = answers[torch.float32], answers[torch.bfloat16]
+    print(f"  {label}: f32 features' largest magnitude {want.abs().max().item():.3e}")
+    if f64 is None:
+        check_close(f"{label} f32 features, kernels vs plain", got, want, SURFACE_F32_ATOL)
+    else:
+        ref = f64()
+        kern64, plain64 = rel_l2(got, ref), rel_l2(want, ref)
+        print(f"  {label}: f32 features vs f64 plain (relative L2): kernels {kern64:.3e}, "
+              f"plain {plain64:.3e}, ratio {kern64 / plain64:.3f} (bound {F32_GRAD_RATIO}); "
+              f"kernels vs plain max abs {max_abs_err(got, want):.3e}")
+        if not kern64 <= F32_GRAD_RATIO * plain64:
+            raise AssertionError(f"{label}: f32 features {kern64:.3e} from the f64 answer, "
+                                 f"beyond {F32_GRAD_RATIO} x {plain64:.3e}")
+        # bf16 by relative L2 from the f64 answer too, which a max abs error
+        # that the shared bf16 convolutions set cannot show
+        kern64, plain64 = rel_l2(bgot, ref), rel_l2(bwant, ref)
+        print(f"  {label}: bf16 features vs f64 plain (relative L2): kernels {kern64:.3e}, "
+              f"plain {plain64:.3e}, ratio {kern64 / plain64:.3f} (bound {BF16_RATIO})")
+        if not kern64 <= BF16_RATIO * plain64:
+            raise AssertionError(f"{label}: bf16 features {kern64:.3e} from the f64 answer, "
+                                 f"beyond {BF16_RATIO} x {plain64:.3e}")
+    kern, plain = max_abs_err(bgot, want), max_abs_err(bwant, want)
+    print(f"  {label}: bf16 features vs f32 plain: kernels {kern:.3e}, plain {plain:.3e}, "
+          f"ratio {kern / plain:.3f} (bound {BF16_RATIO}); first calls f32 "
+          f"{ms[torch.float32]:.1f} ms, bf16 {ms[torch.bfloat16]:.1f} ms; launches as expected")
+    if not kern <= BF16_RATIO * plain:
+        raise AssertionError(f"{label}: bf16 features {kern:.3e} from the f32 answer, beyond "
+                             f"{BF16_RATIO} x {plain:.3e}")
+    return ms
+
+
+def phase_surface(device):
+    """The stock ViTs and the pre-activation ResNetV2 at full width, as a user
+    builds them (``build_encoder`` with seeded random weights), through the
+    kernels and their plain versions in f32 and bf16 (``surface_pair``):
+    vit_small_patch16_224 (head dim 96, a qkv without bias, MLP 2304),
+    vit_large_patch16_384 (577 tokens a frame, C 1024, MLP 4096) in the
+    parallel mode and, at 2 blocks, in the coupling mode (K over 9232
+    tokens), vit_huge_patch16_224 (head dim 80, C 1280, MLP 5120), each on
+    one clip of 16 frames; ResNetV2(preact=True, layers (3, 4, 9)) on 16
+    frames at 224^2 (its f32 held to an f64 run); and the f32 flagship MAED's
+    ``extract_feature`` on 2 clips. Returns the f32 launches of the ViTs'
+    parallel forwards."""
+    import functools
+
+    from maed_tpu_torch import kernels
+    from maed_tpu_torch.core.builder import build_encoder
+    from maed_tpu_torch.models.resnetv2 import ResNetV2
+    from maed_tpu_torch.models.vit import FACTORIES, VisionTransformer
+
+    # f32 is f32 arithmetic on both paths: a TF32 conv would turn the paths'
+    # last-bit differences into ~1e-3 relative ones (phase_f32 sets the same)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(31)
+    f32_parallel = dict.fromkeys(kernels.LAUNCHES, 0)
+    for name, img, mode, depth in SURFACE_VITS:
+        frames = torch.randn(SEQLEN, img, img, 3, device=device, generator=gen)
+        with torch.device("meta"):
+            shape = FACTORIES[name](st_mode=mode)
+        factory = name
+        if depth is not None:  # the factory's model at another depth
+            factory = functools.partial(VisionTransformer, depth=depth, **{
+                k: getattr(shape, k) for k in ("embed_dim", "num_heads", "mlp_ratio", "qkv_bias",
+                                               "hybrid", "patch_size", "representation_size",
+                                               "img_size")})
+
+        def build(dt, factory=factory, mode=mode):
+            return build_encoder(factory, st_mode=mode, dtype=dt, device=device, seed=5)
+
+        head_dim, blocks = shape.embed_dim // shape.num_heads, depth or shape.depth
+        want = functools.partial(encoder_launches, mode, blocks, head_dim=head_dim)
+        surface_pair(f"{name} {mode} ({blocks} blocks)", build,
+                     lambda m, plain, x=frames: m(x, SEQLEN, plain=plain),
+                     lambda dt: want(dt))
+        if mode == "parallel":
+            for key, n in want(torch.float32).items():
+                f32_parallel[key] += n
+        del frames
+    # The pre-activation stem's residual stream runs through 16 blocks with
+    # no norm on it, and its norms divide by the small spread of a large
+    # stream: f32 rounding on either path grows to ~1e-4 of features ~5 (PERF.md
+    # section 6), so its f32 answer is held to the f64 one as phase_train
+    # holds the step's gradient
+    frames = torch.randn(SEQLEN, IMG, IMG, 3, device=device, generator=gen).permute(0, 3, 1, 2)
+    norms = dict.fromkeys(kernels.LAUNCHES, 0)
+    stem = functools.partial(ResNetV2, layers=PREACT_LAYERS, preact=True)
+
+    def stem_f64():
+        model = build_encoder(stem, dtype=torch.float64, device=device, seed=6)
+        with torch.inference_mode():
+            return model(frames.double(), plain=True)
+
+    surface_pair(
+        f"ResNetV2(preact=True, layers={PREACT_LAYERS})",
+        lambda dt: build_encoder(stem, dtype=dt, device=device, seed=6),
+        lambda m, plain: m(frames, plain),
+        lambda dt: dict(norms, **{"groupnorm" if dt == torch.bfloat16 else "groupnorm_strided":
+                                  PREACT_NORMS}),
+        f64=stem_f64, norm_sites=PREACT_NORMS)
+    del frames
+    # extract_feature of the f32 flagship: the encoder's launches alone
+    clips = torch.from_numpy(np.random.RandomState(32).randint(
+        0, 256, (2, SEQLEN, IMG, IMG, 3), dtype=np.uint8)).to(device)
+    model, _ = build_flagship(device, torch.float32)
+    kernels.reset_launches()
+    feat = model.extract_feature(clips)
+    torch.cuda.synchronize()
+    check_counts("extract_feature f32", kernels.LAUNCHES,
+                 dict(per_forward("parallel", dtype=torch.float32), skinning=0))
+    if tuple(feat.shape) != (2, SEQLEN, 768):
+        raise AssertionError(f"extract_feature: shape {tuple(feat.shape)}")
+    check_close("extract_feature f32, kernels vs plain", feat,
+                model.extract_feature(clips, plain=True), SURFACE_F32_ATOL)
+    return f32_parallel
 
 
 def consistent_targets(rng, smpl, n, frames, device):
@@ -3040,6 +3320,7 @@ def main() -> int:
     timed(phase_device_crop, device)
     eval_launches, coupling_f32_launches = timed(phase_eval, device)
     timed(phase_modes, device, clips[0], jreg)
+    surface_f32 = timed(phase_surface, device)
     train_launches, train_f32_launches = timed(phase_train, device)
     timed(phase_ddp, device)
     timed(phase_trainer, device)
@@ -3171,6 +3452,11 @@ def main() -> int:
          "ln_rows", "ln_rows_f32"),
         ("fused_gate_proj_f32", "cuda", "csrc/ln_mlp.cu", "mlp.py:272", "gate_proj",
          "gate_proj_f32"),
+        # E's f32 branch means and gate product (launched inside fused_gate_proj)
+        ("gate_means_f32", "cuda", "csrc/ln_mlp.cu", "mlp.py:272", "gate_means",
+         "gate_means_f32"),
+        ("gate_alpha_f32", "cuda", "csrc/ln_mlp.cu", "mlp.py:272", "gate_alpha",
+         "gate_alpha_f32"),
         ("fused_groupnorm_f32", "cuda", "csrc/groupnorm.cu", "groupnorm.py:83",
          "groupnorm_strided", "groupnorm_f32"),
         ("spatial_attention_f32", "cuda", "csrc/st_attention.cu",
@@ -3182,7 +3468,7 @@ def main() -> int:
         kernels_line.append(dict(
             name=name, route=route, source=src + source, replaces=jax_ops + replaces,
             launches=f32_launches[count], launches_train=train_f32_launches[count],
-            launches_demo=demo[count], **record[rec]))
+            launches_demo=demo[count], launches_stock_vits=surface_f32[count], **record[rec]))
     # K in f32: launches in phase_eval's f32 coupling request
     kernels_line.append(dict(
         name="fused_attention_blocked_f32", route="cuda", source=src + "csrc/st_attention.cu",

@@ -15,6 +15,8 @@ standardization in the forward. :func:`load_weights` reads the weights
 of a ``.pth.tar``: the port's own checkpoints and the reference-layout file
 ``python -m maed_tpu.utils.torch_convert`` exports from a JAX run (orbax
 directories are not read: that converter is the way across).
+:func:`build_encoder` builds an encoder alone: a stock ViT of the factory
+catalog, or a (pre-activation) ResNetV2.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from maed_tpu_torch.models.maed import MAED
 from maed_tpu_torch.models.resnet import BatchNorm
 from maed_tpu_torch.models.resnetv2 import GroupNormAct, StdConv
 from maed_tpu_torch.models.spin import IterativeRegressor
-from maed_tpu_torch.models.vit import FastLayerNorm, Mlp, StAttention
+from maed_tpu_torch.models.vit import FACTORIES, FastLayerNorm, Mlp, StAttention
 from maed_tpu_torch.ops.smpl import SMPLModel
 from maed_tpu_torch.utils.checkpoint import (fold_weight_standardization, load_checkpoint,
                                              state_dict_of)
@@ -78,19 +80,22 @@ def configure_backends(cfg) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def init_weights_(model: MAED, seed: int) -> None:
-    """Seeded random weights, drawn on the model's device, with the scales of
+def init_weights_(model: nn.Module, seed: int) -> None:
+    """Seeded random weights of a MAED (or of an encoder alone:
+    :func:`build_encoder`), drawn on the model's device, with the scales of
     the JAX package's initializers: He-normal (fan-out) stem convs of the
-    ViT, LeCun-normal ResNet convs and dense layers, xavier-uniform with
-    gain 0.01 for the decoder's output regressors, N(0, 0.02) embeddings,
-    unit norms; BatchNorm as flax starts it (scale 1, bias 0, running mean
-    0, variance 1, no batch tracked)."""
+    ViT, LeCun-normal ResNet convs and dense layers (and the stock ViTs'
+    patch conv), xavier-uniform with gain 0.01 for the decoder's output
+    regressors, N(0, 0.02) embeddings, unit norms; BatchNorm as flax starts
+    it (scale 1, bias 0, running mean 0, variance 1, no batch tracked)."""
     device = next(model.parameters()).device
     g = torch.Generator(device=device).manual_seed(seed)
-    dec = model.decoder
-    small = {id(m) for m in (dec.decshape, dec.deccam, *getattr(dec, "joint_regs", ()))}
-    if isinstance(dec, IterativeRegressor):
-        small.add(id(dec.decpose))
+    small = set()
+    if isinstance(model, MAED):
+        dec = model.decoder
+        small = {id(m) for m in (dec.decshape, dec.deccam, *getattr(dec, "joint_regs", ()))}
+        if isinstance(dec, IterativeRegressor):
+            small.add(id(dec.decpose))
     done = set()
 
     def normal(p, std):
@@ -121,10 +126,10 @@ def init_weights_(model: MAED, seed: int) -> None:
         elif isinstance(mod, BatchNorm):
             mod.reset_()
             done.update((id(mod.weight), id(mod.bias)))
-    enc = model.encoder
-    embeds = [enc.cls_token, enc.pos_embed] if model.encoder_name == "ste" else []
-    if hasattr(enc, "temp_embed"):  # the modes that mix frames by position
-        embeds.append(enc.temp_embed)
+    enc = model.encoder if isinstance(model, MAED) else model
+    # the ViT's; temp_embed only in the modes that mix frames by position
+    embeds = [p for p in (getattr(enc, name, None) for name in
+                          ("cls_token", "pos_embed", "temp_embed")) if p is not None]
     for p in embeds:
         nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=g)
         done.add(id(p))
@@ -133,7 +138,7 @@ def init_weights_(model: MAED, seed: int) -> None:
         raise RuntimeError(f"init_weights_: no initializer for {missed}")
 
 
-def cast_weights_(model: MAED, dtype: torch.dtype) -> None:
+def cast_weights_(model: nn.Module, dtype: torch.dtype) -> None:
     """Cast, once, every parameter the forward casts to ``dtype`` where it is
     used: the dense, MLP and conv weights, the dense and conv biases and the
     embeddings. The same rounding as the cast at use, without a copy per
@@ -149,7 +154,7 @@ def cast_weights_(model: MAED, dtype: torch.dtype) -> None:
         elif isinstance(mod, Mlp):
             keep.update((id(mod.fc1.bias), id(mod.fc2.bias)))
         elif isinstance(mod, StAttention):
-            if mod.st_mode != "temporal":
+            if mod.st_mode != "temporal" and mod.qkv.bias is not None:
                 keep.add(id(mod.qkv.bias))
             if mod.st_mode == "parallel":
                 keep.update((id(mod.ts_attn.bias), id(mod.proj.bias)))
@@ -240,3 +245,35 @@ def build_eval_model(*, encoder: str = "ste", decoder: str = "ktd", num_blocks: 
     model.eval()
     smpl = find_smpl_model(smpl_dir, allow_synthetic=allow_synthetic_smpl, device=device)
     return model, smpl
+
+
+def build_encoder(factory, *, dtype: torch.dtype = torch.bfloat16,
+                  device: torch.device | str = "cuda", seed: int = 0,
+                  state_dict: dict | None = None, **kwargs) -> nn.Module:
+    """An encoder alone, in eval mode, ready for ``encoder(frames, seqlen=T)``
+    (a ViT: (B*T, H, W, 3) frames) or ``encoder(x)`` (a ResNetV2: (B, 3, H,
+    W)): ``factory(dtype=dtype, **kwargs)`` on ``device``, ``factory`` a name
+    of ``models.vit.FACTORIES`` (the stock ViTs, e.g.
+    ``build_encoder("vit_large_patch16_384", st_mode="parallel")``), one of
+    those functions, or any callable that builds a ViT or a ResNetV2
+    (``functools.partial(ResNetV2, preact=True)``). The weights are
+    ``state_dict``'s (reference-named: ``utils.weights.state_dict_from_jax(
+    params, root="vit" | "resnetv2")``), loaded strictly, or seeded random
+    ones; those used in ``dtype`` are cast to it once (:func:`cast_weights_`).
+    A stem's weight standardization stays in the forward. Unlike a MAED's,
+    the encoder's forward enters no ``torch.inference_mode()``: the caller
+    does."""
+    if isinstance(factory, str):
+        if factory not in FACTORIES:
+            raise ValueError(f"build_encoder: no factory {factory!r}; the catalog is "
+                             f"{sorted(FACTORIES)}")
+        factory = FACTORIES[factory]
+    with torch.device("meta"):
+        model = factory(dtype=dtype, **kwargs)
+    model = model._apply(lambda t: torch.empty(t.shape, dtype=t.dtype, device=device))
+    if state_dict is None:
+        init_weights_(model, seed)
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    cast_weights_(model, dtype)
+    return model.eval()

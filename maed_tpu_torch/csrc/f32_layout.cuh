@@ -1,5 +1,6 @@
 // The shared-memory layouts and thread maps of the f32 kernels on the CUDA
-// cores: the GEMM of C, D and E (ln_mlp.cu, gemm_f32_kernel), the spatial
+// cores: the GEMM of C, D and E (ln_mlp.cu, gemm_f32_kernel), E's gate
+// product (gate_alpha_f32_kernel), the spatial
 // attention at head dims up to 128 (st_attention.cu, spatial_f32_kernel),
 // the blocked attention (blocked_f32_kernel) and the temporal attention
 // (temporal_f32_kernel), with the plans their launchers take each call's
@@ -49,6 +50,88 @@ MAED_F32_HD constexpr int gemm_row(int warp, int lane, int i) {
 }
 MAED_F32_HD constexpr int gemm_col(int warp, int lane, int j) {
   return 64 * (warp / 4) + lane % 8 + 8 * j;
+}
+
+// ------------------------------------------------------------------- gate
+//
+// E's gate product, logits (BT, K = 2C) = means (BT, K) x w_ts^T + b_ts, each
+// (2c, 2c + 1) pair then softmaxed (gate_alpha_f32_kernel<kVec, TM>). BT is
+// small (128 frames at the flagship, 16 for one clip), so the grid is cut
+// along k as well: a CTA of 256 threads takes a tile of gate_bm(TM) = 32 TM
+// frames x kGaBN logits over one of `splits` runs of k-steps, and the splits
+// of a tile are one thread-block cluster, which sums their partial tiles
+// through distributed shared memory in rank order (no atomics: the same sums
+// every run) and takes the pair softmax on them. k-steps of kGaBK through a
+// ring of kGaStages cp.async stages, the means' and w_ts' rows K-major in
+// each (pitch 36 floats, as the GEMM's); w_ts' rows of a tile lie even logits
+// first, then odd ones (gate_w_row), so that the float4 reads of a warp's 8
+// pair lanes hit 8 bank groups. The thread of warp w and lane l holds frames
+// gate_row(TM, w, l, i) (i < TM) by pairs gate_pair(l, j) (j < kGaTP), both
+// logits of each, from float4 reads along k (TM + 6 reads feed 24 TM FMAs).
+// The partial tile goes through shared memory with rows of kGaOutPitch
+// floats (the float2 writes of a warp's 4 rows hit 32 banks twice). Two
+// CTAs an SM.
+constexpr int kGaThreads = 256;
+constexpr int kGaBN = 48, kGaBK = 32, kGaTP = 3;  // logits a tile, k a step, pairs a thread
+constexpr int kGaStages = 4;
+constexpr int kGaMaxSplits = 8;  // a portable cluster
+constexpr int kGaPitch = kGaBK + 4;
+constexpr int kGaOutPitch = kGaBN + 8;
+static_assert(2 * 8 * kGaTP == kGaBN && kGaThreads == 8 * 32,
+              "8 warps along the frames, each lane's pairs 8 apart over the tile");
+
+MAED_F32_HD constexpr int gate_bm(int tm) { return 32 * tm; }
+// floats of a stage (the means' rows, then w_ts'), and the CTA's bytes: the
+// ring, which the partial tile reuses
+MAED_F32_HD constexpr int gate_stage(int tm) { return (gate_bm(tm) + kGaBN) * kGaPitch; }
+MAED_F32_HD constexpr int gate_bytes(int tm) {
+  return (kGaStages * gate_stage(tm) > gate_bm(tm) * kGaOutPitch ? kGaStages * gate_stage(tm)
+                                                                 : gate_bm(tm) * kGaOutPitch) * 4;
+}
+static_assert(2 * (gate_bytes(4) + 1024) <= kSmSmem && 2 * (gate_bytes(2) + 1024) <= kSmSmem &&
+                  2 * (gate_bytes(1) + 1024) <= kSmSmem,
+              "two CTAs an SM at every tile");
+
+// warp w takes frames 4 TM w ..; lane l frames l / 8 + 4i (i < TM) of them
+// and pairs l % 8 + 8j (j < 3) of the tile
+MAED_F32_HD constexpr int gate_row(int tm, int warp, int lane, int i) {
+  return 4 * tm * warp + lane / 8 + 4 * i;
+}
+MAED_F32_HD constexpr int gate_pair(int lane, int j) { return lane % 8 + 8 * j; }
+// the shared-memory row of a tile's logit n (< kGaBN)
+MAED_F32_HD constexpr int gate_w_row(int n) { return n % 2 * (kGaBN / 2) + n / 2; }
+
+struct GatePlan {
+  int tm;       // frames a thread: the instance (1, 2 or 4)
+  int tiles_m;  // frame tiles of gate_bm(tm)
+  int tiles_n;  // logit tiles
+  int splits;   // CTAs a tile: a cluster along x
+  int steps;    // k-steps a split (the last split may take fewer)
+  int rows;     // rows of a tile each member of the cluster reduces
+  int bytes;    // shared memory
+};
+
+// The grid of a call of BT frames and K = 2C logits (BT >= 1, K >= 2 even)
+// on a card of `sms` SMs: the narrowest frame tile that holds BT (or 128),
+// then as many splits as fill two CTAs an SM, at most max_splits (<=
+// kGaMaxSplits; the launcher lowers it while the card cannot hold the
+// grid's clusters at once), each at least one k-step; splits 0: no plan.
+inline GatePlan gate_f32_plan(int BT, int K, int sms, int max_splits = kGaMaxSplits) {
+  GatePlan p{0, 0, 0, 0, 0, 0, 0};
+  if (BT < 1 || K < 2 || K % 2 || sms < 1 || max_splits < 1) return p;
+  p.tm = BT <= 32 ? 1 : BT <= 64 ? 2 : 4;
+  p.tiles_m = (BT + gate_bm(p.tm) - 1) / gate_bm(p.tm);
+  p.tiles_n = (K + kGaBN - 1) / kGaBN;
+  const int tiles = p.tiles_m * p.tiles_n, k_steps = (K + kGaBK - 1) / kGaBK;
+  const int cap = max_splits < kGaMaxSplits ? max_splits : kGaMaxSplits;
+  int splits = 2 * sms / tiles;
+  splits = splits < 1 ? 1 : splits > cap ? cap : splits;
+  splits = splits > k_steps ? k_steps : splits;
+  p.steps = (k_steps + splits - 1) / splits;
+  p.splits = (k_steps + p.steps - 1) / p.steps;  // none left without a k-step
+  p.rows = (gate_bm(p.tm) + p.splits - 1) / p.splits;
+  p.bytes = gate_bytes(p.tm);
+  return p;
 }
 
 // ---------------------------------------------------------------- spatial

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the bf16 TMA + wgmma kernels of
 // st_attention.cu (spatial and blocked attention) and ln_mlp.cu (the dense
 // GEMM of kernels C, D and E), by groupnorm.cu's cluster kernel (bulk
-// copies, mbarriers, cluster barriers and distributed shared memory), and the
-// mma.sync / ldmatrix / cp.async tools of E's gate and the temporal attention.
+// copies, mbarriers, cluster barriers and distributed shared memory), by E's
+// f32 gate (cluster barriers, distributed shared memory), and the mma.sync /
+// ldmatrix / cp.async tools of E's gate and the temporal attention.
 //
 // Those kernels are warp-specialised: a CTA of three warpgroups, the first of
 // which only issues TMA loads (one thread, its registers given back with
@@ -392,6 +393,17 @@ __device__ __forceinline__ float ld_cluster_f32(uint32_t local, uint32_t rank) {
   float v;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+// two floats of a member's shared memory (`local` 8-byte aligned)
+__device__ __forceinline__ float2 ld_cluster_f32x2(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  float2 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote)
+               : "memory");
   return v;
 }
 

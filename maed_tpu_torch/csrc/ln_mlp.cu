@@ -106,8 +106,15 @@
 // fastest), the k-steps of consecutive tiles one sequence, so the next
 // tile's loads overlap this one's last products and its store, which goes
 // through a staging buffer as float4 rows. No index is divided in the loop.
-// f32_layout.cuh holds the layout. E's means as in bf16, its gate product
-// by gate_alpha_f32_kernel (a warp a logit pair and 8 frames, SIMT f32).
+// f32_layout.cuh holds the layout. E's gate in f32 (0.6 GFLOP at the
+// flagship, 9.0 us at the FMA peak; its means read 154.9 MB, 46.2 us at
+// 3.35 TB/s): gate_means_kernel<float, 4> reads float4 columns (1536 blocks
+// at the flagship); gate_alpha_f32_kernel cuts
+// the product along k as well as into tiles of 32-128 frames x 48 logits,
+// so that BT = 128 frames (or 16) still give every SM two CTAs, each a
+// register-tiled product like the GEMM's over its run of k, the splits of a
+// tile one cluster that sums them through distributed shared memory and
+// takes the pair softmax.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -759,14 +766,16 @@ template <typename T, int V>
 struct alignas(sizeof(T) * V) Pack {
   T v[V];
 };
-__device__ __forceinline__ void cast_to(float v, float& o) { o = v; }
 __device__ __forceinline__ void cast_to(float v, bf16& o) { o = __float2bfloat16(v); }
+__device__ __forceinline__ void cast_to(float v, float& o) { o = v; }
 
 constexpr int kMeanThreads = 256, kMeanGroups = kMeanThreads / 32;  // row groups a block
 
-// means (BT, 2C) = [mean_n y_s | mean_n y_t] per frame in f32, rounded to T:
-// block (frame, branch, column block) takes 32 columns of V channels over
-// the N rows, row group g (a warp) the rows g, g + kMeanGroups, ...; the
+// means (BT, 2C) = [mean_n y_s | mean_n y_t] per frame in f32, rounded to T
+// (bf16: V 8; f32: V 4, float4 reads, where C is a multiple of 4 and the
+// operands 16-byte aligned, else V 1): block (frame, branch, column block)
+// takes 32 columns of V channels over the N rows, row group g (a warp) the
+// rows g, g + kMeanGroups, ... (unrolled by four), summed in order; the
 // groups' sums are pooled in shared memory in order. C a multiple of V.
 template <typename T, int V>
 __global__ void __launch_bounds__(kMeanThreads) gate_means_kernel(
@@ -807,6 +816,7 @@ template <typename T, int V>
 int launch_gate_means(const void* ys, const void* yt, void* means, int BT, int N, int C,
                       cudaStream_t stream) {
   const long long blocks = static_cast<long long>(BT) * 2 * ((C + 32 * V - 1) / (32 * V));
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   gate_means_kernel<T, V><<<static_cast<unsigned>(blocks), kMeanThreads, 0, stream>>>(
       static_cast<const T*>(ys), static_cast<const T*>(yt), static_cast<T*>(means), N, C);
   return static_cast<int>(cudaGetLastError());
@@ -897,42 +907,218 @@ __global__ void __launch_bounds__(kGtThreads) gate_alpha_bf16_kernel(
   }
 }
 
-// f32: a warp takes logit pair c (rows 2c, 2c + 1 of w) for kGfFrames frames,
-// its lanes the k's 32 apart, one shuffle sum at the end.
-constexpr int kGfWarps = 8, kGfFrames = 8;
-
-__global__ void __launch_bounds__(kGfWarps * 32) gate_alpha_f32_kernel(
+// f32: gate_f32_plan's tiles of gate_bm(TM) frames x kGaBN logits, each cut
+// along k into plan.splits runs of plan.steps k-steps, one CTA a run and a
+// cluster a tile (rank = the run); f32_layout.cuh's thread map. The CTA
+// multiplies its run like gemm_f32_kernel (the k-steps through the ring,
+// float4 reads of a thread's TM frames and 6 logits a 4-k group, the next
+// group read while this one is multiplied; a warp whose frames all lie past
+// BT only copies, which leaves the SM's issue slots to the warps that
+// multiply, as for one clip's 16 frames in a tile of 32: tools/
+// gate_variants.py), then writes its partial tile to
+// shared memory; member r sums rows plan.rows r .. of the cluster's partial
+// tiles in rank order (each thread's remote reads all issued before the
+// first is added), adds b and writes each pair's softmax as a float2. kVec
+// (K a multiple of 4, means and w_ts 16-byte aligned): 16-byte copies, else
+// 4-byte ones (cp.async zero-fills past BT, K and the K logits).
+template <bool kVec, int TM>
+__global__ void __launch_bounds__(kGaThreads, 2) gate_alpha_f32_kernel(
     const float* __restrict__ means, const float* __restrict__ w, const float* __restrict__ b,
-    float* __restrict__ alpha, int BT, int C) {
-  const int lane = threadIdx.x % 32, c = blockIdx.x * kGfWarps + threadIdx.x / 32;
-  const int f0 = blockIdx.y * kGfFrames, K = 2 * C;
-  if (c >= C) return;
-  const float* ws = w + static_cast<size_t>(2 * c) * K;
-  float ls[kGfFrames] = {}, lt[kGfFrames] = {};
-  for (int k = lane; k < K; k += 32) {
-    const float a = ws[k], bt = ws[K + k];
-#pragma unroll
-    for (int f = 0; f < kGfFrames; ++f) {
-      if (f0 + f < BT) {
-        const float m = means[static_cast<size_t>(f0 + f) * K + k];
-        ls[f] = fmaf(m, a, ls[f]);
-        lt[f] = fmaf(m, bt, lt[f]);
+    float* __restrict__ alpha, int BT, int K, int steps, int rows) {
+  constexpr int kBM = gate_bm(TM), kStage = gate_stage(TM);
+  extern __shared__ __align__(16) float ga_s[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rank = static_cast<int>(cluster_rank()), splits = static_cast<int>(cluster_ranks());
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x / splits * kGaBN;
+  const int k_steps = (K + kGaBK - 1) / kGaBK;
+  const int s0 = rank * steps, s1 = min(s0 + steps, k_steps);
+
+  // stage of k-step s: rows 0 .. kBM - 1 the means of frames m0 .., then
+  // w_ts' rows of logits n0 .. at gate_w_row; zeros past BT, K and the logits
+  constexpr int kPer = kVec ? 4 : 1;  // floats a copy
+  auto load = [&](int s) {
+    const uint32_t stage = smem_u32(ga_s + (s - s0) % kGaStages * kStage);
+    for (int i = tid; i < (kBM + kGaBN) * (kGaBK / kPer); i += kGaThreads) {
+      const int r = i / (kGaBK / kPer), kk = i % (kGaBK / kPer) * kPer, k = s * kGaBK + kk;
+      const bool a_row = r < kBM;
+      const int row = a_row ? m0 + r : n0 + r - kBM;
+      const bool ok = k < K && row < (a_row ? BT : K);
+      const float* src = (a_row ? means : w) + (ok ? static_cast<size_t>(row) * K + k : 0);
+      const int srow = a_row ? r : kBM + gate_w_row(r - kBM);
+      if constexpr (kVec) {
+        cp_async16(stage + (srow * kGaPitch + kk) * 4, src, ok);
+      } else {
+        cp_async4(stage + (srow * kGaPitch + kk) * 4, src, ok);
       }
     }
-  }
+  };
 #pragma unroll
-  for (int f = 0; f < kGfFrames; ++f) {
-    for (int off = 16; off > 0; off >>= 1) {
-      ls[f] += __shfl_xor_sync(0xffffffffu, ls[f], off);
-      lt[f] += __shfl_xor_sync(0xffffffffu, lt[f], off);
+  for (int s = 0; s < kGaStages - 1; ++s) {
+    if (s0 + s < s1) load(s0 + s);
+    cp_async_commit();
+  }
+  float acc[TM][2 * kGaTP];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * kGaTP; ++j) acc[i][j] = 0.f;
+  const float* const a_row = ga_s + gate_row(TM, warp, lane, 0) * kGaPitch;
+  const float* const w_row = ga_s + (kBM + gate_pair(lane, 0)) * kGaPitch;
+  // a warp whose frames all lie past BT copies its share of the stages but
+  // multiplies nothing
+  const bool live = m0 + gate_row(TM, warp, 0, 0) < BT;
+  for (int s = s0; s < s1; ++s) {
+    cp_async_wait<kGaStages - 2>();  // step s has landed (this thread's copies) ...
+    __syncthreads();                 // ... everyone's, and step s - 1's stage is read
+    if (s + kGaStages - 1 < s1) load(s + kGaStages - 1);
+    cp_async_commit();
+    if (!live) continue;
+    const int stage = (s - s0) % kGaStages * kStage;
+    const float* as = a_row + stage;
+    const float* ws = w_row + stage;
+    // a thread's TM frames as float4 along k, and its 3 pairs' even and odd
+    // logits (w_ts rows kGaBN / 2 apart in shared memory)
+    float4 av[2][TM], wv[2][2 * kGaTP];
+    auto fetch = [&](int buf, int kk) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        av[buf][i] = *reinterpret_cast<const float4*>(as + 4 * i * kGaPitch + kk);
+#pragma unroll
+      for (int j = 0; j < 2 * kGaTP; ++j)
+        wv[buf][j] = *reinterpret_cast<const float4*>(
+            ws + (j % 2 * (kGaBN / 2) + 8 * (j / 2)) * kGaPitch + kk);
+    };
+    fetch(0, 0);
+#pragma unroll
+    for (int g = 0; g < kGaBK / 4; ++g) {
+      if (g + 1 < kGaBK / 4) fetch((g + 1) % 2, 4 * (g + 1));
+      const float4(&a4)[TM] = av[g % 2];
+      const float4(&w4)[2 * kGaTP] = wv[g % 2];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * kGaTP; ++j) acc[i][j] = fmaf(a4[i].x, w4[j].x, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * kGaTP; ++j) acc[i][j] = fmaf(a4[i].y, w4[j].y, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * kGaTP; ++j) acc[i][j] = fmaf(a4[i].z, w4[j].z, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * kGaTP; ++j) acc[i][j] = fmaf(a4[i].w, w4[j].w, acc[i][j]);
     }
   }
-  if (lane == 0) {
-    for (int f = 0; f < kGfFrames && f0 + f < BT; ++f) {
-      float* out = alpha + (static_cast<size_t>(f0 + f) * C + c) * 2;
-      pair_softmax(ls[f] + b[2 * c], lt[f] + b[2 * c + 1], out[0], out[1]);
-    }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the partial tile takes its place
+
+  // the partial tile, logits in their order (a pair's two side by side)
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < kGaTP; ++j)  // acc[i][2j]: the even logit of pair j (wv's order)
+      *reinterpret_cast<float2*>(ga_s + gate_row(TM, warp, lane, i) * kGaOutPitch +
+                                 2 * gate_pair(lane, j)) =
+          make_float2(acc[i][2 * j], acc[i][2 * j + 1]);
+  cluster_arrive();  // every member's partial tile is written ...
+  cluster_wait();
+  const int r0 = rank * rows, C = K / 2;
+  for (int idx = tid; idx < rows * (kGaBN / 2); idx += kGaThreads) {
+    const int r = r0 + idx / (kGaBN / 2), p = idx % (kGaBN / 2);
+    const int m = m0 + r, c = n0 / 2 + p;
+    if (r >= kBM || m >= BT || c >= C) continue;
+    const uint32_t local = smem_u32(ga_s + r * kGaOutPitch + 2 * p);
+    float2 part[kGaMaxSplits];
+#pragma unroll
+    for (int q = 0; q < kGaMaxSplits; ++q)
+      if (q < splits) part[q] = ld_cluster_f32x2(local, q);
+    float ls = 0.f, lt = 0.f;
+#pragma unroll
+    for (int q = 0; q < kGaMaxSplits; ++q)
+      if (q < splits) {
+        ls += part[q].x;
+        lt += part[q].y;
+      }
+    float2 out;
+    pair_softmax(ls + b[2 * c], lt + b[2 * c + 1], out.x, out.y);
+    *reinterpret_cast<float2*>(alpha + (static_cast<size_t>(m) * C + c) * 2) = out;
   }
+  cluster_arrive();  // no member leaves while another may still read its tile
+  cluster_wait();
+}
+
+// The clusters of `splits` CTAs of an instance the card holds at once
+// (cudaOccupancyMaxActiveClusters, asked once for each device, instance and
+// size, and kept); 0 if the query fails.
+template <bool kVec, int TM>
+int gate_resident_clusters(int splits, int bytes) {
+  constexpr int kDevices = 64;
+  static int held[kDevices][kGaMaxSplits + 1] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= kDevices) return 0;
+  if (held[device][splits] == 0) {
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = splits;
+    cluster.val.clusterDim.y = cluster.val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(splits);
+    config.blockDim = dim3(kGaThreads);
+    config.dynamicSmemBytes = bytes;
+    config.attrs = &cluster;
+    config.numAttrs = 1;
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, gate_alpha_f32_kernel<kVec, TM>, &config) !=
+        cudaSuccess)
+      return 0;
+    held[device][splits] = clusters;
+  }
+  return held[device][splits];
+}
+
+// gate_f32_plan's grid, its splits lowered while the card cannot hold all
+// its clusters at once (a second wave of clusters would double the time)
+template <bool kVec, int TM>
+int launch_gate_tiles(const float* means, const float* w, const float* b, float* alpha, int BT,
+                      int K, cudaStream_t stream) {
+  const int sms = persistent_ctas(1LL << 30);
+  GatePlan plan = gate_f32_plan(BT, K, sms);
+  if (plan.splits == 0 || plan.tiles_m > 65535 ||
+      static_cast<long long>(plan.tiles_n) * kGaMaxSplits > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t err = allow_smem<gate_alpha_f32_kernel<kVec, TM>>(plan.bytes))
+    return static_cast<int>(err);
+  while (plan.splits > 1 &&
+         gate_resident_clusters<kVec, TM>(plan.splits, plan.bytes) < plan.tiles_m * plan.tiles_n)
+    plan = gate_f32_plan(BT, K, sms, plan.splits - 1);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = plan.splits;
+  cluster.val.clusterDim.y = cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(plan.tiles_n * plan.splits, plan.tiles_m);
+  config.blockDim = dim3(kGaThreads);
+  config.dynamicSmemBytes = plan.bytes;
+  config.stream = stream;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, gate_alpha_f32_kernel<kVec, TM>, means, w,
+                                             b, alpha, BT, K, plan.steps, plan.rows);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <bool kVec>
+int launch_gate_alpha_f32(const float* means, const float* w, const float* b, float* alpha,
+                          int BT, int K, cudaStream_t stream) {
+  switch (gate_f32_plan(BT, K, 1).tm) {
+    case 1: return launch_gate_tiles<kVec, 1>(means, w, b, alpha, BT, K, stream);
+    case 2: return launch_gate_tiles<kVec, 2>(means, w, b, alpha, BT, K, stream);
+    case 4: return launch_gate_tiles<kVec, 4>(means, w, b, alpha, BT, K, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int launch_gate_alpha(int is_bf16, const void* means, const void* w, const float* b, void* alpha,
@@ -944,13 +1130,13 @@ int launch_gate_alpha(int is_bf16, const void* means, const void* w, const float
     gate_alpha_bf16_kernel<<<grid, kGtThreads, kGtBytes, stream>>>(
         static_cast<const bf16*>(means), static_cast<const bf16*>(w), b,
         static_cast<bf16*>(alpha), BT, 2 * C);
-  } else {
-    const dim3 grid((C + kGfWarps - 1) / kGfWarps, (BT + kGfFrames - 1) / kGfFrames);
-    gate_alpha_f32_kernel<<<grid, kGfWarps * 32, 0, stream>>>(
-        static_cast<const float*>(means), static_cast<const float*>(w), b,
-        static_cast<float*>(alpha), BT, C);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  const auto mf = static_cast<const float*>(means), wf = static_cast<const float*>(w);
+  const auto af = static_cast<float*>(alpha);
+  if (C % 2 == 0 && aligned16(means) && aligned16(w))  // K = 2C a multiple of 4
+    return launch_gate_alpha_f32<true>(mf, wf, b, af, BT, 2 * C, stream);
+  return launch_gate_alpha_f32<false>(mf, wf, b, af, BT, 2 * C, stream);
 }
 
 constexpr int kBlendThreads = 256, kBlendBlocksPerSm = 8;
@@ -1095,6 +1281,8 @@ extern "C" int maed_gate_means(int is_bf16, const void* y_s, const void* y_t, vo
                                int BT, int N, int C, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return launch_gate_means<bf16, 8>(y_s, y_t, means, BT, N, C, s);
+  if (C % 4 == 0 && aligned16(y_s) && aligned16(y_t) && aligned16(means))
+    return launch_gate_means<float, 4>(y_s, y_t, means, BT, N, C, s);
   return launch_gate_means<float, 1>(y_s, y_t, means, BT, N, C, s);
 }
 

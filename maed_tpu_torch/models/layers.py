@@ -20,9 +20,10 @@ from torch import nn
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """``layer`` applied to ``x`` in ``dtype``: the product, then the bias."""
+    """``layer`` applied to ``x`` in ``dtype``: the product, then the bias
+    (if the layer has one)."""
     y = torch.matmul(x.to(dtype), layer.weight.to(dtype).t())
-    return y + layer.bias.to(dtype)
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class Dropout(nn.Module):

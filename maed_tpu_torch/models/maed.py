@@ -8,6 +8,7 @@ the encoder and the outputs unfold back to (N, T, ...). The decoder takes
 the encoder's features: 768 from the ViT, 2048 from the ResNet, whose
 BatchNorm runs in the module's own mode (batch statistics and their
 running update in ``train()``, the running statistics in eval).
+``extract_feature`` returns those features alone, (N, T, feat).
 
 A MAED is built in eval mode, the mode every eval caller runs it in: its
 forward then runs under ``torch.inference_mode``. ``train()`` (as
@@ -71,6 +72,28 @@ class MAED(nn.Module):
                                               drop=decoder_drop, data_dir=smpl_dir, dtype=dtype)
         self.eval()
 
+    def _features(self, x, plain, train, generator):
+        """The encoder's features of the clips x (N, T, H, W, 3), (N * T, feat),
+        and (N, T)."""
+        x = device_normalize(x)
+        N, T = x.shape[:2]
+        frames = x.reshape((N * T,) + x.shape[2:])
+        if self.encoder_name == "cnn":
+            return self.encoder(frames, train=train), (N, T)
+        return self.encoder(frames, seqlen=T, plain=plain, train=train,
+                            generator=generator), (N, T)
+
+    def extract_feature(self, x: torch.Tensor, plain: bool = False,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
+        """The encoder's per-frame features (N, T, feat) of clips (N, T, H, W,
+        3), uint8 or float: 768 from the ViT, 2048 from the ResNet (the JAX
+        package's ``MAED.extract_feature``); in the module's mode, as the
+        forward."""
+        train = self.training
+        with torch.inference_mode(not train):
+            feat, (N, T) = self._features(x, plain, train, generator)
+            return feat.reshape(N, T, -1)
+
     def forward(self, x: torch.Tensor, smpl_model: SMPLModel,
                 J_regressor: torch.Tensor | None = None, plain: bool = False,
                 generator: torch.Generator | None = None):
@@ -78,14 +101,7 @@ class MAED(nn.Module):
         of the kernels (on the CPU they are what runs either way)."""
         train = self.training
         with torch.inference_mode(not train):
-            x = device_normalize(x)
-            N, T = x.shape[:2]
-            frames = x.reshape((N * T,) + x.shape[2:])
-            if self.encoder_name == "cnn":
-                feat = self.encoder(frames, train=train)
-            else:
-                feat = self.encoder(frames, seqlen=T, plain=plain, train=train,
-                                    generator=generator)
+            feat, (N, T) = self._features(x, plain, train, generator)
             out = self.decoder(feat, smpl_model, J_regressor=J_regressor, plain=plain,
                                train=train, generator=generator)
             return {

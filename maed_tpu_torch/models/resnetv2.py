@@ -1,8 +1,11 @@
-"""The ResNetV2 hybrid stem (non-pre-activation, layers (3, 4, 9)).
+"""The ResNetV2 of the hybrid stem (non-pre-activation, layers (3, 4, 9)),
+and its pre-activation form.
 
-Port of ``maed_tpu/models/resnetv2.py`` for the path the ViT hybrid runs.
-Frames come in NHWC, as in the JAX package, and run NCHW in shape and
-channels-last in memory inside the stem.
+Port of ``maed_tpu/models/resnetv2.py``: the path the ViT hybrid runs, and
+``preact=True`` (``PreActBottleneck``: GroupNorm + ReLU before each conv, the
+shortcut added after conv3 without a norm, so no residual goes into a norm's
+kernel; no stem norm, a final norm). Frames come in NHWC, as in the JAX
+package, and run NCHW in shape and channels-last in memory inside the stem.
 
 TF "SAME" padding: XLA pads asymmetrically, the extra row and column at the
 end, and ``F.conv2d`` cannot. So every conv and the max-pool pad explicitly,
@@ -112,13 +115,17 @@ class GroupNormAct(nn.Module):
 
 
 class DownsampleConv(nn.Module):
-    def __init__(self, in_chs, out_chs, stride, standardize=True, dtype=torch.float32):
+    """The shortcut's 1x1 conv, with a GroupNorm after it unless ``preact``."""
+
+    def __init__(self, in_chs, out_chs, stride, preact=False, standardize=True,
+                 dtype=torch.float32):
         super().__init__()
         self.conv = StdConv(in_chs, out_chs, 1, stride, standardize=standardize, dtype=dtype)
-        self.norm = GroupNormAct(out_chs, apply_act=False, dtype=dtype)
+        self.norm = None if preact else GroupNormAct(out_chs, apply_act=False, dtype=dtype)
 
     def forward(self, x, plain=False):
-        return self.norm(self.conv(x), plain)
+        y = self.conv(x)
+        return y if self.norm is None else self.norm(y, plain)
 
 
 class Bottleneck(nn.Module):
@@ -146,13 +153,41 @@ class Bottleneck(nn.Module):
         return self.norm3(self.conv3(y), plain, residual=shortcut, relu=True)
 
 
-class ResNetStage(nn.Module):
-    def __init__(self, in_chs, out_chs, depth, stride, standardize=True, dtype=torch.float32):
+class PreActBottleneck(nn.Module):
+    """Pre-activation bottleneck: norm1 + ReLU feeds conv1 and the
+    downsample; y + shortcut after conv3, plain (no norm takes it)."""
+
+    def __init__(self, in_chs, out_chs, stride=1, has_downsample=False,
+                 standardize=True, dtype=torch.float32):
         super().__init__()
+        mid = make_div(out_chs * 0.25)
+        kw = dict(standardize=standardize, dtype=dtype)
+        self.norm1 = GroupNormAct(in_chs, dtype=dtype)
+        self.downsample = (DownsampleConv(in_chs, out_chs, stride, preact=True, **kw)
+                           if has_downsample else None)
+        self.conv1 = StdConv(in_chs, mid, 1, **kw)
+        self.norm2 = GroupNormAct(mid, dtype=dtype)
+        self.conv2 = StdConv(mid, mid, 3, stride, **kw)
+        self.norm3 = GroupNormAct(mid, dtype=dtype)
+        self.conv3 = StdConv(mid, out_chs, 1, **kw)
+
+    def forward(self, x, plain=False):
+        x_preact = self.norm1(x, plain)
+        shortcut = x if self.downsample is None else self.downsample(x_preact, plain)
+        y = self.norm2(self.conv1(x_preact), plain)
+        y = self.norm3(self.conv2(y), plain)
+        return self.conv3(y) + shortcut
+
+
+class ResNetStage(nn.Module):
+    def __init__(self, in_chs, out_chs, depth, stride, preact=False, standardize=True,
+                 dtype=torch.float32):
+        super().__init__()
+        block = PreActBottleneck if preact else Bottleneck
         self.blocks = nn.ModuleList(
-            Bottleneck(in_chs if i == 0 else out_chs, out_chs,
-                       stride=stride if i == 0 else 1, has_downsample=(i == 0),
-                       standardize=standardize, dtype=dtype)
+            block(in_chs if i == 0 else out_chs, out_chs,
+                  stride=stride if i == 0 else 1, has_downsample=(i == 0),
+                  standardize=standardize, dtype=dtype)
             for i in range(depth))
 
     def forward(self, x, plain=False):
@@ -162,34 +197,39 @@ class ResNetStage(nn.Module):
 
 
 class Stem(nn.Module):
-    """7x7 stride-2 conv, GroupNorm + ReLU, 3x3 stride-2 SAME max-pool."""
+    """7x7 stride-2 conv, GroupNorm + ReLU (not ``preact``), 3x3 stride-2 SAME
+    max-pool."""
 
-    def __init__(self, out_chs, standardize=True, dtype=torch.float32):
+    def __init__(self, out_chs, preact=False, standardize=True, dtype=torch.float32):
         super().__init__()
         self.conv = StdConv(3, out_chs, 7, 2, standardize=standardize, dtype=dtype)
-        self.norm = GroupNormAct(out_chs, dtype=dtype)
+        self.norm = None if preact else GroupNormAct(out_chs, dtype=dtype)
 
     def forward(self, x, plain=False):
-        return max_pool_same(self.norm(self.conv(x), plain))
+        y = self.conv(x)
+        return max_pool_same(y if self.norm is None else self.norm(y, plain))
 
 
 class ResNetV2(nn.Module):
-    """The hybrid-ViT stem: (B, 3, 224, 224) -> (B, 1024, 14, 14)."""
+    """The 3- or 4-stage feature extractor; with layers (3, 4, 9) and not
+    ``preact``, the hybrid-ViT stem: (B, 3, 224, 224) -> (B, 1024, 14, 14).
+    ``preact`` ends in a GroupNorm + ReLU (``norm``)."""
 
-    def __init__(self, layers=(3, 4, 9), channels=(256, 512, 1024), stem_chs=64,
-                 standardize=True, dtype=torch.float32):
+    def __init__(self, layers=(3, 4, 9), channels=(256, 512, 1024, 2048), stem_chs=64,
+                 preact=False, standardize=True, dtype=torch.float32):
         super().__init__()
-        self.stem = Stem(make_div(stem_chs), standardize=standardize, dtype=dtype)
+        self.stem = Stem(make_div(stem_chs), preact, standardize=standardize, dtype=dtype)
         in_chs, stages = make_div(stem_chs), []
         for i, (depth, chs) in enumerate(zip(layers, channels)):
             stages.append(ResNetStage(in_chs, make_div(chs), depth, 1 if i == 0 else 2,
-                                      standardize=standardize, dtype=dtype))
+                                      preact=preact, standardize=standardize, dtype=dtype))
             in_chs = make_div(chs)
         self.stages = nn.ModuleList(stages)
+        self.norm = GroupNormAct(in_chs, dtype=dtype) if preact else None
         self.num_features = in_chs
 
     def forward(self, x, plain=False):
         y = self.stem(x, plain)
         for stage in self.stages:
             y = stage(y, plain)
-        return y
+        return y if self.norm is None else self.norm(y, plain)

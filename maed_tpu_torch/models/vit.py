@@ -1,6 +1,8 @@
 """The Spatial-Temporal Encoder: R50+ViT-B/16 hybrid with multi-level attention.
 
-Port of ``maed_tpu/models/vit.py``: every ``st_mode``, the frame-major (B*T,
+Port of ``maed_tpu/models/vit.py``: every ``st_mode``, the stock ViTs'
+options (``PatchEmbed``, a qkv without bias, no pre-logits) and their factory
+catalog (``FACTORIES``), the frame-major (B*T,
 N, C) token layout, and the training forward's dropout (after the
 embeddings, on the attention probabilities, after the attention's and the
 MLP's products) and drop-path, each drawn from the step's generator. Module
@@ -117,13 +119,13 @@ class StAttention(nn.Module):
     """
 
     def __init__(self, dim: int, num_heads: int, st_mode: str = "parallel",
-                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0, qkv_bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if st_mode not in ST_MODES:
             raise ValueError(f"st_mode {st_mode!r} is not one of {ST_MODES}")
         self.num_heads, self.st_mode, self.dtype = num_heads, st_mode, dtype
-        self.qkv = nn.Linear(dim, dim * 3)
+        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.attn_drop, self.proj_drop = Dropout(attn_drop), Dropout(proj_drop)
         if st_mode == "parallel":
@@ -140,8 +142,11 @@ class StAttention(nn.Module):
             y = dense(x, self.qkv, dt)
         else:
             ln_dense = ln_dense_reference if plain else fused_ln_dense
-            y = ln_dense(x, norm.weight, norm.bias, self.qkv.weight.to(dt), self.qkv.bias,
-                         norm.eps)
+            # a qkv without a bias feeds the kernel zeros, as the JAX package does
+            bias = self.qkv.bias
+            if bias is None:
+                bias = torch.zeros(3 * C, device=x.device)
+            y = ln_dense(x, norm.weight, norm.bias, self.qkv.weight.to(dt), bias, norm.eps)
         return y.reshape(BT, N, 3, h, C // h)
 
     def _drop(self, train: bool, generator):
@@ -246,11 +251,12 @@ class StAttention(nn.Module):
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  st_mode: str = "parallel", drop: float = 0.0, attn_drop: float = 0.0,
-                 drop_path: float = 0.0, dtype: torch.dtype = torch.float32):
+                 drop_path: float = 0.0, qkv_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.norm1 = FastLayerNorm(dim, dtype=dtype)
-        self.attn = StAttention(dim, num_heads, st_mode, attn_drop, drop, dtype=dtype)
+        self.attn = StAttention(dim, num_heads, st_mode, attn_drop, drop, qkv_bias, dtype=dtype)
         self.norm2 = FastLayerNorm(dim, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
         self.drop_path = DropPath(drop_path)
@@ -314,15 +320,37 @@ class HybridEmbed(nn.Module):
         return tok.flatten(2).transpose(1, 2)
 
 
+class PatchEmbed(nn.Module):
+    """The stock ViTs' patchification: a p x p conv of stride p, VALID (a
+    frame's edge past a whole patch is dropped), tokens in row-major (H, W).
+    The conv stays on cuDNN, as the JAX package leaves it to XLA."""
+
+    def __init__(self, embed_dim: int = 768, patch_size: int = 16,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype, self.patch_size = dtype, patch_size
+        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """x: (B, H, W, 3) frames -> (B, (H/p) * (W/p), C) tokens."""
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        tok = F.conv2d(x, self.proj.weight.to(self.dtype), stride=self.patch_size)
+        tok = tok + self.proj.bias.to(self.dtype)[:, None, None]
+        return tok.flatten(2).transpose(1, 2)
+
+
 class PreLogits(nn.Module):
     def __init__(self, dim: int, representation_size: int):
         super().__init__()
         self.fc = nn.Linear(dim, representation_size)
 
 
-def num_patches(img_size: int) -> int:
-    """Tokens the hybrid stem makes of a square frame: four stride-2 SAME
-    reductions (stem conv, max-pool, stages 1 and 2)."""
+def num_patches(img_size: int, hybrid: bool = True, patch_size: int = 16) -> int:
+    """Tokens the stem makes of a square frame: the hybrid stem's four
+    stride-2 SAME reductions (stem conv, max-pool, stages 1 and 2), or
+    PatchEmbed's whole patches."""
+    if not hybrid:
+        return (img_size // patch_size) ** 2
     side = img_size
     for _ in range(4):
         side = -(-side // 2)
@@ -330,34 +358,50 @@ def num_patches(img_size: int) -> int:
 
 
 class VisionTransformer(nn.Module):
-    """The hybrid ViT with spatio-temporal attention of one ``st_mode``;
-    returns the pre-logits cls feature.
+    """The ViT with spatio-temporal attention of one ``st_mode``; returns the
+    pre-logits cls feature, or the normed cls token without
+    ``representation_size``.
+
+    The stem is the ResNetV2 hybrid (``hybrid=True``, MAED's) or the stock
+    ViTs' ``PatchEmbed`` of ``patch_size``; ``img_size`` sizes ``pos_embed``
+    (the JAX package reads it off its first input). ``qkv_bias=False`` gives
+    the qkv projection no bias parameter.
 
     Input: (B*T, H, W, 3) frames with clip length ``seqlen``.
-    Output: (B*T, representation_size).
+    Output: (B*T, representation_size or embed_dim).
     """
 
     def __init__(self, embed_dim: int = 768, depth: int = 6, num_heads: int = 12,
-                 mlp_ratio: float = 4.0, representation_size: int = 768,
-                 max_seqlen: int = 16, img_size: int = 224, standardize: bool = True,
-                 st_mode: str = "parallel", drop_rate: float = 0.0,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 representation_size: int | None = 768, max_seqlen: int = 16,
+                 img_size: int = 224, hybrid: bool = True, patch_size: int = 16,
+                 standardize: bool = True, st_mode: str = "parallel", drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype, self.st_mode, self.remat = dtype, st_mode, remat
-        self.patch_embed = HybridEmbed(embed_dim, standardize=standardize, dtype=dtype)
+        self.embed_dim, self.depth, self.num_heads = embed_dim, depth, num_heads
+        self.mlp_ratio, self.qkv_bias, self.hybrid = mlp_ratio, qkv_bias, hybrid
+        self.patch_size, self.representation_size = patch_size, representation_size
+        self.img_size = img_size
+        if hybrid:
+            self.patch_embed = HybridEmbed(embed_dim, standardize=standardize, dtype=dtype)
+        else:
+            self.patch_embed = PatchEmbed(embed_dim, patch_size, dtype=dtype)
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
-        self.pos_embed = nn.Parameter(torch.empty(1, num_patches(img_size) + 1, embed_dim))
+        self.pos_embed = nn.Parameter(
+            torch.empty(1, num_patches(img_size, hybrid, patch_size) + 1, embed_dim))
         if st_mode in TEMP_EMBED_MODES:
             self.temp_embed = nn.Parameter(torch.empty(1, max_seqlen, 1, embed_dim))
         self.pos_drop = Dropout(drop_rate)
         # the drop-path rate grows linearly over the depth, from 0
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, st_mode, drop_rate, attn_drop_rate,
-                  float(rate), dtype=dtype)
+                  float(rate), qkv_bias, dtype=dtype)
             for rate in np.linspace(0.0, drop_path_rate, depth))
         self.norm = FastLayerNorm(embed_dim, dtype=dtype)
-        self.pre_logits = PreLogits(embed_dim, representation_size)
+        if representation_size:
+            self.pre_logits = PreLogits(embed_dim, representation_size)
 
     def forward(self, x: torch.Tensor, seqlen: int, plain: bool = False, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -377,4 +421,78 @@ class VisionTransformer(nn.Module):
             else:
                 tokens = block(tokens, seqlen, plain, train, generator)
         feat = self.norm(tokens, plain)[:, 0]
+        if not self.representation_size:
+            return feat
         return torch.tanh(dense(feat, self.pre_logits.fc, self.dtype))
+
+
+# ---------------------------------------------------------------------------
+# The factory catalog of the JAX package (maed_tpu/models/vit.py:628-682),
+# with its names and hyperparameters; ``st_mode``, ``dtype`` and the rest
+# come through ``**kw``. The *_384 ones default to 384 px frames (the JAX
+# package reads the size off its input; here it sizes pos_embed).
+
+
+def vit_small_patch16_224(**kw):
+    return VisionTransformer(embed_dim=768, depth=8, num_heads=8, mlp_ratio=3.0,
+                             qkv_bias=False, hybrid=False, patch_size=16,
+                             representation_size=None, **kw)
+
+
+def vit_base_patch16_224(**kw):
+    return VisionTransformer(embed_dim=768, depth=12, num_heads=12, hybrid=False,
+                             patch_size=16, representation_size=None, **kw)
+
+
+def vit_base_patch16_384(**kw):
+    return vit_base_patch16_224(**{"img_size": 384, **kw})
+
+
+def vit_base_patch32_384(**kw):
+    return VisionTransformer(embed_dim=768, depth=12, num_heads=12, hybrid=False,
+                             patch_size=32, representation_size=None,
+                             **{"img_size": 384, **kw})
+
+
+def vit_large_patch16_224(**kw):
+    return VisionTransformer(embed_dim=1024, depth=24, num_heads=16, hybrid=False,
+                             patch_size=16, representation_size=None, **kw)
+
+
+def vit_large_patch16_384(**kw):
+    return vit_large_patch16_224(**{"img_size": 384, **kw})
+
+
+def vit_large_patch32_384(**kw):
+    return VisionTransformer(embed_dim=1024, depth=24, num_heads=16, hybrid=False,
+                             patch_size=32, representation_size=None,
+                             **{"img_size": 384, **kw})
+
+
+def vit_huge_patch16_224(**kw):
+    return VisionTransformer(embed_dim=1280, depth=32, num_heads=16, hybrid=False,
+                             patch_size=16, representation_size=None, **kw)
+
+
+def vit_huge_patch32_384(**kw):
+    return VisionTransformer(embed_dim=1280, depth=32, num_heads=16, hybrid=False,
+                             patch_size=32, representation_size=None,
+                             **{"img_size": 384, **kw})
+
+
+def vit_base_resnet50_224_in21k(**kw):
+    """R50+ViT-B/16 hybrid (the in21k-pretrained stem + 12-block variant)."""
+    return VisionTransformer(embed_dim=768, depth=12, num_heads=12, hybrid=True,
+                             representation_size=768, **kw)
+
+
+def vit_custom_resnet50_224_in21k(num_blocks, num_heads, st_mode, **kw):
+    """The MAED STE factory: hybrid stem + custom depth/heads/st_mode."""
+    return VisionTransformer(embed_dim=768, depth=num_blocks, num_heads=num_heads,
+                             st_mode=st_mode, hybrid=True, representation_size=768, **kw)
+
+
+FACTORIES = {f.__name__: f for f in (
+    vit_small_patch16_224, vit_base_patch16_224, vit_base_patch16_384, vit_base_patch32_384,
+    vit_large_patch16_224, vit_large_patch16_384, vit_large_patch32_384, vit_huge_patch16_224,
+    vit_huge_patch32_384, vit_base_resnet50_224_in21k, vit_custom_resnet50_224_in21k)}

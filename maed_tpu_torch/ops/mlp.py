@@ -319,8 +319,9 @@ def gate_means(y_s, y_t):
 
 def gate_alpha(means, w_ts, b_ts):
     """:func:`gate_alpha_reference` as one CUDA launch (f32 or bf16 means
-    (BT, 2C)): in bf16 a tensor-core product with the pair softmax in its
-    epilogue."""
+    (BT, 2C)), the pair softmax in the product's epilogue: in bf16 a
+    tensor-core product, in f32 a register-tiled one on the CUDA cores whose
+    tiles are cut along k into a thread-block cluster (``csrc/ln_mlp.cu``)."""
     if means.device.type == "cpu":
         return gate_alpha_reference(means, w_ts, b_ts)
     if means.ndim != 2 or means.shape[1] % 2:

@@ -13,7 +13,9 @@ inverse direction (``_flatten``, ``translate_flax_path``,
 ``convert_params_to_state_dict``), for the modules the port has: it needs
 numpy and ``re`` only, and the port imports nothing of the JAX package.
 ``tests/test_torch_port_slice.py`` holds the copy equal to the original key
-for key.
+for key. Beyond it: the trees of a bare stock ViT and of a bare
+(pre-activation) ResNetV2 (``_ROOTS``, ``_EXTRA_RENAMES``), which
+``tests/test_torch_port_surface.py`` loads with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -60,12 +62,27 @@ _RENAMES = [
 ]
 
 
+# Trees of the port's modules that are not a MAED: the prefix that places a
+# bare tree's paths where a MAED holds that module, and the torch prefix taken
+# off again. "vit": a bare VisionTransformer (the stock factories', or a
+# hybrid one); "resnetv2": a bare ResNetV2, pre-activation or not.
+_ROOTS = {"maed": ("", ""), "vit": ("encoder/", "encoder."),
+          "resnetv2": ("encoder/patch_embed/backbone/", "encoder.patch_embed.backbone.")}
+
+# The rules for what a MAED tree never holds, applied after _RENAMES: the
+# pre-activation ResNetV2's final norm.
+_EXTRA_RENAMES = [
+    (r"^encoder/patch_embed/backbone/norm/GroupNorm_0/",
+     r"encoder.patch_embed.backbone.norm/"),
+]
+
+
 def translate_flax_path(path: str, value: np.ndarray,
                         collection: str = "params") -> tuple[str, np.ndarray]:
     """flax path and value of ``collection`` ('params' or 'batch_stats') ->
     (torch key, torch value)."""
     p = path
-    for pat, repl in _RENAMES:
+    for pat, repl in _RENAMES + _EXTRA_RENAMES:
         p = re.sub(pat, repl, p)
     p = p.replace("/", ".")
     leaf = p.rsplit(".", 1)[-1]
@@ -95,8 +112,16 @@ def convert_params_to_state_dict(params: dict,
     return sd
 
 
-def state_dict_from_jax(params: dict, batch_stats: dict | None = None) -> dict[str, torch.Tensor]:
-    """A flax MAED parameter tree (numpy leaves), and the 'cnn' encoder's
-    ``batch_stats`` tree, -> the port's state_dict."""
-    return {key: torch.from_numpy(np.ascontiguousarray(value))
-            for key, value in convert_params_to_state_dict(params, batch_stats).items()}
+def state_dict_from_jax(params: dict, batch_stats: dict | None = None,
+                        root: str = "maed") -> dict[str, torch.Tensor]:
+    """A flax parameter tree (numpy leaves) of a MAED, with the 'cnn'
+    encoder's ``batch_stats`` tree, or of a bare module (``root`` "vit" or
+    "resnetv2", ``_ROOTS``) -> the port's state_dict of that module."""
+    if root not in _ROOTS:
+        raise ValueError(f"state_dict_from_jax: root {root!r}, want one of {sorted(_ROOTS)}")
+    flax_prefix, torch_prefix = _ROOTS[root]
+    for part in reversed(flax_prefix.strip("/").split("/") if flax_prefix else []):
+        params = {part: params}
+    sd = convert_params_to_state_dict(params, batch_stats)
+    return {key[len(torch_prefix):]: torch.from_numpy(np.ascontiguousarray(value))
+            for key, value in sd.items()}

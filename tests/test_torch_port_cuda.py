@@ -260,6 +260,34 @@ def test_f32_block_products_at_the_stock_widths(cuda, M, C, H):
     assert_close(got, want, 1e-4)
 
 
+@pytest.mark.parametrize("M, C, H", [(100, 1024, 4096), (100, 1280, 5120), (100, 768, 2304)])
+def test_bf16_block_products_at_the_stock_widths(cuda, M, C, H):
+    """C and D in bf16 at the stock ViTs' widths, at test_ln_mlp_kernel's and
+    test_ln_dense_kernel's bf16 limits: the pre-pass and the TMA + wgmma
+    GEMM, as the card runs them."""
+    args = [a.to(cuda) for a in torch_mlp_args(mlp_inputs(np.random.RandomState(C), (M, C), H),
+                                                torch.bfloat16)]
+    assert_close(TMLP.fused_ln_mlp(*args).float(), TMLP.ln_mlp_reference(*args, 1e-6).float(),
+                 5e-2, 2e-2)
+    x, s, b, w1, b1 = args[:5]
+    assert_close(TMLP.fused_ln_dense(x, s, b, w1, b1).float(),
+                 TMLP.ln_dense_reference(x, s, b, w1, b1, 1e-6).float(), 2e-2, 1e-2)
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
+                                               (torch.bfloat16, 2e-2, 1e-2)])
+def test_ln_dense_kernel_with_a_zero_bias(cuda, dtype, atol, rtol):
+    """A qkv without a bias (vit_small_patch16_224's) runs D with a zero f32
+    bias, as the JAX package feeds its kernel zeros: the same answer as the
+    plain product with no bias at all, at test_ln_dense_kernel's limits."""
+    x, s, b, w = mlp_inputs(np.random.RandomState(9), (100, 768), 2304)[:4]
+    x, w = to_torch(x, dtype).to(cuda), to_torch(w.T, dtype).to(cuda)
+    s, b = (to_torch(a, torch.float32).to(cuda) for a in (s, b))
+    got = TMLP.fused_ln_dense(x, s, b, w, torch.zeros(2304, device=cuda))
+    xn = TMLP.ln_rows_reference(x, s, b, 1e-6).float()
+    assert_close(got.float(), (xn @ w.float().t()).to(dtype).float(), atol, rtol)
+
+
 def test_dense_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     launches = dict(kernels.LAUNCHES)
     a, w, b = (torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16),
@@ -350,6 +378,57 @@ def test_gate_pieces(cuda, dtype, BT, N, C):
     assert kernels.LAUNCHES["gate_proj"] == before + 1
     limits = (1e-4, 0.0) if dtype == torch.float32 else DENSE_LIMITS["residual"]
     assert_close(got.float(), TMLP.dense_reference(y, w_p, b_p, "proj", x).float(), *limits)
+
+
+@pytest.mark.parametrize("C", [8, 100, 768, 1024, 1280])
+@pytest.mark.parametrize("BT", [1, 7, 128, 129])
+def test_f32_gate_means_and_alpha_at_every_width(cuda, BT, C):
+    """E's f32 means (float4 reads) and gate product (gate_f32_plan's tiles
+    of 32 TM frames x 48 logits, TM 1, 2 or 4 by BT, cut along k into a
+    cluster; the warps whose frames lie past BT multiply nothing) against
+    their plain versions: BT one frame, short of a tile, a whole one and a
+    row past it; C a 2C of 16 (one k-step, one split),
+    200 (a last tile of 8 logits) and the stock widths (1536, 2048 and 2560
+    logits). The means within 1e-6 (test_gate_pieces), alpha within 1e-6 up
+    to C 768 (test_gate_pieces) and 1e-5 at 1024 and 1280
+    (test_f32_block_products_at_the_stock_widths: 2C products summed in
+    another order)."""
+    y_s, y_t, _, w_ts, b_ts, _, _ = gate_inputs(np.random.RandomState(BT + C), BT, 17, C,
+                                                torch.float32, cuda)
+    before = kernels.LAUNCHES["gate_means"], kernels.LAUNCHES["gate_alpha"]
+    means = TMLP.gate_means(y_s, y_t)
+    want = TMLP.gate_means_reference(y_s, y_t)
+    alpha = TMLP.gate_alpha(want, w_ts, b_ts)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["gate_means"], kernels.LAUNCHES["gate_alpha"]) == \
+        (before[0] + 1, before[1] + 1)
+    assert_close(means, want, 1e-6)
+    assert_close(alpha, TMLP.gate_alpha_reference(want, w_ts, b_ts), 1e-6 if C <= 768 else 1e-5)
+
+
+@pytest.mark.parametrize("C, offset", [(5, 0), (6, 0), (768, 1), (100, 2)])
+def test_f32_gate_means_and_alpha_scalar_paths(cuda, C, offset):
+    """The f32 means and gate where a float4 does not fit: C not a multiple of
+    4 (5: 2C = 10 no multiple of 4 either; 6: the gate's float4 copies, the
+    means' scalar reads) or operands that start off a 16-byte boundary
+    (contiguous views ``offset`` floats into a buffer); limits of
+    test_f32_gate_means_and_alpha_at_every_width."""
+    rng = np.random.RandomState(C + offset)
+
+    def shifted(a):
+        buf = torch.zeros(a.size + offset, device=cuda)
+        view = buf[offset:].view(a.shape)
+        view.copy_(to_torch(a, torch.float32))
+        return view
+
+    BT, N = 9, 13
+    y_s, y_t = shifted(rng.randn(BT, N, C)), shifted(rng.randn(BT, N, C) + 0.3)
+    w_ts = shifted(rng.randn(2 * C, 2 * C) / np.sqrt(2 * C))
+    b_ts = to_torch(rng.randn(2 * C) * 0.1, torch.float32).to(cuda)
+    want = TMLP.gate_means_reference(y_s, y_t)
+    assert_close(TMLP.gate_means(y_s, y_t), want, 1e-6)
+    m = shifted(want.cpu().numpy())
+    assert_close(TMLP.gate_alpha(m, w_ts, b_ts), TMLP.gate_alpha_reference(m, w_ts, b_ts), 1e-6)
 
 
 def test_gate_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -719,6 +798,25 @@ def test_spatial_attention_any_head_dim(cuda, dtype, atol, rtol, d, BT, N, h):
     assert kernels.LAUNCHES[count] == before + 2
     assert_close(btc.float(), TST.spatial_reference_btc(qkv, scale).float(), atol, rtol)
     assert_close(lead.float(), TST.spatial_reference(qkv, scale).float(), atol, rtol)
+
+
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-5, 0.0),
+                                               (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("d", [64, 80, 96])
+@pytest.mark.parametrize("N", [577, 145])
+def test_spatial_attention_at_the_stock_token_counts(cuda, dtype, atol, rtol, d, N):
+    """The stock ViTs' frames: 577 tokens (384 px, patch 16) and 145 (384 px,
+    patch 32) at their head dims, 64 (F/J in both dtypes), 80 and 96 (the
+    general kernel in bf16, F/J's f32 kernel in f32). Tolerances as
+    test_spatial_attention_kernel."""
+    qkv = qkv_input(60 + d + N, 2, N, 2, d, dtype, cuda)
+    scale = d ** -0.5
+    count = _general_count("spatial_attention", d, dtype)
+    before = kernels.LAUNCHES[count]
+    got = TST.spatial_attention_btc(qkv, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[count] == before + 1
+    assert_close(got.float(), TST.spatial_reference_btc(qkv, scale).float(), atol, rtol)
 
 
 @pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-5, 0.0),

@@ -47,7 +47,11 @@ GEMM launch alone (fc1 with the GELU, fc2 with the residual, qkv, E's proj),
 through ``dense`` where the tree's takes f32, else through the tree's own C
 entry ``maed_dense_f32`` (an older tree's, whose fc1 and qkv normalize their
 A tile), beside ``torch.matmul`` on the same f32 products; the f32 pre-passes
-``ln_rows`` and ``gate_blend`` where the tree has them in f32; F/J's
+``ln_rows`` and ``gate_blend`` where the tree has them in f32, and there E's
+``gate_means`` and ``gate_alpha`` beside ``torch.mean`` over N of each branch
+and ``torch.addmm`` of the gate's product and bias, with their max abs
+errors against the plain versions, and the gate of one clip (BT 16) at C
+768, 1024 and 1280 beside ``torch.addmm``; F/J's
 ``spatial_attention_btc`` on the (128, 197, 3, 12, 64) projection beside
 ``scaled_dot_product_attention``, and, where the tree has
 ``st_attention.general_plan``, the general kernel's f32 rows form launched
@@ -278,6 +282,26 @@ except ValueError:
 if split:
     out["ln_rows_ms"] = device_ms(lambda: mlp.ln_rows(x, s, b, 1e-6))
     out["gate_blend_ms"] = device_ms(lambda: mlp.gate_blend(ys, yt, alpha))
+    # E's gate: the branch means and the gate product, each beside the
+    # library's calls for the same function (torch.mean over N of each
+    # branch; torch.addmm of the product and the bias, before the softmax)
+    means = mlp.gate_means_reference(ys, yt)
+    out["gate_means_ms"] = device_ms(lambda: mlp.gate_means(ys, yt))
+    out["gate_means_library_ms"] = device_ms(lambda: (torch.mean(ys, 1), torch.mean(yt, 1)))
+    out["gate_means_max_abs_err"] = (mlp.gate_means(ys, yt) - means).abs().max().item()
+    out["gate_alpha_ms"] = device_ms(lambda: mlp.gate_alpha(means, wts, bts))
+    out["gate_alpha_library_ms"] = device_ms(lambda: torch.addmm(bts, means, wts.t()))
+    out["gate_alpha_max_abs_err"] = (mlp.gate_alpha(means, wts, bts) - mlp.gate_alpha_reference(
+        means, wts, bts)).abs().max().item()
+    # the gate of one clip (16 frames) at the stock ViTs' widths
+    for width in (768, 1024, 1280):
+        m16 = T(rng.randn(16, 2 * width))
+        w16 = T(rng.randn(2 * width, 2 * width) / np.sqrt(2 * width))
+        b16 = T(rng.randn(2 * width) * 0.1)
+        out[f"gate_alpha_bt16_c{width}_ms"] = device_ms(lambda: mlp.gate_alpha(m16, w16, b16))
+        out[f"gate_alpha_bt16_c{width}_library_ms"] = device_ms(
+            lambda: torch.addmm(b16, m16, w16.t()))
+    del m16, w16, b16
     gemms = {"fc1": lambda: mlp.dense(xn, w1, b1, "gelu"),
              "fc2": lambda: mlp.dense(h, w2, b2, "residual", x),
              "qkv": lambda: mlp.dense(xn, wq, bq),

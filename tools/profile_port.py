@@ -54,7 +54,7 @@ KINDS = (
     ("general attention (F/J, G/H, K at other head dims)", ("general_",)),
     ("ln pre-pass (kernels C, D)", ("ln_rows_",)),
     ("ln_dense (kernel D)", ("biasonly",)),
-    ("gate_proj (kernel E)", ("projresidual", "gateblend", "gate_means_kernel", "gate_alpha_",
+    ("gate_proj (kernel E)", ("projresidual", "gateblend", "gate_means_", "gate_alpha_",
                               "gate_blend_", "gate_proj_bf16_kernel")),
     ("ln_mlp (kernel C)", ("biasgelu", "biasresidual")),
     ("groupnorm (kernel I)", ("groupnorm_cluster_kernel", "groupnorm_kernel")),
