@@ -44,10 +44,21 @@
    whole batch through the kernels in f32 at full width: stage 2 on 4 2D +
    4 3D clips and 8 images, stage 1 on 128 images (global BatchNorm
    moments), every dropout rate 0 on both sides.
+7b. Tensor parallel (``phase_tp``): two ranks on the one card over gloo
+   (``python3 chip_smoke.py --tp-rank <dir>`` each, MAED_MESH_TP=2), each
+   holding half of every ViT block (6 of the 12 heads, 1536 of the 3072
+   hidden columns) and launching every kernel on its shard: a bf16 and an
+   f32 eval forward of 8 clips x 16 frames held against one process (f32
+   within the kernels-vs-plain bound, bf16 by BF16_RATIO), one f32 stage-2
+   step on 2 + 2 clips and 4 images (the loss, the gathered gradient and the
+   updated parameters by the step's own bounds), each rank's launches those
+   of the split forwards (past tp rank 0, C's fc2 and E's proj through the
+   row-parallel epilogue), and that epilogue alone against its plain version
+   at fc2's and proj's shard shapes.
 8. Runs the CLIs (``phase_trainer``) at full width on
    configs/config_stage2.yaml in f32 over synthetic DBs of the JPEG frames
    in tests/torch_port_data: ``python -m maed_tpu_torch.train`` for 2 epochs
-   of 4 iterations with validation and checkpoints each epoch; the same
+   of 3 iterations with validation and checkpoints each epoch; the same
    command with TRAIN.RESUME auto as the one NCCL rank of ``python -m
    torch.distributed.run --nproc_per_node 1``, stopped by SIGTERM in epoch 2
    and relaunched, whose losses and last checkpoint must match the first
@@ -2006,22 +2017,25 @@ def ddp_rank(out_dir: Path) -> int:
     return 0
 
 
-def run_ddp_ranks(workdir: Path, timeout: float = 600) -> dict:
-    """DDP_WORLD processes of :func:`ddp_rank` on a free localhost port;
-    returns rank 0's results."""
+def run_ddp_ranks(workdir: Path, timeout: float = 600, flag: str = "--ddp-rank",
+                  world: int = DDP_WORLD, extra_env=None, result: str = "rank0.pt"):
+    """``world`` processes of this script with ``flag`` (:func:`ddp_rank`, or
+    :func:`tp_rank`) on a free localhost port, ``extra_env`` added to their
+    environment; returns what they wrote to ``workdir / result``."""
     import socket
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     procs, logs = [], []
-    for rank in range(DDP_WORLD):
-        env = dict(os.environ, RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(DDP_WORLD),
-                   MASTER_ADDR="localhost", MASTER_PORT=str(port), PYTHONUNBUFFERED="1")
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(world),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port), PYTHONUNBUFFERED="1",
+                   **(extra_env or {}))
         logs.append(workdir / f"rank{rank}.log")
         with open(logs[-1], "w") as out:
             procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                                           "--ddp-rank", str(workdir)], env=env, stdout=out,
+                                           flag, str(workdir)], env=env, stdout=out,
                                           stderr=subprocess.STDOUT))
     try:
         for p in procs:
@@ -2033,9 +2047,9 @@ def run_ddp_ranks(workdir: Path, timeout: float = 600) -> dict:
                 p.wait()
     for rank, p in enumerate(procs):
         if p.returncode != 0:
-            raise AssertionError(f"ddp rank {rank} exited {p.returncode}:\n"
+            raise AssertionError(f"{flag} {rank} exited {p.returncode}:\n"
                                  + logs[rank].read_text()[-4000:])
-    return torch.load(workdir / "rank0.pt", weights_only=False)
+    return torch.load(workdir / result, weights_only=False)
 
 
 def phase_ddp(device):
@@ -2142,8 +2156,259 @@ def phase_ddp(device):
     return record
 
 
+# phase_tp: tensor parallelism on the one card, TP_WORLD ranks over gloo at
+# MAED_MESH_TP = TP_WORLD (one data rank: both take the whole batch), the
+# released MAED at full width (12 heads, 6 a rank; 3072 hidden, 1536 a rank),
+# against one process; the step on TP_2D + TP_3D clips and TP_IMAGES images
+TP_WORLD, TP_2D, TP_3D, TP_IMAGES = 2, 2, 2, 4
+# fc2's and proj's row-parallel products at tp = 2 on the flagship's tokens:
+# (M, N, K) of a rank's part
+TP_SHARD_SHAPES = {"fc2": (N_CLIPS * SEQLEN * 197, 768, 3072 // TP_WORLD),
+                   "proj": (N_CLIPS * SEQLEN * 197, 768, 768 // TP_WORLD)}
+
+
+def tp_per_forward(tp_rank: int, dtype: torch.dtype, seqlen: int = SEQLEN) -> dict:
+    """A tensor-parallel rank's launches in one forward of the flagship
+    (parallel mode, 6 blocks): those of one process (E's pieces launched one
+    by one, as one process's one C call launches them); past tp rank 0, C's
+    fc2 and E's proj through the row-parallel epilogue."""
+    counts = per_forward("parallel", dtype=dtype, seqlen=seqlen)
+    if tp_rank:
+        counts["ln_mlp_fc2_partial"], counts["ln_mlp_fc2"] = counts["ln_mlp_fc2"], 0
+        counts["gate_proj_partial"], counts["gate_proj"] = counts["gate_proj"], 0
+    return counts
+
+
+def tp_rank(out_dir: Path) -> int:
+    """One rank of :func:`phase_tp` (``chip_smoke.py --tp-rank <dir>``, with
+    torchrun's environment and MAED_MESH_TP): joins the gloo group, makes the
+    mesh, runs a bf16 and an f32 eval forward of the split flagship on the
+    first request (counted and timed: first calls), then one f32 stage-2
+    step and a second one for its time; writes its answers, launches, times
+    and, on rank 0, the first step's gathered gradient and updated
+    parameters to ``<dir>/rank<r>.pt``."""
+    sys.path.insert(0, str(ROOT))
+    from maed_tpu_torch import kernels
+    from maed_tpu_torch.core.builder import build_eval_model, build_train_model
+    from maed_tpu_torch.parallel import dist
+    from maed_tpu_torch.parallel.mesh import gather_state_dict, make_mesh
+
+    rank, _ = dist.init_from_env(cpu=False, backend="gloo")
+    mesh = make_mesh(tp=int(os.environ["MAED_MESH_TP"]))
+    device = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clips, jreg = make_requests(device)
+    out = {"tp_rank": mesh.tp_rank, "forwards": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        model, smpl = build_eval_model(dtype=dtype, device=device, seed=0,
+                                       allow_synthetic_smpl=True, mesh=mesh)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = model(clips[0], smpl, J_regressor=jreg)
+        torch.cuda.synchronize()
+        out["forwards"][str(dtype)] = dict(
+            out={k: v.cpu() for k, v in got.items()}, launches=dict(kernels.LAUNCHES),
+            ms=(time.perf_counter() - t0) * 1e3)
+        del model, got
+    torch.cuda.empty_cache()
+    model, smpl = build_train_model(device=device, seed=0, allow_synthetic_smpl=True, mesh=mesh)
+    batch = make_train_batch(smpl, device, TP_2D, TP_3D, TP_IMAGES)
+    metrics, _, launches, times, peak = train_steps(without_dropout(model), smpl, batch, 1)
+    named = dict(model.named_parameters())
+    # copies, before the next step updates the replicated parameters in place
+    grads = gather_state_dict({k: p.grad for k, p in named.items()}, mesh)
+    params = gather_state_dict({k: p.detach() for k, p in named.items()}, mesh)
+    grad = torch.cat([grads[k].reshape(-1) for k in named]).cpu()
+    params = torch.cat([params[k].reshape(-1) for k in named]).cpu()
+    _, _, _, warm, _ = train_steps(model, smpl, batch, 1)  # a second step, for its time
+    out["step"] = dict(metrics={k: v.item() for k, v in metrics[0].items()}, launches=launches,
+                       first_step_ms=times[0], step_ms=warm[0], peak_memory_bytes=peak)
+    if rank == 0:
+        out["step"].update(grad=grad, params=params)
+    torch.save(out, out_dir / f"rank{rank}.pt")
+    dist.barrier()
+    dist.shutdown()
+    return 0
+
+
+def row_partial_records(device) -> dict:
+    """The row-parallel epilogue (``dense``'s "fc2_partial" and
+    "proj_partial": the product alone, past tp rank 0) at fc2's and proj's
+    shard shapes, bf16 and f32, against its plain version, timed beside
+    cuBLAS on the same product; the record of each dtype is fc2's, with
+    proj's under "proj"."""
+    from maed_tpu_torch.ops import mlp
+
+    rng = np.random.RandomState(23)
+    records = {}
+    for dt, kind, limits in ((torch.bfloat16, "bf16", (2e-2, 1e-2)),
+                             (torch.float32, "f32", (1e-4, 0.0))):
+        recs = {}
+        for name, (M, N, K) in TP_SHARD_SHAPES.items():
+            a = torch.from_numpy(rng.randn(M, K)).to(device, dt)
+            w = torch.from_numpy(rng.randn(N, K) / np.sqrt(K)).to(device, dt)
+            epi = f"{name}_partial"
+            kernel = lambda: mlp.dense(a, w, None, epi)  # noqa: E731
+            library = lambda: torch.matmul(a, w.t())  # noqa: E731
+            recs[name] = compare(
+                f"row-parallel {name} {kind} ({M} x {N} x {K})", kernel,
+                lambda: mlp.dense_reference(a, w, None, epi), *limits, moved=(a, w),
+                flops=2.0 * M * N * K, kind=kind, library=library, iters=10)
+            # on the device: the launches queued behind a sleep
+            recs[name].update(device_ms=time_ms(kernel, 20, queued=True),
+                              library_device_ms=time_ms(library, 20, queued=True))
+            print(f"    on the device: kernel {recs[name]['device_ms']:.4f} ms, cuBLAS "
+                  f"{recs[name]['library_device_ms']:.4f} ms")
+            del a, w
+        records[kind] = dict(recs["fc2"], proj=recs["proj"])
+    return records
+
+
+def adam_first_step_excess(p_got, p_want, g_got, g_want, lr, eps=1e-8):
+    """How far the parameters after two Adam first steps (update lr g / (|g|
+    + eps), no weight decay) from the same start lie beyond what their
+    gradients' own difference allows: lr eps / (m + eps)^2 |g_got - g_want|
+    (m the smaller |g|, or 0 where the signs differ: the update's steepest
+    slope between them), plus f32's rounding of the update and of the
+    parameter. Returns the largest excess (<= 0 within)."""
+    g1, g2 = g_got.double(), g_want.double()
+    m = torch.where(torch.sign(g1) == torch.sign(g2), torch.minimum(g1.abs(), g2.abs()),
+                    torch.zeros_like(g1))
+    limit = lr * eps / (m + eps) ** 2 * (g1 - g2).abs() + lr * 1e-5 \
+        + 2.0 ** -22 * p_want.double().abs()
+    return ((p_got.double() - p_want.double()).abs() - limit).max().item()
+
+
+def phase_tp(device, clips, jreg, bf16_plains, wants):
+    """Tensor parallelism on the one card: TP_WORLD gloo ranks
+    (``parallel.mesh``, ``parallel.tensor``: each ViT block split by heads
+    and hidden columns, kernels C, D, E's pieces, F/J and G/H on the rank's
+    shard, fc2 and proj past tp rank 0 through the row-parallel epilogue,
+    the partial sums all-reduced; two ranks on one card stage each
+    all-reduce through the host) against one process on the same input, in
+    f32 at full width. The
+    bf16 forward's answers by BF16_RATIO to one process's f32 plain ones
+    ``wants`` (one process's bf16 plain answers ``bf16_plains`` the
+    measure), the f32 forward's within phase_f32's kernels-vs-plain bounds
+    of them, both ranks' answers equal bit for bit; the step (every dropout
+    rate 0): each loss term within TRAIN_LOSS_RTOL of one process's, the
+    gathered gradient outside the stem within TRAIN_GRAD_RTOL, the whole
+    gradient at most F32_GRAD_RATIO times as far from the f64 step as one
+    process's plain f32 step, the updated parameters within what Adam's
+    first step makes of the two gradients' difference; each rank's launches
+    those of the split forwards and step. Returns the record (with the
+    row-parallel epilogue's kernel records)."""
+    from maed_tpu_torch.core.builder import build_train_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_identity()
+    record = {"card": card, "tp": TP_WORLD, "kernels": row_partial_records(device)}
+    torch.cuda.empty_cache()
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    try:
+        t0 = time.perf_counter()
+        run_ddp_ranks(workdir, flag="--tp-rank", world=TP_WORLD,
+                      extra_env={"MAED_MESH_TP": str(TP_WORLD)})
+        ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False)
+                 for r in range(TP_WORLD)]
+        record["ranks_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # the forwards: each rank's launches, the answers equal on the ranks
+    for dtype in (torch.bfloat16, torch.float32):
+        for r, got in enumerate(ranks):
+            want = tp_per_forward(got["tp_rank"], dtype)
+            launches = got["forwards"][str(dtype)]["launches"]
+            bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+            if bad:
+                raise AssertionError(f"tp rank {r} {dtype} forward: launches (got, want) {bad}")
+            for k, v in got["forwards"][str(dtype)]["out"].items():
+                if not torch.equal(v, ranks[0]["forwards"][str(dtype)]["out"][k]):
+                    raise AssertionError(f"tp rank {r} {dtype}: {k} differs from rank 0's")
+    bf16 = {k: v.to(device) for k, v in ranks[0]["forwards"][str(torch.bfloat16)]["out"].items()}
+    f32 = {k: v.to(device) for k, v in ranks[0]["forwards"][str(torch.float32)]["out"].items()}
+    check_outputs(bf16)
+    check_outputs(f32)
+    check_bf16_ratio("tp=2", [bf16], bf16_plains[:1], wants[:1])
+    for key, atol in (("verts", 1e-4), ("kp_3d", 1e-4), ("theta", 1e-3)):
+        record[f"f32_{key}_max_abs_err"] = check_close(
+            f"tp=2 f32 forward {key} vs one process's plain", f32[key], wants[0][key], atol)
+    record.update({f"rank{r}_{dt}_forward_ms": got["forwards"][f"torch.{dt}"]["ms"]
+                   for r, got in enumerate(ranks) for dt in ("bfloat16", "float32")})
+    del bf16, f32
+
+    # the step: one process through the kernels, through the plain versions, in f64
+    model, smpl = build_train_model(device=device, seed=0, allow_synthetic_smpl=True)
+    without_dropout(model)
+    batch = make_train_batch(smpl, device, TP_2D, TP_3D, TP_IMAGES)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    metrics, grad, _, first, peak = train_steps(model, smpl, batch, 1)
+    params = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    _, _, _, times, _ = train_steps(model, smpl, batch, 1)  # a second step, for its time
+    model.load_state_dict(start)
+    _, plain_grad, *_ = train_steps(model, smpl, batch, 1, plain=True)
+    stem = torch.cat([torch.full((p.numel(),), "patch_embed.backbone." in name, device=device)
+                      for name, p in model.named_parameters()])
+    del model
+    torch.cuda.empty_cache()
+    loss_64, grad_64 = f64_plain_grad(start, smpl, batch, device, dropout=False)
+    del start
+    got = ranks[0]["step"]
+    tp_grad, tp_params = got["grad"].to(device), got["params"].to(device)
+    terms = {k: abs(got["metrics"][k] - v.item()) / abs(v.item()) for k, v in metrics[0].items()}
+    rest = rel_l2(tp_grad[~stem], grad[~stem])
+    tp_64, plain_64 = rel_l2(tp_grad, grad_64), rel_l2(plain_grad, grad_64)
+    excess = adam_first_step_excess(tp_params, params, tp_grad, grad,
+                                    TrainRecipe.LR * TrainRecipe.WARMUP_FACTOR)
+    for r, rk in enumerate(ranks):
+        step_launches = {k: tp_per_forward(rk["tp_rank"], torch.float32)[k]
+                         + tp_per_forward(rk["tp_rank"], torch.float32, seqlen=1)[k]
+                         for k in rk["step"]["launches"]}
+        bad = {k: (rk["step"]["launches"][k], v) for k, v in step_launches.items()
+               if rk["step"]["launches"][k] != v}
+        if bad:
+            raise AssertionError(f"tp rank {r} step: launches (got, want) {bad}")
+    record["step"] = dict(
+        loss_terms_rel=terms, grad_rel_l2_outside_stem=rest,
+        grad_rel_l2_stem=rel_l2(tp_grad[stem], grad[stem]), grad_rel_l2_tp_vs_f64=tp_64,
+        grad_rel_l2_plain_vs_f64=plain_64, params_excess_over_adam_bound=excess,
+        rank_step_ms=[rk["step"]["step_ms"] for rk in ranks],
+        rank_first_step_ms=[rk["step"]["first_step_ms"] for rk in ranks],
+        rank_peak_memory_bytes=[rk["step"]["peak_memory_bytes"] for rk in ranks],
+        one_process_step_ms=times[0], one_process_first_step_ms=first[0],
+        one_process_peak_memory_bytes=peak,
+        rank_launches=[rk["step"]["launches"] for rk in ranks])
+    print(f"  tp={TP_WORLD} step ({TP_2D} + {TP_3D} clips, {TP_IMAGES} images) against one "
+          f"process, f32 through the kernels: loss terms max rel {max(terms.values()):.3e} "
+          f"(bound {TRAIN_LOSS_RTOL}); gradient outside the stem rel L2 {rest:.3e} (bound "
+          f"{TRAIN_GRAD_RTOL}), the stem {record['step']['grad_rel_l2_stem']:.3e}; against the "
+          f"f64 step (loss {loss_64:.6f}): tp {tp_64:.3e}, plain {plain_64:.3e}, ratio "
+          f"{tp_64 / plain_64:.3f} (bound {F32_GRAD_RATIO}); parameters after the update: "
+          f"excess over Adam's bound {excess:.3e} (<= 0)")
+    print(f"  a tp rank's second step: " + ", ".join(
+        f"rank {r} {rk['step']['step_ms']:.1f} ms, peak "
+        f"{rk['step']['peak_memory_bytes'] / 2 ** 30:.2f} GiB" for r, rk in enumerate(ranks))
+        + f" (two ranks share the card, all-reduces staged through the host by gloo); one "
+        f"process: {times[0]:.1f} ms, peak {peak / 2 ** 30:.2f} GiB (host clock; first steps "
+        f"{[rk['step']['first_step_ms'] for rk in ranks]} and {first[0]:.1f} ms; {card}); "
+        f"launches a step " + "; ".join(
+            f"rank {r} { {k: v for k, v in rk['step']['launches'].items() if v} }"
+            for r, rk in enumerate(ranks)))
+    if not (max(terms.values()) <= TRAIN_LOSS_RTOL and rest <= TRAIN_GRAD_RTOL
+            and tp_64 <= F32_GRAD_RATIO * plain_64 and excess <= 0):
+        raise AssertionError("tp: the split step left the one-process step")
+    record["launches"] = {f"rank{r}_{dt}": rk["forwards"][f"torch.{dt}"]["launches"]
+                          for r, rk in enumerate(ranks) for dt in ("bfloat16", "float32")}
+    print(json.dumps({"tp": {k: v for k, v in record.items() if k != "launches"}}))
+    return record
+
+
 # phase_trainer: the CLIs at full width on the stage-2 config, a short run
-TRAINER_ITERS, TRAINER_EPOCHS = 4, 2
+TRAINER_ITERS, TRAINER_EPOCHS = 3, 2
 FIXTURE_DIR = ROOT / "tests" / "torch_port_data"
 # the JAX package's bound for two JPEG decoders, after the crop and the
 # normalize (tests/test_data.py::test_native_jpeg_decode_crop_matches_cv2_path)
@@ -2152,7 +2417,7 @@ DECODE_BOUND = 0.06
 # every parameter and optimizer moment (relative L2 of the whole)
 RESUME_LOSS_RTOL, RESUME_PARAM_RTOL = 1e-5, 1e-4
 METRIC_ATOL_MM = 0.05  # the eval CLI's metrics against the validation's (PERF.md section 2)
-LOADER_BATCHES = 16
+LOADER_BATCHES = 8
 
 
 def synthetic_video_db(rng, frames, videos, length, with_3d=True):
@@ -3314,6 +3579,7 @@ def main() -> int:
         served = timed(phase_export, device, workdir, clips, jreg, outs, eager_ms)
         wants, f32_launches = timed(phase_f32, device, clips, jreg, outs, plains)
         timed(phase_http, device, workdir, clips, outs, plains, wants, served)
+        tp = timed(phase_tp, device, clips, jreg, plains, wants)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     del outs, plains, wants
@@ -3476,6 +3742,19 @@ def main() -> int:
         launches=coupling_f32_launches["attention_blocked"],
         launches_train=train_f32_launches["attention_blocked"],
         launches_demo=demo["attention_blocked"], **record["attention_blocked_f32"]))
+    # tensor parallelism's row-parallel epilogue (RowPartial) of C's fc2 and E's
+    # proj: launches in phase_tp's split forwards and f32 step on tp rank 1
+    # (rank 0 runs C's and E's epilogues)
+    tp_counts = tp["launches"]
+    for kind, dt in (("bf16", "bfloat16"), ("f32", "float32")):
+        kernels_line.append(dict(
+            name="dense_row_partial" + ("" if kind == "bf16" else "_f32"), route="cuda",
+            source=src + "csrc/ln_mlp.cu", replaces=f"{jax_ops}mlp.py:99, {jax_ops}mlp.py:272",
+            launches=tp_counts[f"rank1_{dt}"]["ln_mlp_fc2_partial"],
+            launches_proj=tp_counts[f"rank1_{dt}"]["gate_proj_partial"],
+            launches_train=(tp["step"]["rank_launches"][1]["ln_mlp_fc2_partial"]
+                            if kind == "f32" else 0),
+            **tp["kernels"][kind]))
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3486,4 +3765,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of phase_ddp
         sys.exit(ddp_rank(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--tp-rank"]:  # a rank of phase_tp
+        sys.exit(tp_rank(Path(sys.argv[2])))
     sys.exit(main())

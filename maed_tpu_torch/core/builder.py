@@ -16,7 +16,10 @@ of a ``.pth.tar``: the port's own checkpoints and the reference-layout file
 ``python -m maed_tpu.utils.torch_convert`` exports from a JAX run (orbax
 directories are not read: that converter is the way across).
 :func:`build_encoder` builds an encoder alone: a stock ViT of the factory
-catalog, or a (pre-activation) ResNetV2.
+catalog, or a (pre-activation) ResNetV2. Under tensor parallelism (``mesh=``
+of ``parallel.mesh.make_mesh`` with tp > 1) both model builders take the
+full, reference-named weights (or draw them whole from the seed) and keep
+the rank's shards (``parallel.mesh.shard_state_dict``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from maed_tpu_torch.models.resnetv2 import GroupNormAct, StdConv
 from maed_tpu_torch.models.spin import IterativeRegressor
 from maed_tpu_torch.models.vit import FACTORIES, FastLayerNorm, Mlp, StAttention
 from maed_tpu_torch.ops.smpl import SMPLModel
+from maed_tpu_torch.parallel.mesh import shard_state_dict
 from maed_tpu_torch.utils.checkpoint import (fold_weight_standardization, load_checkpoint,
                                              state_dict_of)
 from maed_tpu_torch.utils.smpl_io import find_smpl_model
@@ -177,13 +181,24 @@ def empty_model(device, **kwargs) -> MAED:
     return model
 
 
+def split_model(model: MAED, mesh, device, **kwargs) -> MAED:
+    """The MAED of ``mesh``'s tp rank (``empty_model(device, mesh=mesh,
+    **kwargs)``) holding its shards of ``model``'s weights; ``model`` itself
+    without a mesh or at tp = 1."""
+    if mesh is None or mesh.tp == 1:
+        return model
+    local = empty_model(device, mesh=mesh, **kwargs)
+    local.load_state_dict(shard_state_dict(model.state_dict(), mesh), strict=True)
+    return local
+
+
 def build_train_model(*, encoder: str = "ste", decoder: str = "ktd", num_blocks: int = 6,
                       num_heads: int = 12, hidden_dim: int = 1024, img_size: int = 224,
                       st_mode: str = "parallel", dtype: torch.dtype = torch.float32,
                       device: torch.device | str = "cuda", seed: int = 0,
                       state_dict: dict | None = None, allow_synthetic_smpl: bool = False,
                       smpl_dir: str = "data/smpl_data",
-                      remat: bool = False) -> tuple[MAED, SMPLModel]:
+                      remat: bool = False, mesh=None) -> tuple[MAED, SMPLModel]:
     """(model, smpl) for ``parallel.train_step.make_train_step``, the model in
     training mode.
 
@@ -197,16 +212,18 @@ def build_train_model(*, encoder: str = "ste", decoder: str = "ktd", num_blocks:
     training differentiates, so nothing is folded. ``remat`` recomputes
     each ViT block in the backward instead of keeping its activations (the
     JAX package's ``MAED.remat``). Weights and body as in
-    :func:`build_eval_model`.
+    :func:`build_eval_model`; with a ``mesh`` of tp > 1 the rank's shards of
+    them (Adam then runs on the shards).
     """
-    model = empty_model(device, encoder=encoder, decoder=decoder, num_blocks=num_blocks,
-                        num_heads=num_heads, hidden_dim=hidden_dim, img_size=img_size,
-                        standardize_ws=True, st_mode=st_mode, smpl_dir=smpl_dir, remat=remat,
-                        dtype=dtype)
+    kwargs = dict(encoder=encoder, decoder=decoder, num_blocks=num_blocks, num_heads=num_heads,
+                  hidden_dim=hidden_dim, img_size=img_size, standardize_ws=True, st_mode=st_mode,
+                  smpl_dir=smpl_dir, remat=remat, dtype=dtype)
+    model = empty_model(device, **kwargs)
     if state_dict is None:
         init_weights_(model, seed)
     else:
         model.load_state_dict(state_dict, strict=True)
+    model = split_model(model, mesh, device, **kwargs)
     model.train()
     smpl = find_smpl_model(smpl_dir, allow_synthetic=allow_synthetic_smpl, device=device)
     return model, smpl
@@ -218,7 +235,7 @@ def build_eval_model(*, encoder: str = "ste", decoder: str = "ktd", num_blocks: 
                      device: torch.device | str = "cuda", seed: int = 0,
                      state_dict: dict | None = None,
                      allow_synthetic_smpl: bool = False,
-                     smpl_dir: str = "data/smpl_data") -> tuple[MAED, SMPLModel]:
+                     smpl_dir: str = "data/smpl_data", mesh=None) -> tuple[MAED, SMPLModel]:
     """(model, smpl) ready for ``model(clips, smpl, J_regressor=...)``.
 
     The defaults are the released stage-2 model; ``st_mode`` picks another
@@ -231,16 +248,20 @@ def build_eval_model(*, encoder: str = "ste", decoder: str = "ktd", num_blocks: 
     (bf16 serves, f32 is the reference eval protocol); the weights used in
     ``dtype`` are cast to it once (``cast_weights_``), the rest stay f32.
     The SMPL body comes from ``smpl_dir``, or is the synthetic 6890-vertex
-    body when ``allow_synthetic_smpl`` allows the fallback.
+    body when ``allow_synthetic_smpl`` allows the fallback. With a ``mesh``
+    of tp > 1 the model holds the rank's shards of the weights and every
+    rank of its tp group must call it and the model's forward together.
     """
-    model = empty_model(device, encoder=encoder, decoder=decoder, num_blocks=num_blocks,
-                        num_heads=num_heads, hidden_dim=hidden_dim, img_size=img_size,
-                        standardize_ws=False, st_mode=st_mode, smpl_dir=smpl_dir, dtype=dtype)
+    kwargs = dict(encoder=encoder, decoder=decoder, num_blocks=num_blocks, num_heads=num_heads,
+                  hidden_dim=hidden_dim, img_size=img_size, standardize_ws=False,
+                  st_mode=st_mode, smpl_dir=smpl_dir, dtype=dtype)
+    model = empty_model(device, **kwargs)
     if state_dict is None:
         init_weights_(model, seed)
         state_dict = model.state_dict()
     # the fold touches the ViT stem's convs only: the ResNet has no StdConv
     model.load_state_dict(fold_weight_standardization(state_dict), strict=True)
+    model = split_model(model, mesh, device, **kwargs)
     cast_weights_(model, dtype)
     model.eval()
     smpl = find_smpl_model(smpl_dir, allow_synthetic=allow_synthetic_smpl, device=device)

@@ -93,7 +93,7 @@ def smpl_losses(pred_pose, pred_shape, gt_pose, gt_shape, w_smpl=None):
     sum_pose = (w[:, None] * (rm_p - rm_g) ** 2).sum()
     sum_shape = (w[:, None] * (shape_p - shape_g) ** 2).sum()
     count = w.sum()
-    if dist.world() > 1:
+    if dist.data_world() > 1:
         # the global sums and count in one collective; the count is data,
         # detached, so its sum stays outside autograd
         sum_pose, sum_shape, count = dist.sum_over_ranks(
@@ -123,8 +123,8 @@ def theta_norm_loss(pred_theta):
     count; across processes, over the global batch."""
     flat = pred_theta.reshape(-1, pred_theta.shape[-1])[:, 3:]
     squares, rows = (flat ** 2).sum(), flat.shape[0]
-    if dist.world() > 1:
-        squares, rows = dist.sum_over_ranks(squares), rows * dist.world()
+    if dist.data_world() > 1:
+        squares, rows = dist.sum_over_ranks(squares), rows * dist.data_world()
     return torch.sqrt(squares) / rows
 
 

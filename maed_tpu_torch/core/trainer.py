@@ -31,11 +31,17 @@ one process or W of them data parallel (``parallel.dist``; the JAX package's
     loader's position.
 
 Rank 0 alone logs and writes files; every rank enters the checkpoint writes,
-which gather the ranks' generators. It also appends one JSON object a line
-to ``<logdir>/train_metrics.jsonl``: each step's metrics; the timing of each
-log boundary's iteration (the data and the step, on the host clock) and the
-device's peak memory so far; each validation's metrics and seconds, each
-checkpoint write's seconds and bytes. Beside it, a TensorBoard event file
+which gather the data ranks' generators. Under tensor parallelism (a model
+built with a mesh of tp > 1) the checkpoint writes also gather the
+parameters and the optimizer's moments from every rank's shards to their
+full, reference names (as the JAX trainer gathers its TP-sharded state),
+and a resume cuts them to this rank's shards again: a checkpoint written at
+any tp resumes at any other with the same number of data ranks. It also
+appends one JSON object a line to ``<logdir>/train_metrics.jsonl``: each
+step's metrics; the timing of each log boundary's iteration (the data and
+the step, on the host clock) and the device's peak memory so far; each
+validation's metrics and seconds, each checkpoint write's seconds and
+bytes. Beside it, a TensorBoard event file
 (``utils.summary``) takes the JAX trainer's scalars: ``train_loss/<k>``, the
 epoch's running means at each log boundary at the global step, and
 ``eval/<k>`` at each validation at the epoch. With MAED_PROFILE_DIR set,
@@ -59,6 +65,8 @@ import torch
 from maed_tpu_torch.core.evaluate import Evaluator, load_eval_regressor
 from maed_tpu_torch.data.loaders import InfiniteLoader
 from maed_tpu_torch.parallel import dist
+from maed_tpu_torch.parallel.mesh import (gather_optimizer_state, gather_state_dict, model_mesh,
+                                          shard_optimizer_state, shard_state_dict)
 from maed_tpu_torch.parallel.train_step import TrainOptimizer
 from maed_tpu_torch.utils.checkpoint import (find_auto_resume, load_checkpoint,
                                              prune_epoch_checkpoints, save_checkpoint,
@@ -79,8 +87,10 @@ class Trainer:
     ``optimizer`` and ``generator`` (its dropout masks); the trainer holds
     them for its checkpoints. ``eval_forward(images, J_regressor)`` is the
     forward that validation runs, with the model in eval mode. Under a
-    process group ``generator`` is this rank's own, and ``logdir`` names
-    rank 0's directory on every rank."""
+    process group ``generator`` is this data rank's own, and ``logdir``
+    names rank 0's directory on every rank. A model built with a mesh
+    (``parallel.mesh``) of tp > 1 has its checkpoints gathered and
+    re-sharded."""
 
     def __init__(
         self,
@@ -99,6 +109,8 @@ class Trainer:
         log_freq: int = 10,
     ):
         self.rank, self.world = dist.rank(), dist.world()
+        self.data_rank, self.data_world = dist.data_rank(), dist.data_world()
+        self.mesh = model_mesh(model)  # None but under tensor parallelism
         self.train_2d = InfiniteLoader(data_loaders["train_2d"]) if data_loaders.get("train_2d") else None
         self.train_3d = InfiniteLoader(data_loaders["train_3d"]) if data_loaders.get("train_3d") else None
         self.train_img = InfiniteLoader(data_loaders["train_img"]) if data_loaders.get("train_img") else None
@@ -393,20 +405,36 @@ class Trainer:
         }
 
     def _generator_state(self):
-        """The dropout generator's state; with several ranks, every rank's in
-        rank order (a collective: each rank must call it)."""
+        """The dropout generator's state; with several data ranks, every data
+        rank's in data-rank order (a collective: each rank must call it)."""
         state = self.generator.get_state()
-        return state if self.world == 1 else dist.gather_objects(state)
+        return state if self.data_world == 1 else dist.gather_objects(state)
+
+    def _param_names(self) -> list:
+        """The optimizer's parameters' names, in its order."""
+        names = [n for n, _ in self.model.named_parameters()]
+        params = [p for g in self.optimizer.optimizer.param_groups for p in g["params"]]
+        if [id(p) for p in params] != [id(p) for _, p in self.model.named_parameters()]:
+            raise ValueError("a tensor-parallel trainer's optimizer must hold the model's "
+                             "parameters in their order (make_optimizer(..., model.parameters()))")
+        return names
 
     def state(self, epoch: int, performance: float) -> Dict:
         """The checkpoint of the run as it stands: the reference layout
         (state_dict, epoch, performance) and what a resume needs. With
-        several ranks, a collective, complete on rank 0."""
+        several ranks, a collective, complete on rank 0; under tensor
+        parallelism the parameters and the optimizer's moments are the
+        full ones."""
+        state_dict = self.model.state_dict()
+        optimizer = self.optimizer.optimizer.state_dict()
+        if self.mesh is not None:
+            state_dict = gather_state_dict(state_dict, self.mesh)
+            optimizer = gather_optimizer_state(optimizer, self._param_names(), self.mesh)
         return {
-            "state_dict": self.model.state_dict(),
+            "state_dict": state_dict,
             "epoch": int(epoch),
             "performance": float(performance),
-            "optimizer": self.optimizer.optimizer.state_dict(),
+            "optimizer": optimizer,
             "scheduler": self.optimizer.scheduler.state_dict(),
             "optimizer_calls": int(self.optimizer.calls),
             "generator": self._generator_state(),
@@ -472,17 +500,21 @@ class Trainer:
                            "for weights only)")
         states = ckpt["generator"]
         written_by = len(states) if isinstance(states, list) else 1
-        if written_by != self.world:
+        if written_by != self.data_world:
             raise ValueError(
                 f"{path} holds the dropout generators of {written_by} process(es) and this run "
-                f"has {self.world}: each rank draws its masks from its own generator, so a run "
-                f"resumes only with the number of processes that wrote it (--pretrained starts "
-                "a new run from its encoder)")
-        self.model.load_state_dict(ckpt["state_dict"], strict=True)
-        self.optimizer.optimizer.load_state_dict(ckpt["optimizer"])
+                f"has {self.data_world} data rank(s): each data rank draws its masks from its "
+                "own generator, so a run resumes only with the number of data ranks that wrote "
+                "it, at any tp (--pretrained starts a new run from its encoder)")
+        state_dict, optimizer = ckpt["state_dict"], ckpt["optimizer"]
+        if self.mesh is not None:
+            state_dict = shard_state_dict(state_dict, self.mesh)
+            optimizer = shard_optimizer_state(optimizer, self._param_names(), self.mesh)
+        self.model.load_state_dict(state_dict, strict=True)
+        self.optimizer.optimizer.load_state_dict(optimizer)
         self.optimizer.scheduler.load_state_dict(ckpt["scheduler"])
         self.optimizer.calls = int(ckpt["optimizer_calls"])
-        self.generator.set_state(states[self.rank] if isinstance(states, list) else states)
+        self.generator.set_state(states[self.data_rank] if isinstance(states, list) else states)
         self.train_global_step = int(ckpt["global_step"])
         self.best_performance = float(ckpt["best_performance"])
         # an epoch checkpoint's own performance is not the run's best: the

@@ -55,6 +55,15 @@
 //   D: ln_rows, dense<BiasOnly>.
 //   E: (below) the means, the gate and the blend, then dense<ProjResidual>.
 //
+// Under tensor parallelism (models/vit.py, parallel/mesh.py) fc2 and proj
+// are row-parallel: each rank's product over its input columns is a partial
+// sum of the whole one, and bias and residual must enter it once. tp rank 0
+// runs C's and E's GEMMs as they are (BiasResidual, ProjResidual: x +
+// rnd(acc + bias)) on its shard, the other ranks dense<RowPartial>: out =
+// rnd(acc), the product alone; the caller sums the ranks' outputs. In f32
+// the result differs from one process's only by the order of the partial
+// sums; in bf16 each rank's part is rounded, then their sum.
+//
 // The attention's tail (mlp.py:272-296) reads the two branch outputs y_s and
 // y_t (BT, N, C) and the block input x, 4 x 38.7 MB in bf16 (0.046 ms at
 // 3.35 TB/s) against 30 GFLOP of proj (0.030 ms at the peak): memory bounds it.
@@ -94,7 +103,7 @@
 // f32 (the dtype of the eval CLI, the demo and the trainer), all three, split
 // as bf16 is: ln_rows_f32_kernel (LN once a row, a warp a row held in
 // registers as float4), gate_blend_f32_kernel, and gemm_f32_kernel<Epi>
-// with the four epilogues. What bounds the GEMM: f32 FMAs on the CUDA cores
+// with the five epilogues. What bounds the GEMM: f32 FMAs on the CUDA cores
 // (no TF32: the model's f32 is f32 arithmetic), 119 GFLOP a product of C
 // at the flagship, 1.78 ms at the 67 TFLOP/s peak. So every shared-memory
 // word a thread reads feeds 8 FMAs: a 128 x 128 tile a CTA of 256 threads,
@@ -138,6 +147,7 @@ struct BiasOnly {};
 struct BiasGelu {};
 struct BiasResidual {};
 struct ProjResidual {};
+struct RowPartial {};  // tensor parallelism's fc2 and proj past tp rank 0: the product alone
 template <typename A, typename B>
 constexpr bool kSame = std::is_same<A, B>::value;
 
@@ -320,13 +330,15 @@ __device__ __forceinline__ void dense_epilogue(const float (&acc)[kDnBN / 2],
     for (int jj = 0; jj < 16; ++jj) {
       const int j = 16 * h + jj, col = n0 + 8 * j + 2 * t;
       const bool live = col < N;  // N even: the pair is all in or all out
-      const float b0 = live ? __ldg(bias + col) : 0.f, b1 = live ? __ldg(bias + col + 1) : 0.f;
+      const bool with_bias = live && !kSame<Epi, RowPartial>;
+      const float b0 = with_bias ? __ldg(bias + col) : 0.f;
+      const float b1 = with_bias ? __ldg(bias + col + 1) : 0.f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
         const float v0 = acc[4 * j + 2 * r] + b0, v1 = acc[4 * j + 2 * r + 1] + b1;
         __nv_bfloat162 y;
-        if constexpr (kSame<Epi, BiasOnly>) {
+        if constexpr (kSame<Epi, BiasOnly> || kSame<Epi, RowPartial>) {
           y = __floats2bfloat162_rn(v0, v1);
         } else if constexpr (kSame<Epi, BiasGelu>) {
           y = __floats2bfloat162_rn(gelu_erf(v0), gelu_erf(v1));
@@ -639,7 +651,9 @@ __global__ void __launch_bounds__(kGemmThreads, 1) gemm_f32_kernel(
       constexpr int kRows = kGemmBM * kGemmBN / 4 / kGemmThreads;
       const int c = tid % (kGemmBN / 4) * 4, r0 = tid / (kGemmBN / 4), n = n0 + c;
       if (n < N) {
-        const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + n));
+        const float4 b4 = kSame<Epi, RowPartial>
+                              ? make_float4(0.f, 0.f, 0.f, 0.f)
+                              : __ldg(reinterpret_cast<const float4*>(bias + n));
         float4 r4[kRows];
         if constexpr (kSame<Epi, BiasResidual> || kSame<Epi, ProjResidual>) {
 #pragma unroll
@@ -667,7 +681,8 @@ __global__ void __launch_bounds__(kGemmThreads, 1) gemm_f32_kernel(
       for (int idx = tid; idx < kGemmBM * kGemmBN; idx += kGemmThreads) {
         const int r = idx / kGemmBN, c = idx % kGemmBN, m = m0 + r, n = n0 + c;
         if (m >= M || n >= N) continue;
-        float v = c_s[r * kGemmOutPitch + c] + bias[n];
+        float v = c_s[r * kGemmOutPitch + c];
+        if constexpr (!kSame<Epi, RowPartial>) v += bias[n];
         if constexpr (kSame<Epi, BiasGelu>) {
           v = gelu_erf(v);
         } else if constexpr (kSame<Epi, BiasResidual> || kSame<Epi, ProjResidual>) {
@@ -1243,7 +1258,9 @@ extern "C" int maed_ln_rows(int is_bf16, const void* x, const float* ln_scale,
 
 // bf16 out (M, N) = epilogue(a @ w^T + bias): a (M, K), w (N, K), bias (N)
 // f32, residual (M, N) for epilogues 2 and 3; epilogue 0 is + bias, 1 + bias
-// then GELU, 2 (C's fc2) and 3 (E's proj) + bias, rounded, then + residual.
+// then GELU, 2 (C's fc2) and 3 (E's proj) + bias, rounded, then + residual;
+// 4 (RowPartial: a row-parallel fc2 or proj past tp rank 0) the product
+// alone, rounded (bias and residual unread, may be null).
 // K and N multiples of 8, a and w 16-byte aligned (a tensor map's rule),
 // residual and out 4-byte aligned. A map the encoder refuses is
 // kTensorMapError (10000) + its CUresult.
@@ -1256,6 +1273,7 @@ extern "C" int maed_dense_bf16(int epilogue, const void* a, const void* w, const
     case 1: return launch_dense_bf16<BiasGelu>(a, w, bias, residual, out, M, N, K, s);
     case 2: return launch_dense_bf16<BiasResidual>(a, w, bias, residual, out, M, N, K, s);
     case 3: return launch_dense_bf16<ProjResidual>(a, w, bias, residual, out, M, N, K, s);
+    case 4: return launch_dense_bf16<RowPartial>(a, w, bias, residual, out, M, N, K, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1271,6 +1289,7 @@ extern "C" int maed_dense_f32(int epilogue, const float* a, const float* w, cons
     case 1: return launch_gemm_f32<BiasGelu>(a, w, bias, residual, out, M, N, K, s);
     case 2: return launch_gemm_f32<BiasResidual>(a, w, bias, residual, out, M, N, K, s);
     case 3: return launch_gemm_f32<ProjResidual>(a, w, bias, residual, out, M, N, K, s);
+    case 4: return launch_gemm_f32<RowPartial>(a, w, bias, residual, out, M, N, K, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

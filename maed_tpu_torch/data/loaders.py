@@ -106,7 +106,9 @@ class ShardedLoader:
     shuffle=True draws a new permutation per epoch from seed+epoch (call
     set_epoch like the reference trainer does). Equal-length shards are
     guaranteed by padding with wrapped-around indices, so every host runs the
-    same number of steps (collective-friendly).
+    same number of steps (collective-friendly); ``pad=False`` leaves the
+    shards unpadded (r of W takes indices r, r + W, ...: each index once),
+    for an evaluation whose ranks meet only at the end.
     """
 
     def __init__(
@@ -120,6 +122,7 @@ class ShardedLoader:
         drop_last: bool = True,
         prefetch: int = 2,
         num_workers: int = 0,
+        pad: bool = True,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -131,6 +134,7 @@ class ShardedLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.num_workers = num_workers
+        self.pad = pad
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -146,12 +150,14 @@ class ShardedLoader:
             order = np.arange(n)
         # pad so each of the world_size shards has equal length
         total = int(np.ceil(n / self.world_size)) * self.world_size
-        if total > n:
+        if total > n and self.pad:
             order = np.concatenate([order, order[: total - n]])
         return order[self.rank::self.world_size]
 
     def __len__(self):
         per_shard = int(np.ceil(len(self.dataset) / self.world_size))
+        if not self.pad:
+            per_shard = len(range(self.rank, len(self.dataset), self.world_size))
         if self.drop_last:
             return per_shard // self.batch_size
         return int(np.ceil(per_shard / self.batch_size))

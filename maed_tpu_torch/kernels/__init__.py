@@ -42,6 +42,9 @@ LAUNCHES: dict[str, int] = {
     "gate_alpha": 0,    # csrc/ln_mlp.cu, E: the gate product and its softmax pairs
     "gate_blend": 0,    # csrc/ln_mlp.cu, E: the blend of the two branches
     "gate_proj": 0,     # csrc/ln_mlp.cu, E: proj + residual (the dense GEMM's "proj")
+    # csrc/ln_mlp.cu, the row-parallel epilogue of tensor parallelism (RowPartial):
+    "ln_mlp_fc2_partial": 0,  # C's fc2 on a rank's hidden rows
+    "gate_proj_partial": 0,   # E's proj on a rank's channels
     "groupnorm": 0,     # csrc/groupnorm.cu, bf16: a cluster of CTAs a frame
     "groupnorm_strided": 0,   # csrc/groupnorm.cu, f32 and other shapes: a block per group(s)
     "spatial_attention": 0,   # csrc/st_attention.cu, attention over tokens

@@ -39,7 +39,12 @@ class Dropout(nn.Module):
         self.rate = float(rate)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, shard=None) -> torch.Tensor:
+        """``shard = (dim, start, full)``: x is the slice [start, start +
+        x.shape[dim]) along ``dim`` of a tensor ``full`` long there (a
+        tensor-parallel rank's heads or hidden columns); the mask is drawn
+        whole, as for that tensor, and cut to the slice, so that the ranks
+        together draw the one-process mask."""
         if not train or self.rate == 0.0:
             return x
         if generator is None:
@@ -47,7 +52,13 @@ class Dropout(nn.Module):
                              "masks from an explicit torch.Generator; pass generator=")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1) if self.per_sample else x.shape
+        if shard is not None:
+            dim, start, full = shard
+            shape = list(shape)
+            shape[dim] = full
         mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        if shard is not None:
+            mask = mask.narrow(dim, start, x.shape[dim])
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

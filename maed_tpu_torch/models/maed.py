@@ -40,14 +40,16 @@ class MAED(nn.Module):
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  decoder_drop: float = 0.5, encoder: str = "ste", decoder: str = "ktd",
                  smpl_dir: str = "data/smpl_data", remat: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         """standardize_ws=False runs the ViT's stem on weights that
         ``utils.checkpoint.fold_weight_standardization`` standardized. The
         rates are the ViT's dropout, attention dropout and (largest)
         drop-path, and the decoder's dropout. ``smpl_dir`` is where the
         iterative decoder looks for ``smpl_mean_params.npz``. ``remat``
         recomputes each ViT block's activations in the backward
-        (``models.vit.remat_block``); the 'cnn' encoder has no blocks."""
+        (``models.vit.remat_block``); the 'cnn' encoder has no blocks.
+        ``mesh`` (``parallel.mesh.make_mesh``) with tp > 1 splits each ViT
+        block over the tp group (``models.vit``); the rest is replicated."""
         super().__init__()
         self.encoder_name, self.decoder_name = encoder.lower(), decoder.lower()
         if self.encoder_name not in ENCODERS or self.decoder_name not in DECODERS:
@@ -59,7 +61,7 @@ class MAED(nn.Module):
                                              standardize=standardize_ws, st_mode=st_mode,
                                              drop_rate=drop_rate, attn_drop_rate=attn_drop_rate,
                                              drop_path_rate=drop_path_rate, remat=remat,
-                                             dtype=dtype)
+                                             dtype=dtype, mesh=mesh)
             feat_dim = 768
         else:
             self.encoder = ResNet50(dtype=dtype)

@@ -35,6 +35,27 @@ activations in a training forward under grad: each block runs under
 ``torch.utils.checkpoint`` and its forward runs again in the backward
 (:func:`remat_block`), for the memory of one block's activations instead of
 ``depth`` blocks'. The recomputation draws the first run's dropout masks.
+
+Tensor parallelism (``mesh``, a ``parallel.mesh.Mesh`` with tp > 1): each
+block holds its rank's shards as its own contiguous parameters (qkv the q,
+k and v rows of its h / tp heads, proj the matching input columns, fc1 its
+4C / tp hidden columns, fc2 their rows) and every kernel runs on them. The
+block's input enters through ``parallel.tensor.copy_to_tp``; norm1 and the
+qkv run through kernel D on the rank's 3C / tp outputs (the LN
+replicated), the attention kernels on its heads; the parallel mode's tail
+runs as its pieces: the branch means on the rank's C / tp channels,
+gathered over the group into the full [mean y_s || mean y_t], the gate
+over the replicated ts_attn, the rank's channels of alpha blended, and
+proj, whose partial sums ``parallel.tensor.reduce_from_tp`` adds. The MLP
+runs likewise: the LN pre-pass, fc1 with the GELU epilogue on the rank's
+hidden columns, fc2, the sum. Bias and residual enter on tp rank 0 only:
+it runs C's and E's GEMMs as one process does, on its shard, and the other
+ranks the product alone (``RowPartial``). A replicated parameter of a block
+is then used on each rank for its channels only, and its gradient there is
+partial (``parallel.mesh.tp_partial_parameters``, summed over the group
+before the update). Dropout masks are drawn whole from the data rank's
+generator and cut to the rank's heads or hidden columns, so tp ranks draw
+the masks of one process.
 """
 
 from __future__ import annotations
@@ -51,10 +72,16 @@ from maed_tpu_torch.ops.attention import (_xla_attention, attention_blocked_refe
                                           fused_attention)
 from maed_tpu_torch.ops.layernorm import fast_layernorm, layernorm_reference
 from maed_tpu_torch.ops.mlp import (_gelu_exact, fused_gate_proj, fused_ln_dense, fused_ln_mlp,
-                                    gate_proj_reference, ln_dense_reference, ln_mlp_reference)
+                                    fused_ln_mlp_partial, gate_alpha, gate_alpha_reference,
+                                    gate_blend, gate_blend_reference, gate_means,
+                                    gate_means_reference, gate_proj_reference, ln_dense_reference,
+                                    ln_mlp_partial_reference, ln_mlp_reference)
+from maed_tpu_torch.ops.mlp import dense as gemm
+from maed_tpu_torch.ops.mlp import dense_reference as gemm_reference
 from maed_tpu_torch.ops.st_attention import (MAX_TOKENS, _attend, spatial_attention_btc,
                                              spatial_reference_btc, temporal_attention_fused,
                                              temporal_reference_btc)
+from maed_tpu_torch.parallel.tensor import copy_to_tp, gather_segments, reduce_from_tp
 
 ST_MODES = ("vanilla", "spatial", "temporal", "coupling", "parallel", "series")
 TEMP_EMBED_MODES = ("coupling", "parallel", "series")  # the modes that mix frames by position
@@ -75,30 +102,66 @@ class FastLayerNorm(nn.Module):
         return norm(x.to(self.dtype), self.weight, self.bias, self.eps)
 
 
+def _tp_mesh(mesh, what: str, **widths):
+    """``mesh`` when it splits the block (tp > 1), else None; raises unless
+    tp divides each of ``widths``."""
+    if mesh is None or mesh.tp == 1:
+        return None
+    for name, width in widths.items():
+        if width % mesh.tp:
+            raise ValueError(f"{what}: MAED_MESH_TP={mesh.tp} must divide the {name} ({width})")
+    return mesh
+
+
 class Mlp(nn.Module):
     """fc1 and fc2 of the block's MLP, and its dropout; the compute is the
-    fused kernel."""
+    fused kernel. Under a mesh with tp > 1, fc1 holds the rank's hidden
+    columns and fc2 their rows."""
 
-    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0, mesh=None):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.mesh = _tp_mesh(mesh, "Mlp", hidden_width=hidden)
+        tp = 1 if self.mesh is None else self.mesh.tp
+        self.hidden = hidden
+        self.fc1 = nn.Linear(dim, hidden // tp)
+        self.fc2 = nn.Linear(hidden // tp, dim)
         self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor, norm: FastLayerNorm, plain: bool = False):
         """x + fc2(gelu(fc1(norm(x)))) in x's dtype; b1 and b2 stay f32."""
-        mlp = ln_mlp_reference if plain else fused_ln_mlp
-        return mlp(x, norm.weight, norm.bias, self.fc1.weight.to(x.dtype), self.fc1.bias,
-                   self.fc2.weight.to(x.dtype), self.fc2.bias, norm.eps)
+        mesh = self.mesh
+        if mesh is None:
+            mlp = ln_mlp_reference if plain else fused_ln_mlp
+            return mlp(x, norm.weight, norm.bias, self.fc1.weight.to(x.dtype), self.fc1.bias,
+                       self.fc2.weight.to(x.dtype), self.fc2.bias, norm.eps)
+        # tp rank 0 adds fc2's bias and the residual, the others their part alone
+        x = copy_to_tp(x, mesh)
+        args = (x, norm.weight, norm.bias, self.fc1.weight.to(x.dtype), self.fc1.bias,
+                self.fc2.weight.to(x.dtype))
+        if mesh.tp_rank == 0:
+            out = (ln_mlp_reference if plain else fused_ln_mlp)(*args, self.fc2.bias, norm.eps)
+        else:
+            out = (ln_mlp_partial_reference if plain else fused_ln_mlp_partial)(*args, norm.eps)
+        return reduce_from_tp(out, mesh)
 
     def branch(self, x: torch.Tensor, norm: FastLayerNorm, generator: torch.Generator):
         """The training form with dropout, without the residual:
         drop(fc2(drop(gelu(fc1(norm(x)))))), each product and bias in x's
         dtype, as the JAX package's plain MLP path."""
-        dt = x.dtype
+        dt, mesh = x.dtype, self.mesh
+        if mesh is None:
+            y = layernorm_reference(x, norm.weight, norm.bias, norm.eps)
+            y = self.drop(_gelu_exact(dense(y, self.fc1, dt)), True, generator)
+            return self.drop(dense(y, self.fc2, dt), True, generator)
+        x = copy_to_tp(x, mesh)
         y = layernorm_reference(x, norm.weight, norm.bias, norm.eps)
-        y = self.drop(_gelu_exact(dense(y, self.fc1, dt)), True, generator)
-        return self.drop(dense(y, self.fc2, dt), True, generator)
+        cols = self.fc1.weight.shape[0]
+        y = self.drop(_gelu_exact(dense(y, self.fc1, dt)), True, generator,
+                      (-1, mesh.tp_rank * cols, self.hidden))
+        y = torch.matmul(y.to(dt), self.fc2.weight.to(dt).t())
+        if mesh.tp_rank == 0:
+            y = y + self.fc2.bias.to(dt)
+        return self.drop(reduce_from_tp(y, mesh), True, generator)
 
 
 class StAttention(nn.Module):
@@ -115,18 +178,23 @@ class StAttention(nn.Module):
 
     ``forward`` returns x + proj(attention(norm(x))). ``last_gate`` holds the
     parallel mode's gate weights (BT, 1, C, 2) of the latest eager call,
-    detached, for ``core.evaluate.Evaluator.count_attn``.
+    detached, for ``core.evaluate.Evaluator.count_attn`` (the whole gate
+    under tensor parallelism too). Under a mesh with tp > 1 the qkv holds
+    the rank's heads and proj their input columns.
     """
 
     def __init__(self, dim: int, num_heads: int, st_mode: str = "parallel",
                  attn_drop: float = 0.0, proj_drop: float = 0.0, qkv_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         if st_mode not in ST_MODES:
             raise ValueError(f"st_mode {st_mode!r} is not one of {ST_MODES}")
+        self.mesh = _tp_mesh(mesh, "StAttention", heads=num_heads, width=dim)
+        tp = 1 if self.mesh is None else self.mesh.tp
         self.num_heads, self.st_mode, self.dtype = num_heads, st_mode, dtype
-        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.local_heads, self.head_dim = num_heads // tp, dim // num_heads
+        self.qkv = nn.Linear(dim, dim * 3 // tp, bias=qkv_bias)
+        self.proj = nn.Linear(dim // tp, dim)
         self.attn_drop, self.proj_drop = Dropout(attn_drop), Dropout(proj_drop)
         if st_mode == "parallel":
             # input is the concat of the two branch means: (2C) -> (2C)
@@ -134,10 +202,11 @@ class StAttention(nn.Module):
         self.last_gate = None
 
     def _qkv(self, x, norm: FastLayerNorm | None, plain: bool):
-        """(BT, N, C) -> the projection (BT, N, 3, h, d), never transposed;
-        with ``norm`` the LayerNorm runs inside the projection's kernel."""
+        """(BT, N, C) -> the projection (BT, N, 3, h, d) (h the rank's heads),
+        never transposed; with ``norm`` the LayerNorm runs inside the
+        projection's kernel."""
         BT, N, C = x.shape
-        dt, h = self.dtype, self.num_heads
+        dt = self.dtype
         if norm is None:
             y = dense(x, self.qkv, dt)
         else:
@@ -145,27 +214,33 @@ class StAttention(nn.Module):
             # a qkv without a bias feeds the kernel zeros, as the JAX package does
             bias = self.qkv.bias
             if bias is None:
-                bias = torch.zeros(3 * C, device=x.device)
+                bias = torch.zeros(self.qkv.weight.shape[0], device=x.device)
             y = ln_dense(x, norm.weight, norm.bias, self.qkv.weight.to(dt), bias, norm.eps)
-        return y.reshape(BT, N, 3, h, C // h)
+        return y.reshape(BT, N, 3, self.local_heads, self.head_dim)
 
     def _drop(self, train: bool, generator):
-        """The attention dropout as the plain versions take it, or None
-        where it draws nothing (and the kernels run)."""
+        """The attention dropout as the plain versions take it, a function
+        of the probabilities and their head axis, or None where it draws
+        nothing (and the kernels run). Under tensor parallelism the mask is
+        drawn for every head and cut to the rank's."""
         if not train or self.attn_drop.rate == 0.0:
             return None
-        return lambda probs: self.attn_drop(probs, True, generator)
+        if self.mesh is None:
+            return lambda probs, axis: self.attn_drop(probs, True, generator)
+        first = self.mesh.tp_rank * self.local_heads
+        return lambda probs, axis: self.attn_drop(probs, True, generator,
+                                                  (axis, first, self.num_heads))
 
     def _spatial(self, qkv, plain: bool, drop):
         d = qkv.shape[-1]
-        if drop is not None:
-            return spatial_reference_btc(qkv, d ** -0.5, drop)
+        if drop is not None:  # probabilities (BT, h, N, N)
+            return spatial_reference_btc(qkv, d ** -0.5, lambda p: drop(p, 1))
         return (spatial_reference_btc if plain else spatial_attention_btc)(qkv, d ** -0.5)
 
     def _temporal(self, qkv, seqlen: int, plain: bool, drop):
         BT, N, _, h, d = qkv.shape
-        if drop is not None:
-            return temporal_reference_btc(qkv, seqlen, d ** -0.5, drop)
+        if drop is not None:  # probabilities (B, N, h, T, T)
+            return temporal_reference_btc(qkv, seqlen, d ** -0.5, lambda p: drop(p, 2))
         if seqlen == 1:
             # attention over a single frame is the identity over v
             return qkv[:, :, 2].reshape(BT, N, h * d).contiguous()
@@ -182,7 +257,8 @@ class StAttention(nn.Module):
         B = BT // seqlen
         q, k, v = (a.transpose(1, 2) for a in qkv.view(B, seqlen * N, 3, h, d).unbind(2))
         if drop is not None:
-            y = _attend(q, k, v, d ** -0.5, "bhsd,bhtd->bhst", "bhst,bhtd->bhsd", drop)
+            y = _attend(q, k, v, d ** -0.5, "bhsd,bhtd->bhst", "bhst,bhtd->bhsd",
+                        lambda p: drop(p, 1))
         elif plain:
             reference = attention_blocked_reference if seqlen * N > MAX_TOKENS else _xla_attention
             y = reference(q, k, v, d ** -0.5)
@@ -197,11 +273,54 @@ class StAttention(nn.Module):
     def _gate(self, y_s, y_t):
         """The parallel mode's gate and blend in plain form, each step in the
         dtype, as the JAX package's unfused path."""
-        BT, _, C = y_s.shape
+        BT = y_s.shape[0]
         alpha = torch.cat([y_s.mean(dim=1, keepdim=True), y_t.mean(dim=1, keepdim=True)], dim=-1)
+        alpha = gather_segments(alpha, 2, self.mesh)
+        C = alpha.shape[-1] // 2
         alpha = torch.softmax(dense(alpha, self.ts_attn, self.dtype).reshape(BT, 1, C, 2), dim=-1)
         self._keep_gate(alpha)
+        alpha = self._channels(alpha)
         return y_t * alpha[..., 1] + y_s * alpha[..., 0]
+
+    def _channels(self, alpha):
+        """The rank's channels of the gate (BT, 1, C, 2): all of them
+        without a mesh."""
+        if self.mesh is None:
+            return alpha
+        width = self.local_heads * self.head_dim
+        return alpha[:, :, self.mesh.tp_rank * width:(self.mesh.tp_rank + 1) * width]
+
+    def _split_tail(self, y_s, y_t, x, plain: bool):
+        """The parallel mode's tail under tensor parallelism, x + proj(gated
+        blend), from the rank's channels of the branches: E's pieces one by
+        one, the branch means gathered over the group between the first two,
+        proj with the bias and residual on tp rank 0 and through the
+        row-parallel epilogue on the others, the ranks' parts summed."""
+        mesh, dt = self.mesh, self.dtype
+        means = (gate_means_reference if plain else gate_means)(y_s, y_t)
+        means = gather_segments(means, 2, mesh)
+        alpha = (gate_alpha_reference if plain else gate_alpha)(
+            means, self.ts_attn.weight.to(dt), self.ts_attn.bias)
+        self._keep_gate(alpha)
+        y = (gate_blend_reference if plain else gate_blend)(
+            y_s, y_t, self._channels(alpha).contiguous())
+        gemm_fn = gemm_reference if plain else gemm
+        if mesh.tp_rank == 0:
+            out = gemm_fn(y, self.proj.weight.to(dt), self.proj.bias, "proj", x)
+        else:
+            out = gemm_fn(y, self.proj.weight.to(dt), None, "proj_partial")
+        return reduce_from_tp(out, mesh)
+
+    def _proj(self, y):
+        """proj(y) as a plain product (the modes other than the parallel
+        one's fused tail, as in the JAX package); under tensor parallelism
+        the rank's partial product, the bias on tp rank 0, summed."""
+        if self.mesh is None:
+            return dense(y, self.proj, self.dtype)
+        y = torch.matmul(y.to(self.dtype), self.proj.weight.to(self.dtype).t())
+        if self.mesh.tp_rank == 0:
+            y = y + self.proj.bias.to(self.dtype)
+        return reduce_from_tp(y, self.mesh)
 
     def _keep_gate(self, alpha):
         """``last_gate`` of an eager call; an exported program keeps no state."""
@@ -215,15 +334,19 @@ class StAttention(nn.Module):
         ``residual=False`` returns the dropped-out proj(attention) alone,
         through the plain gate in the parallel mode (a block with a
         positive dropout or drop-path rate adds the residual itself)."""
-        dt, mode = self.dtype, self.st_mode
+        dt, mode, mesh = self.dtype, self.st_mode, self.mesh
         x = x.to(dt)
         drop = self._drop(train, generator)
+        # the block's input to the column-parallel products (no-op without a mesh)
+        xc = copy_to_tp(x, mesh)
         if mode == "parallel":
-            qkv = self._qkv(x, norm, plain)
+            qkv = self._qkv(xc, norm, plain)
             y_t = self._temporal(qkv, seqlen, plain, drop)
             y_s = self._spatial(qkv, plain, drop)
             if not residual:
                 y = self._gate(y_s, y_t)
+            elif mesh is not None:
+                return self._split_tail(y_s, y_t, xc, plain)
             else:
                 # the gate [mean y_s || mean y_t] @ ts_attn, softmaxed per channel's
                 # (spatial, temporal) pair, blends the branches; then proj and residual
@@ -233,18 +356,19 @@ class StAttention(nn.Module):
                 self._keep_gate(alpha)
                 return out
         elif mode in ("vanilla", "spatial"):
-            y = self._spatial(self._qkv(x, norm, plain), plain, drop)
+            y = self._spatial(self._qkv(xc, norm, plain), plain, drop)
         elif mode == "temporal":
-            xn = norm(x, plain)
+            xn = norm(xc, plain)
             y = self._temporal(self._qkv(xn.mean(dim=1, keepdim=True), None, plain), seqlen,
                                plain, drop)
         elif mode == "coupling":
-            y = self._coupling(self._qkv(x, norm, plain), seqlen, plain, drop)
-        else:  # series
-            y = self._spatial(self._qkv(x, norm, plain), plain, drop)
-            y = self._temporal(self._qkv(y, None, plain), seqlen, plain, drop)
+            y = self._coupling(self._qkv(xc, norm, plain), seqlen, plain, drop)
+        else:  # series: the second projection reads every head of the first's result
+            y = self._spatial(self._qkv(xc, norm, plain), plain, drop)
+            y = self._temporal(self._qkv(gather_segments(y, 1, mesh), None, plain), seqlen, plain,
+                               drop)
         # temporal: the (BT, 1, C) result broadcasts over the N tokens
-        y = self.proj_drop(dense(y, self.proj, dt), train, generator)
+        y = self.proj_drop(self._proj(y), train, generator)
         return x + y if residual else y
 
 
@@ -252,13 +376,15 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  st_mode: str = "parallel", drop: float = 0.0, attn_drop: float = 0.0,
                  drop_path: float = 0.0, qkv_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         self.dtype = dtype
         self.norm1 = FastLayerNorm(dim, dtype=dtype)
-        self.attn = StAttention(dim, num_heads, st_mode, attn_drop, drop, qkv_bias, dtype=dtype)
+        self.attn = StAttention(dim, num_heads, st_mode, attn_drop, drop, qkv_bias, dtype=dtype,
+                                mesh=mesh)
         self.norm2 = FastLayerNorm(dim, dtype=dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, mesh=mesh)
+        self.mesh = self.attn.mesh
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, seqlen: int, plain: bool = False, train: bool = False,
@@ -377,7 +503,7 @@ class VisionTransformer(nn.Module):
                  img_size: int = 224, hybrid: bool = True, patch_size: int = 16,
                  standardize: bool = True, st_mode: str = "parallel", drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 remat: bool = False, dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         self.dtype, self.st_mode, self.remat = dtype, st_mode, remat
         self.embed_dim, self.depth, self.num_heads = embed_dim, depth, num_heads
@@ -397,7 +523,7 @@ class VisionTransformer(nn.Module):
         # the drop-path rate grows linearly over the depth, from 0
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, st_mode, drop_rate, attn_drop_rate,
-                  float(rate), qkv_bias, dtype=dtype)
+                  float(rate), qkv_bias, dtype=dtype, mesh=mesh)
             for rate in np.linspace(0.0, drop_path_rate, depth))
         self.norm = FastLayerNorm(embed_dim, dtype=dtype)
         if representation_size:

@@ -16,7 +16,17 @@ softmax), ``gate_blend`` (the blended branches) and ``dense`` with the
 "proj" epilogue; ``gate_means_reference``, ``gate_alpha_reference``,
 ``gate_blend_reference`` and ``dense_reference`` chained equal
 ``gate_proj_reference`` bit for bit. ``fused_gate_proj`` launches its pieces
-from one C call. The weights are taken as
+from one C call.
+
+Tensor parallelism (``models.vit`` under a mesh with tp > 1) splits fc2
+and proj by their input rows, so each rank's product is a partial sum, and
+bias and residual must enter once: tp rank 0 runs C and E's GEMM as they
+are on its shard, the other ranks ``dense``'s "fc2_partial" and
+"proj_partial" epilogues (one CUDA epilogue, ``RowPartial``: the product
+alone, rounded once), and the caller sums the ranks' outputs
+(``parallel.tensor.reduce_from_tp``). ``fused_ln_mlp_partial`` is C's
+chain with it, and the gate's pieces each have a gradient, since the
+split tail calls them one by one. The weights are taken as
 ``nn.Linear`` stores them: w1 (H, C), w2 (C, H), w (O, C), w_ts (2C, 2C) and
 w_p (C, C), in x's dtype; the biases stay f32, as in the TPU kernels. The JAX
 package gates its MLP kernel on the weights fitting in VMEM
@@ -67,9 +77,12 @@ def ln_rows_reference(x, ln_scale, ln_bias, eps):
 
 
 # the epilogues of the dense GEMM: the code its C entry takes, and the count a
-# launch goes under (the kernel whose product it is)
+# launch goes under (the kernel whose product it is); the row-parallel ones
+# of tensor parallelism write the product alone
 _EPILOGUES = {"bias": (0, "ln_dense"), "gelu": (1, "ln_mlp_fc1"), "residual": (2, "ln_mlp_fc2"),
-              "proj": (3, "gate_proj")}
+              "proj": (3, "gate_proj"), "fc2_partial": (4, "ln_mlp_fc2_partial"),
+              "proj_partial": (4, "gate_proj_partial")}
+_PARTIAL = ("fc2_partial", "proj_partial")
 
 
 def _epilogue(epilogue):
@@ -83,8 +96,11 @@ def dense_reference(a, w, b, epilogue="bias", residual=None):
     then by ``epilogue``: "bias" rounds once to a's dtype; "gelu" takes the
     exact-erf GELU there and rounds; "residual" (C's fc2) and "proj" (E's
     proj, the same function) round, then add it to ``residual`` in a's
-    dtype."""
+    dtype; "fc2_partial" and "proj_partial" (a row-parallel rank's part,
+    past tp rank 0) round the product alone (b and ``residual`` unused)."""
     _epilogue(epilogue)
+    if epilogue in _PARTIAL:
+        return _product(a, w, a.dtype).to(a.dtype)
     st = torch.promote_types(a.dtype, torch.float32)
     y = _product(a, w, a.dtype) + b.to(st)
     if epilogue == "gelu":
@@ -102,6 +118,15 @@ def ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
     h = _gelu_exact(_product(_layernorm(x, ln_scale, ln_bias, eps), w1, x.dtype) + b1.to(st))
     y = _product(h, w2, x.dtype) + b2.to(st)
     return x + y.to(x.dtype)
+
+
+def ln_mlp_partial_reference(x, ln_scale, ln_bias, w1, b1, w2, eps):
+    """A tensor-parallel rank's part of :func:`ln_mlp_reference` past tp
+    rank 0: w1 (H/tp, C) and b1 its fc1 columns, w2 (C, H/tp) its fc2 rows;
+    fc2's product alone, rounded once ("fc2_partial")."""
+    st = torch.promote_types(x.dtype, torch.float32)
+    h = _gelu_exact(_product(_layernorm(x, ln_scale, ln_bias, eps), w1, x.dtype) + b1.to(st))
+    return _product(h, w2, x.dtype).to(x.dtype)
 
 
 def ln_dense_reference(x, ln_scale, ln_bias, w, b, eps):
@@ -203,11 +228,12 @@ def _launch_dense(epilogue, a2, w, b, residual=None):
     (M, K), N = a2.shape, w.shape[0]
     out = torch.empty((M, N), dtype=a2.dtype, device=a2.device)
     res = None if residual is None else residual.data_ptr()
+    bias = None if b is None else b.data_ptr()
     entry = "maed_dense_bf16" if a2.dtype == torch.bfloat16 else "maed_dense_f32"
     lib = kernels.library()
     with torch.cuda.device(a2.device):
         kernels.check(getattr(lib, entry)(
-            code, a2.data_ptr(), w.data_ptr(), b.data_ptr(), res, out.data_ptr(), M, N, K,
+            code, a2.data_ptr(), w.data_ptr(), bias, res, out.data_ptr(), M, N, K,
             torch.cuda.current_stream().cuda_stream), f"{entry} ({epilogue})")
     kernels.LAUNCHES[count] += 1
     return out
@@ -228,14 +254,21 @@ def ln_rows(x, ln_scale, ln_bias, eps=1e-6):
 
 def dense(a, w, b, epilogue="bias", residual=None):
     """:func:`dense_reference` as one CUDA launch (f32 or bf16 a, any
-    leading shape, (..., K) -> (..., N)). It counts under the kernel whose
-    product the epilogue is: "bias" D, "gelu" C's fc1, "residual" C's fc2,
-    "proj" E's proj."""
-    if a.device.type == "cpu":
-        return dense_reference(a, w, b, epilogue, residual)
+    leading shape, (..., K) -> (..., N)), with a gradient through the plain
+    version. It counts under the kernel whose product the epilogue is:
+    "bias" D, "gelu" C's fc1, "residual" C's fc2, "proj" E's proj,
+    "fc2_partial" and "proj_partial" a row-parallel rank's fc2 and proj."""
+    return differentiable(_dense_kernel, dense_reference, a, w, b, epilogue, residual)
+
+
+def _dense_kernel(a, w, b, epilogue="bias", residual=None):
     _epilogue(epilogue)
     K, N = a.shape[-1], w.shape[0]
-    expected = [(a, a.dtype, a.shape), (w, a.dtype, (N, K)), (b, torch.float32, (N,))]
+    expected = [(a, a.dtype, a.shape), (w, a.dtype, (N, K))]
+    if epilogue in _PARTIAL:
+        b = residual = None
+    else:
+        expected.append((b, torch.float32, (N,)))
     aligned = [a, w]
     if epilogue in ("residual", "proj"):
         if residual is None:
@@ -266,6 +299,26 @@ def _ln_mlp_kernel(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
     x2 = x.reshape(-1, C)
     h = _launch_dense("gelu", _launch_ln_rows(x2, ln_scale, ln_bias, eps), w1, b1)
     return _launch_dense("residual", h, w2, b2, x2).reshape(x.shape)
+
+
+def fused_ln_mlp_partial(x, ln_scale, ln_bias, w1, b1, w2, eps=1e-6):
+    """:func:`ln_mlp_partial_reference` on the card: :func:`ln_rows`, fc1
+    with the GELU epilogue on the rank's hidden columns, then fc2 with the
+    row-parallel epilogue."""
+    return differentiable(_ln_mlp_partial_kernel, ln_mlp_partial_reference, x, ln_scale,
+                          ln_bias, w1, b1, w2, eps)
+
+
+def _ln_mlp_partial_kernel(x, ln_scale, ln_bias, w1, b1, w2, eps):
+    C = x.shape[-1]
+    H = w1.shape[0]
+    _check_operands("fused_ln_mlp_partial", x, (
+        (x, x.dtype, x.shape), (w1, x.dtype, (H, C)), (w2, x.dtype, (C, H)),
+        (ln_scale, torch.float32, (C,)), (ln_bias, torch.float32, (C,)),
+        (b1, torch.float32, (H,))), widths=(C, H), aligned=(x, w1, w2))
+    x2 = x.reshape(-1, C)
+    h = _launch_dense("gelu", _launch_ln_rows(x2, ln_scale, ln_bias, eps), w1, b1)
+    return _launch_dense("fc2_partial", h, w2, None).reshape(x.shape)
 
 
 def fused_ln_dense(x, ln_scale, ln_bias, w, b, eps=1e-6):
@@ -303,9 +356,12 @@ def _check_gate(name, y_s, y_t, *others):
 
 
 def gate_means(y_s, y_t):
-    """:func:`gate_means_reference` as one CUDA launch (f32 or bf16)."""
-    if y_s.device.type == "cpu":
-        return gate_means_reference(y_s, y_t)
+    """:func:`gate_means_reference` as one CUDA launch (f32 or bf16), with a
+    gradient through the plain version."""
+    return differentiable(_gate_means_kernel, gate_means_reference, y_s, y_t)
+
+
+def _gate_means_kernel(y_s, y_t):
     BT, N, C = _check_gate("gate_means", y_s, y_t)
     means = torch.empty((BT, 2 * C), dtype=y_s.dtype, device=y_s.device)
     lib = kernels.library()
@@ -321,9 +377,12 @@ def gate_alpha(means, w_ts, b_ts):
     """:func:`gate_alpha_reference` as one CUDA launch (f32 or bf16 means
     (BT, 2C)), the pair softmax in the product's epilogue: in bf16 a
     tensor-core product, in f32 a register-tiled one on the CUDA cores whose
-    tiles are cut along k into a thread-block cluster (``csrc/ln_mlp.cu``)."""
-    if means.device.type == "cpu":
-        return gate_alpha_reference(means, w_ts, b_ts)
+    tiles are cut along k into a thread-block cluster (``csrc/ln_mlp.cu``);
+    with a gradient through the plain version."""
+    return differentiable(_gate_alpha_kernel, gate_alpha_reference, means, w_ts, b_ts)
+
+
+def _gate_alpha_kernel(means, w_ts, b_ts):
     if means.ndim != 2 or means.shape[1] % 2:
         raise ValueError(f"gate_alpha: means must be (BT, 2C), got {tuple(means.shape)}")
     BT, K = means.shape
@@ -344,9 +403,12 @@ def gate_alpha(means, w_ts, b_ts):
 
 
 def gate_blend(y_s, y_t, alpha):
-    """:func:`gate_blend_reference` as one CUDA launch (f32 or bf16)."""
-    if y_s.device.type == "cpu":
-        return gate_blend_reference(y_s, y_t, alpha)
+    """:func:`gate_blend_reference` as one CUDA launch (f32 or bf16), with a
+    gradient through the plain version."""
+    return differentiable(_gate_blend_kernel, gate_blend_reference, y_s, y_t, alpha)
+
+
+def _gate_blend_kernel(y_s, y_t, alpha):
     alpha_shape = (y_s.shape[0], 1, y_s.shape[-1], 2)
     BT, N, C = _check_gate("gate_blend", y_s, y_t, (alpha, y_s.dtype, alpha_shape))
     y = torch.empty_like(y_s)

@@ -13,6 +13,15 @@ whose backward sums the gradient across them too), and the gradient is
 averaged after the backward (:func:`average_gradients`): W processes then
 train as one process does on the whole batch.
 
+Under tensor parallelism (``parallel.mesh.make_mesh`` with tp > 1) the
+ranks of a tp group hold the same batch, so what means "over the data"
+runs over the data group (the 'dcn' x 'dp' ranks of one tp index, the JAX
+package's ``_data_axes``): :func:`sum_over_ranks`, :func:`mean_over_ranks`,
+:func:`weighted_mean`, :func:`gather_objects` and
+:func:`average_gradients`; summing over a tp group would count its batch tp
+times. :func:`any_rank`, :func:`barrier` and :func:`broadcast_str_from_rank0`
+stay over every rank. Without a mesh the data group is every rank.
+
 Without a launcher no group is made, and every function here is the
 one-process identity: rank 0 of 1.
 """
@@ -35,6 +44,27 @@ def rank() -> int:
 
 def world() -> int:
     return dist.get_world_size() if initialized() else 1
+
+
+# the group that "over the data" reduces over: None is every rank
+_data_group = None
+
+
+def set_data_group(group) -> None:
+    """Make ``group`` the data group (``parallel.mesh.make_mesh`` calls it;
+    None: every rank)."""
+    global _data_group
+    _data_group = group
+
+
+def data_rank() -> int:
+    """This rank's index in its data group: which shard of the data it takes."""
+    return dist.get_rank(_data_group) if initialized() else 0
+
+
+def data_world() -> int:
+    """The number of shards of the data: the data group's size."""
+    return dist.get_world_size(_data_group) if initialized() else 1
 
 
 def init_from_env(cpu: bool, backend: str | None = None) -> tuple[int, int]:
@@ -66,6 +96,7 @@ def init_from_env(cpu: bool, backend: str | None = None) -> tuple[int, int]:
 
 def shutdown() -> None:
     """Leave the group (at the end of a run, on every rank)."""
+    set_data_group(None)
     if initialized():
         dist.destroy_process_group()
 
@@ -118,48 +149,51 @@ def any_rank(flag: bool) -> bool:
 
 
 def mean_over_ranks(values: torch.Tensor) -> torch.Tensor:
-    """The mean over the ranks of ``values`` (f64; a copy on one process)."""
+    """The mean over the data group of ``values`` (f64; a copy on one
+    process)."""
     values = values.detach().to(torch.float64)
-    if world() <= 1:
+    if data_world() <= 1:
         return values
     values = values.to(_device())
-    dist.all_reduce(values)
-    return values / world()
+    dist.all_reduce(values, group=_data_group)
+    return values / data_world()
 
 
 def weighted_mean(values: dict, count: int) -> tuple[dict, int]:
-    """The mean of every metric over the ranks, each rank's weighted by its
-    ``count`` (its predictions), and the total count: one all-reduce of
-    [value * count ..., count] in f64. One process: the arguments."""
-    if world() <= 1:
+    """The mean of every metric over the data group, each rank's weighted by
+    its ``count`` (its predictions), and the total count: one all-reduce of
+    [value * count ..., count] in f64. One shard: the arguments."""
+    if data_world() <= 1:
         return values, count
     keys = list(values)
     local = torch.tensor([values[k] * count for k in keys] + [count], dtype=torch.float64,
                          device=_device())
-    dist.all_reduce(local)
+    dist.all_reduce(local, group=_data_group)
     total = local.tolist()
     n = max(total[-1], 1.0)
     return {k: total[i] / n for i, k in enumerate(keys)}, int(total[-1])
 
 
 def gather_objects(obj) -> list | None:
-    """Every rank's ``obj`` (picklable), in rank order, on rank 0; None on the
-    others. One process: [obj]."""
-    if world() <= 1:
+    """Every data rank's ``obj`` (picklable), in data-rank order, on data
+    rank 0 of each data group (global rank 0 among them); None on the
+    others. One shard: [obj]."""
+    if data_world() <= 1:
         return [obj]
-    out = [None] * world() if rank() == 0 else None
-    dist.gather_object(obj, out, dst=0)
+    root = dist.get_global_rank(_data_group, 0) if _data_group is not None else 0
+    out = [None] * data_world() if data_rank() == 0 else None
+    dist.gather_object(obj, out, dst=root, group=_data_group)
     return out
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """Σ over the ranks; the gradient of each rank's input is Σ over the
-    ranks of the output's gradient."""
+    """Σ over the data group; the gradient of each rank's input is Σ over
+    the group of the output's gradient."""
 
     @staticmethod
     def forward(ctx, t):
         t = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=_data_group)
         return t
 
     @staticmethod
@@ -168,33 +202,53 @@ class _SumOverRanks(torch.autograd.Function):
 
 
 def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks, differentiably. With each rank's loss a
-    function of the sum, the rank's gradient is then the sum over the ranks
-    of their losses' gradients: what :func:`average_gradients` divides by W
-    is the gradient of the global batch's mean loss. No group: ``t``."""
+    """``t`` summed over the data group, differentiably. With each rank's
+    loss a function of the sum, the rank's gradient is then the sum over
+    the group of their losses' gradients: what :func:`average_gradients`
+    divides by the data W is the gradient of the global batch's mean loss.
+    No group: ``t``."""
     if not initialized():
         return t
     return _SumOverRanks.apply(t)
 
 
-def average_gradients(params) -> None:
-    """Replace each parameter's ``.grad`` by its mean over the ranks, in one
-    all-reduce of their concatenation. The ranks run the same model on the
-    same composition of batch, so the same parameters have a gradient on
-    each; those without one are left so."""
-    if world() <= 1:
-        return
-    grads = [p.grad for p in params if p.grad is not None]
+def _all_reduce_grads(grads, group, divisor: int = 1) -> None:
+    """Each tensor of ``grads`` summed over ``group`` (then divided by
+    ``divisor``), in one all-reduce of their concatenation."""
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
-    flat /= world()
+    dist.all_reduce(flat, group=group)
+    if divisor != 1:
+        flat /= divisor
     offset = 0
     for g in grads:
         n = g.numel()
         g.copy_(flat[offset:offset + n].view_as(g))
         offset += n
+
+
+def average_gradients(params) -> None:
+    """Replace each parameter's ``.grad`` by its mean over the data group, in
+    one all-reduce of their concatenation. The ranks run the same model on
+    the same composition of batch, so the same parameters have a gradient
+    on each; those without one are left so."""
+    if data_world() <= 1:
+        return
+    _all_reduce_grads([p.grad for p in params if p.grad is not None], _data_group,
+                      data_world())
+
+
+def sum_gradients(params, group) -> None:
+    """Replace each parameter's ``.grad`` by its sum over ``group`` (a tp
+    group), a zero gradient standing for a rank's missing one: the
+    replicated parameters of a tensor-parallel block, whose use on a rank
+    covers only its channels (``parallel.mesh.tp_partial_parameters``)."""
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    _all_reduce_grads([p.grad for p in params], group)
 
 
 def broadcast_module(module: torch.nn.Module) -> None:

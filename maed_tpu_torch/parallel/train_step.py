@@ -22,6 +22,12 @@ no ``DistributedDataParallel`` wrapper, so the model keeps its own
 state_dict names and a step may run the model twice (video, then image)
 before its one backward; every rank starts from rank 0's weights
 (``dist.broadcast_module``).
+
+Tensor parallel (a model built with a ``parallel.mesh`` of tp > 1): Adam
+runs on each rank's shards. Before the update the gradients of the
+blocks' replicated parameters, partial on each rank, are summed over the
+tp group (``parallel.mesh.tp_partial_parameters``), then every gradient is
+averaged over the data group.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from maed_tpu_torch.core.loss import LossWeights, image_loss, merge_loss, video_loss
 from maed_tpu_torch.parallel import dist
+from maed_tpu_torch.parallel.mesh import model_mesh, tp_partial_parameters
 
 
 def warmup_milestone_schedule(base_lr, warmup_epoch, warmup_factor, milestones,
@@ -67,6 +74,16 @@ class TrainOptimizer:
                  scheduler: torch.optim.lr_scheduler.LambdaLR, accum_steps: int = 1):
         self.optimizer, self.scheduler, self.accum_steps = optimizer, scheduler, accum_steps
         self.calls = 0
+        # a tensor-parallel model's replicated block parameters and its tp group
+        self.tp_partial, self.tp_group = [], None
+
+    def split_over(self, model) -> None:
+        """Sum the gradients of ``model``'s tensor-parallel blocks'
+        replicated parameters over its tp group before each update (nothing
+        for a model without a mesh)."""
+        mesh = model_mesh(model)
+        self.tp_partial = tp_partial_parameters(model)
+        self.tp_group = None if mesh is None else mesh.tp_group
 
     def zero_grad(self) -> None:
         if self.calls % self.accum_steps == 0:
@@ -77,6 +94,8 @@ class TrainOptimizer:
         self.calls += 1
         if self.calls % self.accum_steps:
             return False
+        if self.tp_partial:
+            dist.sum_gradients(self.tp_partial, self.tp_group)
         dist.average_gradients(p for group in self.optimizer.param_groups
                                for p in group["params"])
         self.optimizer.step()
@@ -131,8 +150,11 @@ def make_train_step(model, optimizer: TrainOptimizer, smpl_model, loss_weights: 
     nt_vid / (nt_vid + nt_img)), one backward and ``optimizer.step()``. Its
     dropout masks come from ``generator``; ``plain=True`` runs the kernels'
     plain versions. Returns the total loss and the merged terms as detached
-    tensors on the device (reading them waits for the step).
+    tensors on the device (reading them waits for the step). A
+    tensor-parallel model's replicated block gradients are summed over its
+    tp group at each update (:meth:`TrainOptimizer.split_over`).
     """
+    optimizer.split_over(model)
 
     def step(vid_batch: dict | None, img_batch: dict | None) -> dict:
         nt_vid = 0 if vid_batch is None else (

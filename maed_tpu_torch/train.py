@@ -6,17 +6,24 @@
         [--allow_synthetic_smpl] [KEY VALUE ...]
     python -m torch.distributed.run --standalone --nproc_per_node W \
         -m maed_tpu_torch.train --cfg ... [KEY VALUE ...]
+    MAED_MESH_TP=2 [MAED_MESH_DCN=d] python -m torch.distributed.run \
+        --standalone --nproc_per_node W -m maed_tpu_torch.train --cfg ...
 
 Port of the JAX package's ``train.py``. Under torchrun, W processes train
 data parallel (``parallel.dist``: NCCL, one card a process; gloo with
 ``DEVICE cpu``), each on its shard of every loader, as one process on the
 global batch of W times the config's batch sizes does; rank 0 alone logs
 and writes, and every rank draws its dropout masks from a generator of its
-own (rank 0's from the seed a single process uses). The model from the
-config's MODEL section (``core.builder.build_train_model`` in f32: stage 1's
-ResNet-50 + KTD, stage 2's STE + KTD), then the published encoder init
-(``--init_backbone``, ``utils.pretrained``) and a stage-1 checkpoint's
-encoder (``--pretrained``), in that order; the loaders
+own (rank 0's from the seed a single process uses). MAED_MESH_TP and
+MAED_MESH_DCN lay the W ranks out as the JAX package's ``train.py`` reads
+them (``parallel.mesh.make_mesh``: W = dcn x dp x tp): each ViT block is
+split over the tp ranks, which hold the same batch and draw the same masks
+(one generator a data rank), and the data goes over the dcn x dp data
+ranks. MAED_MESH_TP must divide the heads and the MLP's width 4C. The
+model from the config's MODEL section (``core.builder.build_train_model``
+in f32: stage 1's ResNet-50 + KTD, stage 2's STE + KTD), then the published
+encoder init (``--init_backbone``, ``utils.pretrained``) and a stage-1
+checkpoint's encoder (``--pretrained``), in that order; the loaders
 (``data.loaders.get_data_loaders``), Adam and its schedule
 (``parallel.train_step.make_optimizer``), the step
 (``parallel.train_step.make_train_step``) and ``core.trainer.Trainer``.
@@ -31,7 +38,7 @@ from __future__ import annotations
 import os
 import sys
 
-# rank r > 0 seeds its dropout generator with SEED_VALUE + r * this
+# data rank r > 0 seeds its dropout generator with SEED_VALUE + r * this
 RANK_SEED_STRIDE = 1_000_003
 
 
@@ -50,6 +57,7 @@ def main(argv=None):
     from maed_tpu_torch.data.loaders import get_data_loaders
     from maed_tpu_torch.ops.image import apply_device_preproc
     from maed_tpu_torch.parallel import dist
+    from maed_tpu_torch.parallel.mesh import make_mesh
     from maed_tpu_torch.parallel.train_step import make_optimizer, make_train_step
     from maed_tpu_torch.utils.checkpoint import load_pretrained_state
     from maed_tpu_torch.utils.logging_utils import create_logger, prepare_output_dir
@@ -57,6 +65,9 @@ def main(argv=None):
 
     args, cfg, _ = parse_args(argv)
     rank, world = dist.init_from_env(cpu=str(cfg.DEVICE).lower() == "cpu")
+    # the JAX train.py's mesh from the environment (default: data parallel over every rank)
+    mesh = make_mesh(tp=int(os.environ.get("MAED_MESH_TP", "1")),
+                     dcn=int(os.environ.get("MAED_MESH_DCN", "1")))
     device = device_of(cfg)
     configure_backends(cfg)
 
@@ -66,7 +77,7 @@ def main(argv=None):
         logger = create_logger(logdir)
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         logger.info(f"device: {device} ({name}), torch {torch.__version__}, process {rank} of "
-                    f"{world}")
+                    f"{world}, mesh {mesh.shape}")
     # every rank enters the checkpoint writes, which rank 0 makes in its directory
     logdir = dist.broadcast_str_from_rank0(logdir)
 
@@ -89,8 +100,13 @@ def main(argv=None):
         log(f"=> loaded the pretrained encoder from {args.pretrained}"
             + (f"; {len(unused)} keys unused: {unused[:5]}" if unused else ""))
     dist.broadcast_module(model)  # every rank starts from rank 0's weights
+    if mesh.tp > 1:  # then keeps its shards of them
+        model, _ = build_train_model(**model_config(cfg), device=device,
+                                     state_dict=model.state_dict(), mesh=mesh,
+                                     allow_synthetic_smpl=args.allow_synthetic_smpl)
 
-    loaders = get_data_loaders(cfg, rank=rank, world_size=world, verbose=rank == 0)
+    loaders = get_data_loaders(cfg, rank=mesh.data_rank, world_size=mesh.data_world,
+                               verbose=rank == 0)
     steps_per_epoch = (
         cfg.TRAIN.NUM_ITERS_PER_EPOCH
         if cfg.TRAIN.NUM_ITERS_PER_EPOCH > 0
@@ -101,8 +117,9 @@ def main(argv=None):
         kp_2d=cfg.LOSS.KP_2D_W, kp_3d=cfg.LOSS.KP_3D_W, shape=cfg.LOSS.SHAPE_W,
         pose=cfg.LOSS.POSE_W, norm=cfg.LOSS.SMPL_NORM, accl=cfg.LOSS.ACCL_W,
     )
-    # each rank its own masks; rank 0 those of a single process
-    generator = torch.Generator(device=device).manual_seed(seed + RANK_SEED_STRIDE * rank)
+    # each data rank its own masks; data rank 0 those of a single process
+    generator = torch.Generator(device=device).manual_seed(
+        seed + RANK_SEED_STRIDE * mesh.data_rank)
     train_step = make_train_step(model, optimizer, smpl, weights, generator)
 
     def eval_forward(images, J_regressor=None):

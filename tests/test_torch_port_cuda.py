@@ -240,6 +240,57 @@ def test_dense_f32_kernel_any_width(cuda, M, N, K):
         assert_close(got, TMLP.dense_reference(a, w, b, epilogue, r), 1e-4, what=epilogue)
 
 
+# the row-parallel epilogue of tensor parallelism (the product alone): fc2's
+# and proj's shard shapes at tp = 2 (25216 flagship tokens, 768 outputs,
+# 1536 / 384 inputs) and ragged ones
+@pytest.mark.parametrize("M, N, K", [(25216, 768, 1536), (25216, 768, 384), (100, 264, 776),
+                                     (63, 8, 80), (1, 8, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_partial_epilogue(cuda, dtype, M, N, K):
+    """The GEMM with the RowPartial epilogue (``dense``'s "fc2_partial" and
+    "proj_partial") against its plain version, f32 at C's f32 limit (1e-4),
+    bf16 at the bias epilogue's (one rounding); each launch counts under its
+    own name."""
+    rng = np.random.RandomState(M + N + K)
+    a = to_torch(rng.randn(M, K), dtype).to(cuda)
+    w = to_torch(rng.randn(N, K) / np.sqrt(K), dtype).to(cuda)
+    limits = (1e-4, 0.0) if dtype == torch.float32 else DENSE_LIMITS["bias"]
+    for epilogue, count in (("fc2_partial", "ln_mlp_fc2_partial"),
+                            ("proj_partial", "gate_proj_partial")):
+        before = dict(kernels.LAUNCHES)
+        got = TMLP.dense(a, w, None, epilogue)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == dict(before, **{count: before[count] + 1})
+        assert got.dtype == dtype and got.shape == (M, N)
+        assert_close(got.float(), TMLP.dense_reference(a, w, None, epilogue).float(), *limits,
+                     what=epilogue)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_mlp_sums_to_the_whole(cuda, dtype):
+    """C split at tp = 2 in one process: tp rank 0's fused_ln_mlp on the
+    first half of the hidden columns (b2 and the residual added there) and
+    rank 1's fused_ln_mlp_partial on the second, each against its plain
+    version at C's limits, and the two summed (in f32, rounded once) against
+    the whole fused_ln_mlp at the same limits."""
+    args = [a.to(cuda) for a in torch_mlp_args(mlp_inputs(np.random.RandomState(19), (197, 768),
+                                                          3072), dtype)]
+    x, s, b, w1, b1, w2, b2 = args
+    limits = (1e-4, 0.0) if dtype == torch.float32 else (5e-2, 2e-2)
+    parts = []
+    for t, (fused, plain) in enumerate(((TMLP.fused_ln_mlp, TMLP.ln_mlp_reference),
+                                        (TMLP.fused_ln_mlp_partial,
+                                         TMLP.ln_mlp_partial_reference))):
+        cols = slice(t * 1536, (t + 1) * 1536)
+        part = (x, s, b, w1[cols].contiguous(), b1[cols].contiguous(), w2[:, cols].contiguous(),
+                *((b2,) if t == 0 else ()))
+        got = fused(*part, 1e-6)
+        assert_close(got.float(), plain(*part, 1e-6).float(), *limits)
+        parts.append(got.float())
+    assert_close((parts[0] + parts[1]).to(dtype).float(), TMLP.fused_ln_mlp(*args).float(),
+                 *limits)
+
+
 @pytest.mark.parametrize("M, C, H", [(100, 1024, 4096), (100, 1280, 5120), (100, 768, 2304)])
 def test_f32_block_products_at_the_stock_widths(cuda, M, C, H):
     """C, D and E in f32 at the stock ViTs' widths (C 1024 and 1280 with

@@ -409,6 +409,28 @@ def test_sharded_loader_order_equals_jax(shuffle, world, drop_last):
             assert_items(g, w)
 
 
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_unpadded_shards_take_each_index_once(world):
+    """``pad=False`` (the eval CLI's data ranks): rank r takes indices r, r +
+    W, ... of the 23, none twice and none left out, in batches of 3 with a
+    ragged last one, and its length counts them; the padded loader repeats
+    the first indices to even the shards."""
+    seen = []
+    for rank in range(world):
+        loader = TL.ShardedLoader(Ids(23), 3, rank=rank, world_size=world, drop_last=False,
+                                  prefetch=0, pad=False)
+        batches = list(loader)
+        assert len(batches) == len(loader)
+        got = np.concatenate([b["index"].reshape(-1) for b in batches]).tolist()
+        assert got == list(range(rank, 23, world))
+        seen += got
+    assert sorted(seen) == list(range(23))
+    padded = sum(len(np.concatenate([b["index"].reshape(-1) for b in TL.ShardedLoader(
+        Ids(23), 3, rank=r, world_size=world, drop_last=False, prefetch=0)]))
+        for r in range(world))
+    assert padded == -(-23 // world) * world
+
+
 def test_workers_give_the_same_batches(dbs, monkeypatch):
     """Workers started from a forkserver, as they are on the card (whose
     process holds a CUDA context), which also pickles the dataset."""

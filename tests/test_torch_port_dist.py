@@ -9,8 +9,10 @@ metrics are the ranks' mean, a SIGTERM to one rank stops both at the same
 iteration, ``TRAIN.RESUME auto`` then ends bit for bit where the
 uninterrupted two-rank run ends, checkpoints load between one and two
 processes, and the validation equals the JAX package's count-weighted
-``sync_metrics`` and one process's evaluation of the whole set. Each
-collective of ``parallel.dist`` in two ranks. (Two ranks on halves of the
+``sync_metrics`` and one process's evaluation of the whole set. The eval
+CLI under torchrun with two ranks, data parallel and at MAED_MESH_TP=2,
+gives the one-process eval CLI's metrics. Each collective of
+``parallel.dist`` in two ranks. (Two ranks on halves of the
 batches against JAX's step on the whole batches: tests/test_torch_port_train.py
 for stage 2, tests/test_torch_port_stage1.py for stage 1.)
 
@@ -36,6 +38,7 @@ from jax.experimental import multihost_utils
 from maed_tpu.core.evaluate import Evaluator as JEvaluator
 from maed_tpu.models import MAED as JMAED
 from maed_tpu.utils.smpl_io import synthetic_smpl_model as j_synthetic_smpl
+from maed_tpu_torch import eval as eval_cli
 from maed_tpu_torch.core.builder import init_weights_
 from maed_tpu_torch.core.evaluate import Evaluator
 from maed_tpu_torch.models.maed import MAED
@@ -53,14 +56,15 @@ from torch_port_common import (RANKS_SCRIPT, Ranks, one_torch_thread, ranks_env,
 
 # --- the train CLI under torchrun, two gloo ranks -----------------------------
 
-def torchrun(workdir, out, *opts, record=None, stop=(-1, 0)):
+def torchrun(workdir, out, *opts, record=None, stop=(-1, 0), env=None):
     """Start ``python -m torch.distributed.run --standalone --nproc_per_node 2``
     of the train CLI with OUTPUT_DIR ``<workdir>/<out>`` (DEVICE cpu: gloo),
     each rank's output in ``<workdir>/<out>_logs``: ``-m
     maed_tpu_torch.train``, or, with ``record``, tests/torch_port_ranks.py's
     ``cli``, which records each rank's own step metrics and validation
     pairs there and stops rank ``stop[0]`` by SIGTERM after its
-    ``stop[1]``-th step. Returns the process."""
+    ``stop[1]``-th step; ``env`` is added to the environment. Returns the
+    process."""
     logs = workdir / f"{out}_logs"
     target = (["-m", "maed_tpu_torch.train"] if record is None else
               [str(RANKS_SCRIPT), "cli", str(record), str(stop[0]), str(stop[1])])
@@ -69,8 +73,8 @@ def torchrun(workdir, out, *opts, record=None, stop=(-1, 0)):
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
            "--log-dir", str(logs), "--redirects", "3", *target, "--cfg", "tiny.yaml",
            "--allow_synthetic_smpl", "OUTPUT_DIR", str(workdir / out), *opts]
-    return subprocess.Popen(cmd, cwd=workdir, env=ranks_env(), stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    return subprocess.Popen(cmd, cwd=workdir, env=ranks_env(**(env or {})),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def finish(proc, timeout=300):
@@ -88,11 +92,13 @@ def rank_output(logs, rank):
 @pytest.fixture(scope="module")
 def two_ranks_started(workdir):
     """Two-rank runs of the tiny config, started at once: one uninterrupted,
-    and one with TRAIN.RESUME auto whose rank 1 alone gets a SIGTERM after
-    its first step."""
+    one with TRAIN.RESUME auto whose rank 1 alone gets a SIGTERM after its
+    first step, and one at MAED_MESH_TP=2 (one data rank, each block split
+    over the two)."""
     return {"u": torchrun(workdir, "ddp_u", record=workdir / "record_u"),
             "p": torchrun(workdir, "ddp_p", "TRAIN.RESUME", "auto", record=workdir / "record_p",
-                          stop=(1, 1))}
+                          stop=(1, 1)),
+            "tp": torchrun(workdir, "tp_u", env={"MAED_MESH_TP": "2"})}
 
 
 @pytest.fixture(scope="module")
@@ -106,8 +112,33 @@ def one_process(workdir, two_ranks_started):
     return trainer, path
 
 
+EVAL_ARGS = ("--cfg", "tiny.yaml", "--eval_ds", "3dpw", "--eval_set", "val",
+             "--allow_synthetic_smpl")
+
+
 @pytest.fixture(scope="module")
-def two_ranks(workdir, two_ranks_started, one_process, jax_remat, collectives):
+def eval_ranks_started(workdir, one_process):
+    """``python -m torch.distributed.run --nproc_per_node 2`` of the eval CLI
+    on the one-process checkpoint (tests/torch_port_ranks.py's ``eval``
+    records what each rank's ``main`` returned): data parallel, and at
+    MAED_MESH_TP=2; started as soon as the checkpoint exists."""
+    procs = {}
+    for name, env in (("eval_dp", {}), ("eval_tp", {"MAED_MESH_TP": "2"})):
+        record = workdir / name
+        record.mkdir()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+               "2", "--log-dir", str(workdir / f"{name}_logs"), "--redirects", "3",
+               str(RANKS_SCRIPT), "eval", str(record), *EVAL_ARGS, "--checkpoint",
+               str(one_process[1])]
+        procs[name] = subprocess.Popen(cmd, cwd=workdir, env=ranks_env(**env),
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    return procs
+
+
+@pytest.fixture(scope="module")
+def two_ranks(workdir, two_ranks_started, one_process, jax_remat, collectives,
+              eval_ranks_started):
     """The runs of ``two_ranks_started`` once ended (``one_process`` and
     ``jax_remat`` are made and ``collectives`` started meanwhile), then the
     preempted command again, which resumes it."""
@@ -121,9 +152,10 @@ def two_ranks(workdir, two_ranks_started, one_process, jax_remat, collectives):
     def recorded(name):
         return [json.loads((workdir / name / f"rank{r}.json").read_text()) for r in range(2)]
 
+    (tp,) = (workdir / "tp_u").iterdir()
     return dict(u=uninterrupted, preempted=first[0], resumed=resumed,
                 record_u=recorded("record_u"), record_p=recorded("record_p"),
-                logs_u=workdir / "ddp_u_logs")
+                logs_u=workdir / "ddp_u_logs", tp=tp)
 
 
 def test_two_ranks_rank0_writes_the_global_metrics(two_ranks):
@@ -236,6 +268,59 @@ def test_two_rank_validation_equals_one_process_on_the_whole_set(one_process, tw
         JEvaluator.sync_metrics(None, *pairs[1])  # rank 1's local vector, gathered first
         jax_eval, jax_poses = JEvaluator.sync_metrics(None, *pairs[0])
     assert jax_poses == ev["poses"] and jax_eval == ev["eval"]
+
+
+def test_tp2_train_cli_equals_one_process(workdir, two_ranks, monkeypatch):
+    """The train CLI at MAED_MESH_TP=2 under torchrun (two gloo ranks, one
+    data rank: both take the one process's batches and masks, each ViT block
+    split over them) records the one-process CLI's step losses (rtol 1e-5:
+    the partial sums' order, in f32); its checkpoint holds the full,
+    reference-named weights and Adam moments, which load ``strict=True``
+    into the one-process trainer; its split validation equals one process's
+    ``Evaluator.run`` of those weights over the whole set (rtol 1e-6, as the
+    two-rank validation is held)."""
+    one = run(workdir, monkeypatch, "tp_ref")
+    want, got = step_records(one.logdir), step_records(two_ranks["tp"])
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)
+    saved = ckpt.load_checkpoint(str(two_ranks["tp"] / "epoch_0.pth.tar"))
+    state = one.state(0, 1.0)
+    assert saved["state_dict"].keys() == state["state_dict"].keys()
+    for k, v in state["state_dict"].items():
+        assert saved["state_dict"][k].shape == v.shape, k
+    one.model.load_state_dict(saved["state_dict"], strict=True)
+    one.optimizer.optimizer.load_state_dict(saved["optimizer"])
+    (ev,) = [r for r in records(two_ranks["tp"]) if "eval" in r]
+    model = copy.deepcopy(one.model).eval()
+    want, poses = Evaluator(one.smpl_model).run(
+        lambda x, j: model(x, one.smpl_model, J_regressor=j), one.valid_loader, seqlen=4,
+        dataset_name="3dpw", batch_size=2, allow_missing_regressor=True, verbose=False)
+    assert ev["poses"] == poses
+    for k, v in want.items():
+        np.testing.assert_allclose(ev["eval"][k], v, rtol=1e-6, err_msg=k)
+
+
+def test_eval_cli_over_two_ranks_equals_one_process(workdir, one_process, eval_ranks_started,
+                                                   two_ranks, monkeypatch):
+    """The eval CLI under torchrun: two data ranks (each on two of the four
+    windows, unpadded, then ``sync_metrics``) give the one-process eval
+    CLI's pose count and per-pose metrics (MPJPE, PA-MPJPE, PVE) at rtol
+    1e-6, as the two-rank validation does, on both ranks; at MAED_MESH_TP=2
+    (one data rank, the model split over the two) all five metrics, on both
+    ranks."""
+    monkeypatch.chdir(workdir)
+    want, poses = eval_cli.main([*EVAL_ARGS, "--checkpoint", str(one_process[1])])
+    for name, keys in (("eval_dp", ("mpjpe", "pa-mpjpe", "pve")), ("eval_tp", tuple(want))):
+        finish(eval_ranks_started[name])
+        for r in range(2):
+            got = json.loads((workdir / name / f"rank{r}.json").read_text())
+            assert got["poses"] == poses, name
+            for k in keys:
+                np.testing.assert_allclose(got["metrics"][k], want[k], rtol=1e-6,
+                                           err_msg=f"{name} rank {r} {k}")
 
 
 # --- parallel.dist's collectives in two ranks ----------------------------------

@@ -7,7 +7,10 @@ a coupling model on the CPU, drives ``core.evaluate.Evaluator.run`` over
 the coupling one and takes one stage-2 train step (``build_train_model``,
 ``make_optimizer``, ``make_train_step``: both forwards, the backward
 through the kernels' autograd Functions, the Adam update), and the same
-step of a ``remat=True`` model, whose losses are the same. Then it runs
+step of a ``remat=True`` model, whose losses are the same, and the same
+step again through the tensor-parallel layer (``parallel.mesh.make_mesh``
+at tp = 1 in a one-process gloo group, the model built with that mesh),
+whose losses are the same too. Then it runs
 ``python -m maed_tpu_torch.train`` on a tiny config (``DEVICE cpu``, 2
 iterations, 1 epoch) over synthetic DBs written as plain pickles, whose
 frames are the JPEGs of tests/torch_port_data, and
@@ -100,6 +103,26 @@ step = make_train_step(model, make_optimizer(Optim, 10, model.parameters()), smp
                        torch.Generator().manual_seed(0))
 remat_out = step(vid, img)
 assert all(torch.equal(remat_out[k], out[k]) for k in out), (remat_out, out)
+import socket
+import torch.distributed as tdist
+from maed_tpu_torch.parallel import dist as pdist
+from maed_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_state_dict
+with socket.socket() as sock:
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+mesh = make_mesh(tp=1)
+model, smpl = build_train_model(num_blocks=1, num_heads=2, hidden_dim=32, img_size=32,
+                                device="cpu", seed=0, allow_synthetic_smpl=True, smpl_dir="absent",
+                                mesh=mesh)
+step = make_train_step(model, make_optimizer(Optim, 10, model.parameters()), smpl, LossWeights(),
+                       torch.Generator().manual_seed(mesh.data_rank))
+mesh_out = step(vid, img)
+assert all(torch.equal(mesh_out[k], out[k]) for k in out), (mesh_out, out)
+half = shard_state_dict(model.state_dict(), Mesh(1, 1, 2, rank=1))
+assert half["encoder.blocks.0.attn.qkv.weight"].shape == (1152, 768)
+assert half["encoder.blocks.0.mlp.fc2.weight"].shape == (768, 1536)
+pdist.shutdown()
 
 import glob, os, pickle, runpy
 os.makedirs("data/database")

@@ -351,12 +351,16 @@ def jax_stage1_step(tmp_path_factory):
         model, params, stats = jax_stage1_maed(mp, "ktd", 20)
         batch = image_batch(21)
         halves = [{k: to_torch(v[2 * r:2 * r + 2]) for k, v in batch.items()} for r in range(2)]
-        ranks = Ranks([dict(model=dict(encoder="cnn", decoder="ktd", hidden_dim=32, img_size=RES,
-                                       decoder_drop=0.0, smpl_dir="absent"),
-                            resnet=dict(layers=LAYERS, channels=CHANNELS), num_verts=NV,
-                            state_dict=state_dict_from_jax(params, stats),
-                            optim={k: v for k, v in vars(_Optim).items() if k.isupper()},
-                            calls=[(None, halves)])], tmp_path_factory.mktemp("two_ranks"))
+        job = dict(model=dict(encoder="cnn", decoder="ktd", hidden_dim=32, img_size=RES,
+                              decoder_drop=0.0, smpl_dir="absent"),
+                   resnet=dict(layers=LAYERS, channels=CHANNELS), num_verts=NV,
+                   state_dict=state_dict_from_jax(params, stats),
+                   optim={k: v for k, v in vars(_Optim).items() if k.isupper()},
+                   calls=[(None, halves)])
+        # then tp = 2: both ranks on the whole batch, the one data rank's
+        whole = [{k: to_torch(v) for k, v in batch.items()}]
+        ranks = Ranks([job, dict(job, mesh=dict(tp=2), calls=[(None, whole)])],
+                      tmp_path_factory.mktemp("two_ranks"))
         smpl = j_synthetic_smpl(NV, 0)
         with jax.enable_x64(True):
             tx = JS.make_optimizer(_Optim, 10)
@@ -408,6 +412,22 @@ def test_stage1_train_step_matches_jax(monkeypatch, jax_stage1_step):
     named = dict(tmod.named_parameters())
     assert_stage1_step(got, {k: p.grad for k, p in named.items()},
                        {k: p.detach() for k, p in named.items()}, tmod.encoder, want)
+
+
+def test_tp2_ranks_match_jax_on_the_whole_batch(jax_stage1_step):
+    """Stage 1 at tp = 2 (``parallel.mesh``): the ResNet and KTD are
+    replicated, both ranks take the whole batch of the one data rank, and
+    BatchNorm's moments and the loss's sums run over the data group (a
+    sum over the tp group would count the batch twice), so the step is
+    JAX's, as ``assert_stage1_step`` holds it; both ranks end equal bit for
+    bit."""
+    want = jax_stage1_step
+    ranks = [results[1] for results in want["ranks"].results()]
+    got = ranks[0]
+    (metrics,) = got["metrics"]
+    encoder_stats = {k[len("encoder."):]: v for k, v in got["stats"].items()}
+    assert_stage1_step(metrics, got["grads"], got["params"], encoder_stats, want)
+    assert ranks[1]["same_as_rank0"]
 
 
 def test_two_ranks_on_halves_match_jax_on_the_whole_batch(jax_stage1_step):

@@ -16,7 +16,11 @@ with a partial SMPL selection, and two images a step):
   is steep (|g| near eps; ``_assert_params``); for GRAD_ACCUM_STEPS = 2 (two
   calls, the second updating) and for one update a call; the same steps
   in two gloo processes, each on its half of the batches (data parallel,
-  ``parallel.dist``), against JAX's on the whole batches. A parallel block
+  ``parallel.dist``), against JAX's on the whole batches; the same two
+  processes at tp = 2 (``parallel.mesh``: each ViT block split over them,
+  one head each, both on the whole batches) against JAX's step, and with
+  every dropout and drop-path rate positive against the port's one-process
+  step with the same masks. A parallel block
   in training with every dropout rate positive against the JAX block's
   stochastic path at 1e-9. KTD's dropout is 0 on both sides here; the JAX model gets it
   through ``monkeypatch`` of the ``KTD`` its ``MAED`` builds;
@@ -196,17 +200,26 @@ def _adam_mu(opt_state):
     return next(s for s in opt_state if isinstance(s, optax.ScaleByAdamState)).mu
 
 
+# the rates of the tp = 2 step with dropout (KTD's too)
+TP_RATES = dict(drop_rate=0.1, attn_drop_rate=0.2, drop_path_rate=0.3, decoder_drop=0.5)
+
+
 def start_two_ranks(params, tmp_path):
-    """The port's step in two gloo processes, each on its half of the
-    batches (one 2D clip, one 3D clip, one image), from ``params``: one
-    update on batch 1, and GRAD_ACCUM_STEPS = 2 over batches 1 and 2;
+    """The port's step in two gloo processes, from ``params``: data
+    parallel, each on its half of the batches (one 2D clip, one 3D clip,
+    one image), one update on batch 1, and GRAD_ACCUM_STEPS = 2 over
+    batches 1 and 2; then tensor parallel (tp = 2, one data rank: both on
+    the whole of batch 1), one update, without dropout and with TP_RATES;
     started now, their results read by the test."""
     halves = [_halves(1), _halves(2)]
+    whole = [tuple([_tree(b, to_torch)] for b in _batches(1))]
     job = dict(model=dict(img_size=RES, decoder_drop=0.0, **CONFIG),
                state_dict=state_dict_from_jax(params), num_verts=64)
     optim = {k: v for k, v in vars(_Optim).items() if k.isupper()}
+    tp = dict(job, optim=optim, calls=whole, mesh=dict(tp=2))
     return Ranks([dict(job, optim=optim, calls=halves[:1]),
-                  dict(job, optim=dict(optim, GRAD_ACCUM_STEPS=2), calls=halves)], tmp_path)
+                  dict(job, optim=dict(optim, GRAD_ACCUM_STEPS=2), calls=halves), tp,
+                  dict(tp, model=dict(job["model"], **TP_RATES))], tmp_path)
 
 
 @pytest.fixture(scope="module")
@@ -261,10 +274,11 @@ def jax_run(tmp_path_factory):
                 accum_params=jax.tree.map(np.asarray, accum_params))
 
 
-def _port_model(params, decoder_drop=0.0):
+def _port_model(params, decoder_drop=0.0, **rates):
     """The port's MAED in f64, parameters too (as JAX's: the stem
     standardizes its weights in their own dtype), in training mode."""
-    model = MAED(img_size=RES, decoder_drop=decoder_drop, dtype=torch.float64, **CONFIG).double()
+    model = MAED(img_size=RES, decoder_drop=decoder_drop, dtype=torch.float64, **CONFIG,
+                 **rates).double()
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model.train()
 
@@ -381,6 +395,53 @@ def test_two_ranks_on_halves_match_jax_on_the_whole_batch(jax_run, accum):
     _assert_grads(got["grads"], grads)
     _assert_params((got["params"], got["grads"]), params, jax_run["params"], grads)
     assert ranks[1]["same_as_rank0"]
+
+
+# --- tensor parallel: two gloo ranks, each block split over them --------------
+
+def test_tp2_step_matches_jax_on_the_whole_batch(jax_run):
+    """tp = 2 (``parallel.mesh``; CONFIG's two heads, one a rank; fc1 and fc2
+    split at 1536 hidden columns each): the step on the whole batch 1
+    against JAX's, as the data-parallel ranks are held: the loss terms at
+    LOSS_RTOL, every parameter's gradient gathered to its full name (the
+    replicated ones summed over the group: ts_attn, the norms, proj's and
+    fc2's biases) at GRAD_ATOL x the largest, the updated parameters as
+    ``_assert_params`` holds them; both ranks end equal bit for bit."""
+    ranks = [results[2] for results in jax_run["ranks"].results()]
+    got, run = ranks[0], jax_run["runs"][0]
+    (metrics,) = got["metrics"]
+    _assert_metrics(metrics, run["metrics"])
+    _assert_grads(got["grads"], run["grads"])
+    for name in ("encoder.blocks.0.attn.ts_attn.weight", "encoder.blocks.0.norm1.weight",
+                 "encoder.blocks.0.attn.proj.bias", "encoder.blocks.0.mlp.fc2.bias",
+                 "encoder.blocks.0.attn.qkv.weight", "encoder.blocks.0.mlp.fc1.weight"):
+        assert got["grads"][name].shape == state_dict_from_jax(run["grads"])[name].shape
+    _assert_params((got["params"], got["grads"]), run["params"], jax_run["params"], run["grads"])
+    assert ranks[1]["same_as_rank0"]
+
+
+def test_tp2_step_with_dropout_equals_the_one_process_step(jax_run):
+    """tp = 2 with every dropout and drop-path rate positive (TP_RATES): the
+    ranks draw each mask whole from the data rank's generator (seed 0) and
+    take their heads' or hidden columns' part, so their step equals the
+    port's one-process step from generator seed 0: the loss terms at
+    LOSS_RTOL, the gradient at GRAD_ATOL x the largest, the parameters at
+    PARAM_ATOL plus Adam's steep-update allowance."""
+    got = jax_run["ranks"].results()[0][3]
+    model = _port_model(jax_run["params"], **TP_RATES)
+    want = _run(_port_step(model, 1, torch.Generator().manual_seed(0)), 1)
+    (metrics,) = got["metrics"]
+    _assert_metrics(metrics, {k: float(v) for k, v in want.items()})
+    params, grads = _state(model)
+    largest = max(float(g.abs().max()) for g in grads.values())
+    for name, g in grads.items():
+        assert_close(got["grads"][name], g, GRAD_ATOL * largest, what=name)
+    start = state_dict_from_jax(jax_run["params"])
+    for name, p in params.items():
+        g, eps = grads[name] + _Optim.WD * start[name], 1e-8
+        limit = PARAM_ATOL + FIRST_LR * eps / (g.abs() + eps) ** 2 * (
+            got["grads"][name] - grads[name]).abs()
+        assert bool(((got["params"][name] - p).abs() <= limit).all()), name
 
 
 # --- dropout -----------------------------------------------------------------
