@@ -1,0 +1,3 @@
+"""The device's idle share of the traced steps (readers.idle_share)."""
+
+from benchmark.harness.readers import idle_share as read  # noqa: F401

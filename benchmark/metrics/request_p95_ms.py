@@ -1,0 +1,3 @@
+"""The 95th percentile of the 32-clip served requests (readers.request_p95_ms)."""
+
+from benchmark.harness.readers import request_p95_ms as read  # noqa: F401
